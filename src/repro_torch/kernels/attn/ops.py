@@ -1,0 +1,161 @@
+"""Wrappers of the hand-written attention kernels K3 and K4.
+
+``flash_decode`` and ``flash_prefill`` keep the signatures of
+``repro.kernels.attn.ops`` (minus ``tp_axis``, and minus ``block_w`` and
+``interpret``: the CUDA kernels tile by the warp width and have no
+interpret mode).  For tensors on the CPU they compute the plain versions
+in :mod:`.ref`; for tensors on the card they check device, dtype, shape
+and contiguity, launch the kernel on the current stream, and raise if the
+launch fails.  There is no fallback from one to the other.
+
+``LAUNCHES`` counts kernel launches per wrapper — incremented where the
+kernel launches and nowhere else — so a run can show that its main path
+went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.core.packed import container_dtype
+from repro_torch.core.quant import exact_pow2
+
+from . import build
+from . import ref as R
+
+Tensor = torch.Tensor
+
+LAUNCHES: Dict[str, int] = {"flash_decode": 0, "flash_prefill": 0}
+
+_DTYPE_CODE = {torch.int8: 0, torch.int16: 1, torch.float32: 2}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _storage_dtype(width: Optional[int]) -> torch.dtype:
+    return torch.float32 if width is None else container_dtype(width)
+
+
+def _check(name: str, t: Tensor, shape, dtype, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _steps(B: int, k_exp, v_exp, width: Optional[int], device) -> Tensor:
+    """Per-slot dequant steps [B, 2] = [2**k_e, 2**v_e] (ones for f32)."""
+    if width is None:
+        return torch.ones((B, 2), dtype=torch.float32, device=device)
+    ke = torch.as_tensor(k_exp, dtype=torch.float32, device=device)
+    ve = torch.as_tensor(v_exp, dtype=torch.float32, device=device)
+    return torch.stack([exact_pow2(ke), exact_pow2(ve)], dim=-1).contiguous()
+
+
+def _ptr(t: Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def flash_decode(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, q_pos: Tensor,
+                 k_exp=None, v_exp=None, *, width: Optional[int] = None,
+                 scale: float, window: Optional[int] = None,
+                 causal: bool = True) -> Tensor:
+    """Single-query GQA attention over a (packed) KV ring buffer — K3.
+
+    ``q``: f32 [B, K, G, hd] kv-head-major query groups · ``k``/``v``:
+    [B, W, K, hd] int8/int16 mantissas (``width=8|16``) or f32
+    (``width=None``) · ``pos``: int32 [B, W] ring positions (-1 = empty)
+    · ``q_pos``: int32 [B] · ``k_exp``/``v_exp``: f32 [B] log2-steps.
+    Returns f32 [B, K, G, hd]; numerics are
+    :func:`repro_torch.kernels.attn.ref.decode_attention_ref`.
+    """
+    if q.device.type == "cpu":
+        return R.decode_attention_ref(q, k, v, pos, q_pos, k_exp=k_exp,
+                                      v_exp=v_exp, width=width, scale=scale,
+                                      window=window, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode runs on cpu or cuda, not {q.device}")
+    B, K, G, hd = q.shape
+    W = k.shape[1]
+    dev, sdt = q.device, _storage_dtype(width)
+    _check("q", q, (B, K, G, hd), torch.float32, dev)
+    _check("k", k, (B, W, K, hd), sdt, dev)
+    _check("v", v, (B, W, K, hd), sdt, dev)
+    _check("pos", pos, (B, W), torch.int32, dev)
+    _check("q_pos", q_pos, (B,), torch.int32, dev)
+    if G > 32 or hd > 256:
+        raise ValueError(f"flash_decode takes G <= 32 and hd <= 256, got "
+                         f"G={G}, hd={hd}")
+    steps = _steps(B, k_exp, v_exp, width, dev)
+    out = torch.empty_like(q)
+    fn = build.library("flash_decode").flash_decode_launch
+    rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(pos), _ptr(q_pos), _ptr(steps),
+            _ptr(out), B, W, K, G, hd, _DTYPE_CODE[sdt], float(scale),
+            int(window or 0), int(causal), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def flash_prefill(q: Tensor, k_new: Tensor, v_new: Tensor, k: Tensor,
+                  v: Tensor, pos: Tensor, p0: Tensor, n_valid: Tensor,
+                  k_exp=None, v_exp=None, *, width: Optional[int] = None,
+                  scale: float, window: Optional[int] = None,
+                  causal: bool = True) -> Tensor:
+    """Chunked-prefill GQA attention over a (packed) KV ring buffer — K4.
+
+    ``q``: f32 [B, C, K, G, hd] query groups of a chunk starting at
+    ``p0`` [B] · ``k_new``/``v_new``: f32 [B, C, K, hd], the chunk's own
+    K/V · ``k``/``v``: [B, W, K, hd] pool history (int8/int16 mantissas
+    or f32), masked to ``0 <= pos < p0`` · ``n_valid``: int32 [B] valid
+    chunk rows.  Returns f32 [B, C, K, G, hd]; numerics are
+    :func:`repro_torch.kernels.attn.ref.prefill_attention_ref`.
+    """
+    if q.device.type == "cpu":
+        return R.prefill_attention_ref(q, k, v, pos, k_new, v_new, p0,
+                                       n_valid, k_exp=k_exp, v_exp=v_exp,
+                                       width=width, scale=scale,
+                                       window=window, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_prefill runs on cpu or cuda, not {q.device}")
+    B, C, K, G, hd = q.shape
+    W = k.shape[1]
+    dev, sdt = q.device, _storage_dtype(width)
+    _check("q", q, (B, C, K, G, hd), torch.float32, dev)
+    _check("k_new", k_new, (B, C, K, hd), torch.float32, dev)
+    _check("v_new", v_new, (B, C, K, hd), torch.float32, dev)
+    _check("k", k, (B, W, K, hd), sdt, dev)
+    _check("v", v, (B, W, K, hd), sdt, dev)
+    _check("pos", pos, (B, W), torch.int32, dev)
+    _check("p0", p0, (B,), torch.int32, dev)
+    _check("n_valid", n_valid, (B,), torch.int32, dev)
+    if hd > 256:
+        raise ValueError(f"flash_prefill takes hd <= 256, got hd={hd}")
+    steps = _steps(B, k_exp, v_exp, width, dev)
+    out = torch.empty_like(q)
+    fn = build.library("flash_prefill").flash_prefill_launch
+    rc = fn(_ptr(q), _ptr(k_new), _ptr(v_new), _ptr(k), _ptr(v), _ptr(pos),
+            _ptr(p0), _ptr(n_valid), _ptr(steps), _ptr(out), B, C, W, K, G,
+            hd, _DTYPE_CODE[sdt], float(scale), int(window or 0),
+            int(causal), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"flash_prefill kernel launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES["flash_prefill"] += 1
+    return out

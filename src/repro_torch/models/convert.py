@@ -1,0 +1,39 @@
+"""Parameters of the JAX package, as the port's parameters.
+
+``params_from_jax(cfg, tree)`` takes the reference's parameter pytree —
+nested dicts of numpy arrays, layer-stacked ``[n, ...]`` per stage
+(``repro.models.transformer.init_params``) — and returns the same tree of
+torch tensors on the requested device, after checking every leaf against
+the port's own shapes.  The CPU tests use it so that both packages
+compute with the same weights; a full-width run on the card draws its
+own weights on the device (:func:`repro_torch.models.transformer.init_params`).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import transformer as T
+
+
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape)
+
+
+def params_from_jax(cfg: T.ModelConfig, tree: dict, *, device="cuda") -> dict:
+    """The reference's parameters as torch tensors on ``device``."""
+    want = _shapes(T.init_params(cfg, device="meta"))
+    got = _shapes(tree)
+    if want != got:
+        raise ValueError(f"parameter tree does not match {cfg.name!r}: "
+                         f"expected {want}, got {got}")
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        a = np.array(t, dtype=np.float32, copy=True)
+        return torch.from_numpy(a).to(device)
+
+    return conv(tree)

@@ -1,0 +1,400 @@
+"""Continuous-batching decode engine over a fixed slot array.
+
+The port of ``repro.serve.engine`` for single-device, slot-major serving.
+A request's lifecycle:
+
+  queued → admitted into a free slot (prefill) → decoding at its own
+  position → finished (EOS or its own ``max_new``) → slot freed →
+  next queued request admitted **mid-decode**.
+
+Every device step has fixed shapes:
+
+* decode runs over all ``max_slots`` rows each step with a per-slot
+  position vector (``transformer.decode_step`` with ``pos: [B]``).  Free
+  slots decode garbage into their own cache rows; rows are independent,
+  and admission overwrites the row anyway.
+* whole-prompt mode (``prefill_chunk=0``) groups queued requests of equal
+  prompt length into one prefill batch — no padding — and inserts the
+  fresh cache into pool rows (``kv_pool.insert``, packed in packed mode).
+* chunked mode (``prefill_chunk=C > 0``) admits any queued request into
+  any free slot immediately, and each engine step runs ONE ``C``-token
+  prefill chunk for the oldest prefilling slot, interleaved with the
+  decode batch.  While a slot is mid-prefill the decode append is masked
+  off for it (``append_mask``), so its pool row and controller state stay
+  as a solo run would leave them.
+
+Each step makes one device-to-host transfer: the sampled tokens with
+their NaN/Inf flags (``sampler.guard_logits``).  A flagged slot resolves
+``FAILED`` with its clean prefix; ``run()`` out of step budget resolves
+every in-flight request ``TIMED_OUT`` with its harvested tokens.
+
+Not in this slice: paged pools, admission control and deadlines,
+preemption, fault injection, tracing and numerics logging, meshes.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import enum
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.core.scale import ScaleState
+from repro_torch.models import transformer as T
+
+from . import kv_pool, metrics, sampler
+
+
+class RequestStatus(enum.Enum):
+    """Terminal state of a request."""
+
+    OK = "ok"                  # finished: EOS or its max_new budget
+    TIMED_OUT = "timed_out"    # run() ran out of steps
+    FAILED = "failed"          # quarantined: NaN/Inf logits
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request. ``tokens``: 1-D prompt ids."""
+
+    uid: int
+    tokens: np.ndarray
+    max_new: int = 16
+    eos_id: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineOptions:
+    """:class:`ServeEngine` knobs beyond the model triple and slot geometry.
+
+    ``cache_bits`` 0 → float32 KV pool, 8/16 → DFXP-packed mantissas;
+    ``cache_cfg`` overrides the packed pool's controller settings;
+    ``sampler_cfg`` is greedy; ``seed`` is the engine seed that keys the
+    per-request sampling streams once those are ported; ``init_exp`` is
+    every scale group's log2-step; ``prefill_chunk`` is the chunk size
+    ``C`` (``None`` takes ``policy.prefill_chunk``, 0 is whole-prompt).
+    """
+
+    cache_bits: int = 0
+    sampler_cfg: sampler.SamplerConfig = sampler.SamplerConfig()
+    cache_cfg: Optional[kv_pool.CacheQuantConfig] = None
+    seed: int = 0
+    init_exp: float = -6.0
+    prefill_chunk: Optional[int] = None
+
+
+class ServeEngine:
+    """Continuous-batching engine over ``max_slots`` concurrent sequences.
+
+    ``ServeEngine(cfg, policy, params, max_slots=…, max_len=…,
+    options=EngineOptions(…), device=…)``.  ``params`` must already live
+    on ``device`` (default ``cuda``); every request needs ``prompt_len +
+    max_new <= max_len``.  With ``policy.fused_decode`` the attention runs
+    the hand-written flash-decode and flash-prefill kernels on the pool's
+    storage.
+    """
+
+    def __init__(self, cfg: T.ModelConfig, policy: PrecisionPolicy, params,
+                 *, max_slots: int, max_len: int,
+                 options: Optional[EngineOptions] = None, device=None):
+        opts = options or EngineOptions()
+        if max_slots < 1:
+            raise ValueError("max_slots must be >= 1")
+        self.device = resolve_device(device)
+        leaf = params["final_norm"]
+        if leaf.device.type != self.device.type:
+            raise ValueError(f"params live on {leaf.device}, the engine runs "
+                             f"on {self.device}")
+        self.cfg, self.policy, self.params = cfg, policy, params
+        self.max_slots, self.max_len = max_slots, max_len
+        self.options = opts
+        self.sampler_cfg = opts.sampler_cfg
+        self.seed = opts.seed
+        gs = T.group_shapes(cfg)
+        self.exps = ScaleState.create(gs, opts.init_exp,
+                                      device=self.device).exps
+
+        kvp = kv_pool.make_kv_pool(
+            cfg, policy, max_slots=max_slots, max_len=max_len,
+            cache_bits=opts.cache_bits, cache_cfg=opts.cache_cfg,
+            device=self.device)
+        self.kv = kvp
+        self.codec = kvp.codec
+        self.cache_cfg = kvp.cache_cfg
+        self._packed = kvp.packed
+        self._pool = kvp.pool
+
+        B = max_slots
+        self._tok = np.zeros(B, np.int32)
+        self._pos = np.zeros(B, np.int32)
+        self._active = np.zeros(B, bool)
+        self._reqs: List[Optional[Request]] = [None] * B
+        self._gen: List[List[int]] = [[] for _ in range(B)]
+        self._queue: collections.deque = collections.deque()
+        self._results: Dict[int, np.ndarray] = {}
+        self._status: Dict[int, RequestStatus] = {}
+        self._next_uid = 0
+        self._ovf = np.zeros(3, np.float64)   # harvested at request finish
+        self.metrics = metrics.ServeMetrics()
+
+        pc = opts.prefill_chunk if opts.prefill_chunk is not None else \
+            int(getattr(policy, "prefill_chunk", 0))
+        self.prefill_chunk = pc
+        self._pfill = np.zeros(B, np.int32)       # prefill frontier per slot
+        self._prefilling: collections.deque = collections.deque()  # slot FIFO
+
+    # -- device steps --------------------------------------------------------
+    def _dev(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), device=self.device)
+
+    def _sample(self, logits):
+        """Shared tail: sentinel → sample, fetched as one host transfer."""
+        safe, bad = sampler.guard_logits(logits)
+        tok = sampler.sample(safe, self.sampler_cfg)
+        out = torch.stack([tok, bad.to(torch.int32)]).cpu().numpy()
+        return out[0], out[1].astype(bool)
+
+    @torch.no_grad()
+    def _prefill_impl(self, tokens):
+        logits, _, cache = T.prefill(self.cfg, self.policy, self.params,
+                                     {"tokens": tokens}, self.exps,
+                                     max_cache_len=self.max_len)
+        first, bad = self._sample(logits)
+        return first, bad, cache
+
+    @torch.no_grad()
+    def _insert_impl(self, entry, slots):
+        kv_pool.insert(self._pool, entry, slots, self.codec)
+
+    @torch.no_grad()
+    def _decode_impl(self, mask=None):
+        logits, _, self._pool = T.decode_step(
+            self.cfg, self.policy, self.params, self._pool,
+            self._dev(self._tok), self._dev(self._pos), self.exps,
+            kv_codec=self.codec, append_mask=mask)
+        return self._sample(logits)
+
+    @torch.no_grad()
+    def _chunk_impl(self, tokens, slot: int, p0: int, n_valid: int):
+        """One prefill chunk for one slot. ``tokens``: [1, C] (padded).
+
+        The slot's rows are views into the pool, so the chunk's in-place
+        cache update lands in the pool directly."""
+        sub = {sname: {bkey: {n: t[:, slot:slot + 1] for n, t in e.items()}
+                       for bkey, e in sc.items()}
+               for sname, sc in self._pool.items()}
+        logits, _, _ = T.prefill_chunk_step(
+            self.cfg, self.policy, self.params, sub, self._dev(tokens),
+            self._dev([p0]).to(torch.int32),
+            self._dev([n_valid]).to(torch.int32), self.exps,
+            kv_codec=self.codec)
+        return self._sample(logits)
+
+    # -- request lifecycle ---------------------------------------------------
+    def submit(self, prompt, max_new: int = 16,
+               eos_id: Optional[int] = None) -> int:
+        """Queue one request; returns its uid.  Malformed requests (empty
+        prompt, zero budget, over capacity) raise."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("empty prompt")
+        if max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {max_new}")
+        if prompt.size + max_new > self.max_len:
+            raise ValueError(
+                f"prompt_len {prompt.size} + max_new {max_new} exceeds "
+                f"max_len {self.max_len}")
+        uid = self._next_uid
+        self._next_uid += 1
+        self.metrics.on_submit(uid, prompt.size)
+        self._queue.append(Request(uid, prompt, max_new, eos_id))
+        self.metrics.observe_queue_depth(len(self._queue))
+        return uid
+
+    def status(self, uid: int) -> Optional[RequestStatus]:
+        """Terminal status of ``uid`` (None while queued / in flight)."""
+        return self._status.get(uid)
+
+    @property
+    def statuses(self) -> Dict[int, RequestStatus]:
+        return dict(self._status)
+
+    @property
+    def results(self) -> Dict[int, np.ndarray]:
+        """Generated ids of every resolved request, by uid."""
+        return dict(self._results)
+
+    def _finish(self, slot: int,
+                status: RequestStatus = RequestStatus.OK) -> None:
+        req = self._reqs[slot]
+        self._results[req.uid] = np.asarray(self._gen[slot], np.int32)
+        self._status[req.uid] = status
+        self.metrics.on_finish(req.uid, status.value)
+        # harvest only if this request wrote the slot: one resolved before
+        # its first chunk would count the previous occupant's counters
+        started = not self.prefill_chunk or self._pfill[slot] > 0
+        if self._packed and started:
+            self._ovf += kv_pool.slot_totals(self._pool, slot).cpu().numpy()
+        if slot in self._prefilling:
+            self._prefilling.remove(slot)
+        self._active[slot] = False
+        self._reqs[slot] = None
+        self._gen[slot] = []
+
+    def _maybe_finish(self, slot: int, tok: int) -> bool:
+        """Finish the slot if its budget is spent or ``tok`` is its EOS."""
+        req = self._reqs[slot]
+        if len(self._gen[slot]) >= req.max_new or \
+                (req.eos_id is not None and tok == req.eos_id):
+            self._finish(slot)
+            return True
+        return False
+
+    def _admit(self) -> None:
+        """Fill free slots from the queue, grouping equal prompt lengths."""
+        free = list(np.where(~self._active)[0])
+        while self._queue and free:
+            plen = self._queue[0].tokens.size
+            group: List[Request] = []
+            while (self._queue and len(group) < len(free)
+                   and self._queue[0].tokens.size == plen):
+                group.append(self._queue.popleft())
+            slots = [int(free.pop(0)) for _ in group]
+            tokens = self._dev(np.stack([r.tokens for r in group]))
+            first, bad, entry = self._prefill_impl(tokens)
+            self._insert_impl(entry, self._dev(slots))
+            for r, s, tok, b in zip(group, slots, first, bad):
+                self.metrics.on_admit(r.uid)
+                self._reqs[s], self._gen[s] = r, []
+                self._tok[s], self._pos[s] = tok, plen
+                self._active[s] = True
+                if b:   # NaN/Inf prefill logits: quarantine at admission
+                    self._finish(s, RequestStatus.FAILED)
+                    free.append(s)
+                    continue
+                self.metrics.on_token(r.uid)
+                self._gen[s] = [int(tok)]
+                if self._maybe_finish(s, int(tok)):
+                    free.append(s)
+
+    def _admit_chunked(self) -> None:
+        """Assign queued requests to free slots immediately (no grouping,
+        no prefill compute yet — chunks run one per engine step)."""
+        free = [s for s in range(self.max_slots) if self._reqs[s] is None]
+        while self._queue and free:
+            r = self._queue.popleft()
+            s = free.pop(0)
+            self._reqs[s] = r
+            self._pfill[s] = 0
+            self._pos[s] = 0
+            self._gen[s] = []
+            self._active[s] = False
+            self._prefilling.append(s)
+            self.metrics.on_admit(r.uid)
+
+    def _step_prefill_chunk(self) -> None:
+        """Run ONE chunk for the oldest prefilling slot (FIFO)."""
+        if not self._prefilling:
+            return
+        s = self._prefilling[0]
+        r = self._reqs[s]
+        f = int(self._pfill[s])
+        C = self.prefill_chunk
+        n = min(C, r.tokens.size - f)
+        toks = np.zeros((1, C), np.int32)
+        toks[0, :n] = r.tokens[f:f + n]
+        first, bad = self._chunk_impl(toks, s, f, n)
+        self._pfill[s] = f + n
+        self._pos[s] = f + n          # frontier (RoPE-safe while masked)
+        self.metrics.on_prefill_chunk(r.uid)
+        if f + n == r.tokens.size:    # final chunk: first token sampled
+            self._prefilling.popleft()
+            self._active[s] = True
+            if bad[0]:
+                self._finish(s, RequestStatus.FAILED)
+                return
+            tok = int(first[0])
+            self.metrics.on_token(r.uid)
+            self._gen[s] = [tok]
+            self._tok[s] = tok
+            self._maybe_finish(s, tok)
+
+    def step(self) -> None:
+        """Admit what fits, run one prefill chunk (chunked mode), then
+        decode one token on every active slot."""
+        if self.prefill_chunk:
+            self._admit_chunked()
+            self._step_prefill_chunk()
+        else:
+            self._admit()
+        if not self._active.any():
+            return
+        mask = self._dev(self._active) if self.prefill_chunk else None
+        nxt, bad = self._decode_impl(mask)
+        self.metrics.on_decode_step()
+        for s in np.where(self._active)[0]:
+            s = int(s)
+            if bad[s]:
+                # NaN/Inf decode logits: drop the poisoned token,
+                # quarantine the request, keep siblings untouched
+                self._finish(s, RequestStatus.FAILED)
+                continue
+            tok = int(nxt[s])
+            self._gen[s].append(tok)
+            self._pos[s] += 1
+            self._tok[s] = tok
+            self.metrics.on_token(self._reqs[s].uid)
+            self._maybe_finish(s, tok)
+
+    def _drain_timeout(self) -> None:
+        """Out of steps: resolve everything TIMED_OUT instead of raising."""
+        for s in range(self.max_slots):
+            if self._reqs[s] is not None:
+                self._finish(s, RequestStatus.TIMED_OUT)
+        while self._queue:
+            r = self._queue.popleft()
+            self._results[r.uid] = np.zeros(0, np.int32)
+            self._status[r.uid] = RequestStatus.TIMED_OUT
+            self.metrics.on_finish(r.uid, RequestStatus.TIMED_OUT.value)
+
+    def run(self, max_steps: Optional[int] = None) -> Dict[int, np.ndarray]:
+        """Drive until the queue drains; returns ``{uid: generated ids}``.
+
+        When the step budget runs out (``max_steps``, or the automatic
+        budget on a wedged engine) every in-flight request resolves
+        ``TIMED_OUT`` with its harvested tokens.
+        """
+        if max_steps is None:
+            pending = list(self._queue) + [r for r in self._reqs
+                                           if r is not None]
+            chunks = 0
+            if self.prefill_chunk:
+                chunks = sum(-(-r.tokens.size // self.prefill_chunk)
+                             for r in pending)
+            max_steps = (sum(r.max_new for r in pending) + chunks
+                         + len(self._queue) + self.max_slots + 4)
+        steps = 0
+        while self._queue or self._prefilling or self._active.any():
+            if steps >= max_steps:
+                self._drain_timeout()
+                break
+            self.step()
+            steps += 1
+        return dict(self._results)
+
+    # -- introspection -------------------------------------------------------
+    def cache_stats(self) -> dict:
+        """Append overflow rate over finished requests + in-flight slots."""
+        live = kv_pool.overflow_summary(self._pool, self._active)
+        ovf = self._ovf[0] + live["cache_overflow_rate"] * \
+            live["cache_appends_quantized"]
+        tot = self._ovf[2] + live["cache_appends_quantized"]
+        return {"cache_overflow_rate": float(ovf / tot) if tot else 0.0,
+                "cache_appends_quantized": float(tot)}
+
+    def stats(self) -> dict:
+        return self.metrics.summary(extra=self.cache_stats())

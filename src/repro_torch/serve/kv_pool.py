@@ -1,0 +1,408 @@
+"""Slot-pooled KV cache with DFXP-packed storage (paper §5/§6, serve-side).
+
+The port of ``repro.serve.kv_pool`` for slot-major, single-device pools.
+:class:`PackedKVCodec` keeps K/V as int8/int16 **mantissas** plus a
+per-layer/per-slot log2-step, quantized on append and dequantized in the
+attention kernels' tile loads.  Scale management is the core controller:
+
+* on **admit**, exponents are calibrated from the prompt K/V
+  max-magnitude (``calibrate_exp`` with a margin bit), accumulators reset;
+* on **append**, per-slot overflow statistics accumulate, and every
+  ``update_interval`` appends ``controller_step`` applies the paper's
+  ×2/÷2 rule per slot; stored mantissas are rescaled in place when an
+  exponent moves.
+
+Rounding is deterministic; stochastic appends wait for the threefry PRNG
+port (ROADMAP module item 14).  The reference skips the mantissa re-grid
+with a ``lax.cond`` when no exponent moved; here the re-grid always runs
+(``round(m * 2**0) == m`` exactly), which costs one pass over a layer's
+slots and saves a device-to-host sync per layer per step.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.packed import (_overflow_counts, container_dtype, pack,
+                                     pack_rows, qrange)
+from repro_torch.core.quant import exact_pow2
+from repro_torch.core.scale import ScaleState, calibrate_exp, controller_step
+from repro_torch.kernels.attn import ops as attn_ops
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheQuantConfig:
+    """How the packed KV pool stores and re-scales its mantissas."""
+
+    width: int = 8                   # mantissa bits: 8 → int8, 16 → int16
+    update_interval: int = 16        # appends between controller applications
+    max_overflow_rate: float = 1e-4  # paper §5 threshold
+    margin_bits: int = 1             # calibration headroom on admit
+    stochastic: bool = False         # stochastic-rounded appends (not ported)
+
+    def __post_init__(self):
+        if not 2 <= self.width <= 16:
+            raise ValueError(f"cache width {self.width} outside [2, 16]")
+
+
+def _rescale(m: Tensor, de: Tensor, width: int) -> Tensor:
+    """Re-grid a mantissa buffer after its exponent moved by ``de`` [B]:
+    ``m' = round(m * 2**-de)``, clipped.  ``de == 0`` rows are exact."""
+    qmax, qmin = qrange(width)
+    f = exact_pow2(-de).reshape(de.shape + (1,) * (m.ndim - de.ndim))
+    mf = torch.round(m.to(torch.float32) * f)
+    return mf.clamp_(qmin, qmax).to(m.dtype)
+
+
+def _pack_chunk(x: Tensor, width: int, e: Tensor, keep: Tensor):
+    """Quantize a chunk ``[B, C, ...]`` against per-row exponents ``e[B]``.
+
+    ``keep`` [B, C] marks the rows that will be written; overflow
+    statistics count those rows only.  Returns ``(mantissa int[B, C, ...],
+    stats f32[B, 3])``.
+    """
+    qmax, qmin = qrange(width)
+    step = exact_pow2(e).reshape(e.shape + (1,) * (x.ndim - 1))
+    m = torch.round(x.to(torch.float32) / step)
+    kexp = keep.reshape(keep.shape + (1,) * (x.ndim - 2))
+    ovf, ovfh = _overflow_counts(m, width, axes=tuple(range(1, x.ndim)),
+                                 mask=kexp)
+    row_sz = float(math.prod(x.shape[2:]))
+    total = keep.sum(dim=1).to(torch.float32) * row_sz
+    stats = torch.stack([ovf, ovfh, total], dim=-1)
+    return m.clamp_(qmin, qmax).to(container_dtype(width)), stats
+
+
+class PackedKVCodec:
+    """KV-cache codec storing int mantissas + per-layer/per-slot exponents.
+
+    Entry layout (leading layer dim ``n`` stripped inside the layer loop)::
+
+        k_m, v_m : int8/int16 [n, B, W, K, hd]   mantissas
+        k_e, v_e : f32 [n, B]                    log2-steps (integer-valued)
+        pos      : int32 [n, B, W]               ring positions (-1 = empty)
+        acc_k/v  : f32 [n, B, 3]                 controller window stats
+        tot_k/v  : f32 [n, B, 3]                 cumulative stats (metrics)
+        n_app    : f32 [n, B]                    appends since admit
+
+    ``fused_decode`` selects the attention path, as on
+    :class:`repro_torch.models.layers.RawKVCodec`: the flash kernels read
+    the mantissas directly, and :meth:`load` — the f32 K/V
+    materialization — is not called.  Every method is functional.
+    """
+
+    def __init__(self, config: CacheQuantConfig, fused_decode: bool = False):
+        if config.stochastic:
+            raise NotImplementedError(
+                "stochastic KV appends need the threefry PRNG port "
+                "(ROADMAP module item 14)")
+        self.cfg = config
+        self.fused_decode = bool(fused_decode)
+
+    # -- model-layer protocol (called per layer) ---------------------------
+    def load(self, entry: dict):
+        k = entry["k_m"].to(torch.float32) * \
+            exact_pow2(entry["k_e"])[:, None, None, None]
+        v = entry["v_m"].to(torch.float32) * \
+            exact_pow2(entry["v_e"])[:, None, None, None]
+        return k, v, entry["pos"]
+
+    def fused_attention(self, entry: dict, qg: Tensor, q_pos: Tensor, *,
+                        scale: float, window=None, causal: bool = True):
+        """Flash-decode (K3) directly on the packed mantissas."""
+        return attn_ops.flash_decode(qg, entry["k_m"], entry["v_m"],
+                                     entry["pos"], q_pos, entry["k_e"],
+                                     entry["v_e"], width=self.cfg.width,
+                                     scale=scale, window=window,
+                                     causal=causal)
+
+    def fused_prefill(self, entry: dict, qg: Tensor, k_new: Tensor,
+                      v_new: Tensor, p0: Tensor, n_valid: Tensor, *,
+                      scale: float, window=None, causal: bool = True):
+        """Flash-prefill (K4) directly on the packed mantissas."""
+        return attn_ops.flash_prefill(qg, k_new, v_new, entry["k_m"],
+                                      entry["v_m"], entry["pos"], p0,
+                                      n_valid, entry["k_e"], entry["v_e"],
+                                      width=self.cfg.width, scale=scale,
+                                      window=window, causal=causal)
+
+    def _control(self, out: dict, k_e, v_e, acc_k, acc_v, apply, k_buf,
+                 v_buf) -> dict:
+        """§5 controller per slot where ``apply``; re-grid moved slots."""
+        cfg = self.cfg
+        st = controller_step(
+            ScaleState(exps={"k": k_e, "v": v_e},
+                       acc={"k": acc_k, "v": acc_v}),
+            max_overflow_rate=cfg.max_overflow_rate, apply=apply)
+        out["k_e"], out["v_e"] = st.exps["k"], st.exps["v"]
+        out["acc_k"], out["acc_v"] = st.acc["k"], st.acc["v"]
+        out["k_m"] = _rescale(k_buf, out["k_e"] - k_e, cfg.width)
+        out["v_m"] = _rescale(v_buf, out["v_e"] - v_e, cfg.width)
+        return out
+
+    def append(self, entry: dict, k_new: Tensor, v_new: Tensor,
+               pos: Tensor, mask: Optional[Tensor] = None) -> dict:
+        """Append one token's K/V per slot (quantize, count, control).
+
+        ``mask`` (bool [B]) suppresses the append for masked-off rows
+        completely — no write, no statistics, no counter advance, no
+        controller application.
+        """
+        cfg = self.cfg
+        W = entry["k_m"].shape[1]
+        slot = pos % W
+        k_m, st_k = pack_rows(k_new, cfg.width, entry["k_e"])
+        v_m, st_v = pack_rows(v_new, cfg.width, entry["v_e"])
+        out = dict(entry)
+        if mask is None:
+            napp = 1.0
+        else:
+            mf = mask.to(torch.float32)
+            st_k = st_k * mf[:, None]
+            st_v = st_v * mf[:, None]
+            slot = torch.where(mask, slot, W)
+            napp = mf
+        slot = slot[:, None]
+        k_buf = L.scatter_drop(entry["k_m"], slot, k_m[:, None])
+        v_buf = L.scatter_drop(entry["v_m"], slot, v_m[:, None])
+        out["pos"] = L.scatter_drop(entry["pos"], slot, pos[:, None])
+        acc_k = entry["acc_k"] + st_k
+        acc_v = entry["acc_v"] + st_v
+        out["tot_k"] = entry["tot_k"] + st_k
+        out["tot_v"] = entry["tot_v"] + st_v
+        out["n_app"] = entry["n_app"] + napp
+        apply = torch.remainder(out["n_app"], float(cfg.update_interval)) == 0.0
+        if mask is not None:
+            apply = apply & mask
+        return self._control(out, entry["k_e"], entry["v_e"], acc_k, acc_v,
+                             apply, k_buf, v_buf)
+
+    def append_chunk(self, entry: dict, k_new: Tensor, v_new: Tensor,
+                     p0: Tensor, n_valid: Tensor) -> dict:
+        """Quantize-on-write for one prefill chunk (positions ``p0+i``).
+
+        ``p0 == 0`` marks the **admission** chunk, which behaves like
+        :meth:`pack_entry` for its slot: stale ring positions reset to -1,
+        exponents calibrate from this chunk's max-magnitude, statistics and
+        the append counter reset.  Later chunks count their valid rows as
+        appends and run the §5 controller on every ``update_interval``
+        crossing.  Rows ``>= n_valid`` and rows evicted within the same
+        chunk are dropped from both writes and statistics.
+        """
+        cfg = self.cfg
+        W = entry["k_m"].shape[1]
+        B, C = k_new.shape[:2]
+        pos, keep, slot = L.chunk_slots(p0, n_valid, C, W)
+        first = p0 == 0                                          # [B]
+
+        def _cal(x):
+            ax = torch.amax(x.to(torch.float32).abs() * keep[..., None, None],
+                            dim=(1, 2, 3))
+            return calibrate_exp(ax, cfg.width, cfg.margin_bits)
+
+        k_e = torch.where(first, _cal(k_new), entry["k_e"])
+        v_e = torch.where(first, _cal(v_new), entry["v_e"])
+        k_m, st_k = _pack_chunk(k_new, cfg.width, k_e, keep)
+        v_m, st_v = _pack_chunk(v_new, cfg.width, v_e, keep)
+        out = dict(entry)
+        k_buf = L.scatter_drop(entry["k_m"], slot, k_m)
+        v_buf = L.scatter_drop(entry["v_m"], slot, v_m)
+        pos_buf = torch.where(first[:, None], -1, entry["pos"])
+        out["pos"] = L.scatter_drop(pos_buf, slot, pos)
+
+        zero3 = torch.zeros((B, 3), dtype=torch.float32, device=k_new.device)
+        f1 = first[:, None]
+        acc_k = torch.where(f1, zero3, entry["acc_k"] + st_k)
+        acc_v = torch.where(f1, zero3, entry["acc_v"] + st_v)
+        out["tot_k"] = torch.where(f1, zero3, entry["tot_k"] + st_k)
+        out["tot_v"] = torch.where(f1, zero3, entry["tot_v"] + st_v)
+        cnt = keep.sum(dim=1).to(torch.float32)
+        n_prev = torch.where(first, 0.0, entry["n_app"])
+        n_new = torch.where(first, 0.0, entry["n_app"] + cnt)
+        out["n_app"] = n_new
+        interval = float(cfg.update_interval)
+        apply = torch.floor(n_new / interval) > torch.floor(n_prev / interval)
+        return self._control(out, k_e, v_e, acc_k, acc_v, apply, k_buf,
+                             v_buf)
+
+    # -- pool management (full [n, B, ...] shapes) -------------------------
+    def init_like(self, raw: dict) -> dict:
+        """Packed zero-entry matching a raw ``{"k","v","pos"}`` entry."""
+        n, B, W = raw["pos"].shape
+        dev = raw["pos"].device
+        idtype = container_dtype(self.cfg.width)
+        f32 = dict(dtype=torch.float32, device=dev)
+        return {
+            "k_m": torch.zeros(raw["k"].shape, dtype=idtype, device=dev),
+            "v_m": torch.zeros(raw["v"].shape, dtype=idtype, device=dev),
+            "k_e": torch.zeros((n, B), **f32),
+            "v_e": torch.zeros((n, B), **f32),
+            "pos": torch.full((n, B, W), -1, dtype=torch.int32, device=dev),
+            "acc_k": torch.zeros((n, B, 3), **f32),
+            "acc_v": torch.zeros((n, B, 3), **f32),
+            "tot_k": torch.zeros((n, B, 3), **f32),
+            "tot_v": torch.zeros((n, B, 3), **f32),
+            "n_app": torch.zeros((n, B), **f32),
+        }
+
+    def pack_entry(self, raw: dict) -> dict:
+        """Quantize a fresh prefill entry ``[n, g, ...]`` for pool insertion.
+
+        Exponents are calibrated per layer/slot from the prompt K/V
+        max-magnitude (empty ring slots, ``pos < 0``, excluded);
+        accumulators start at zero.
+        """
+        cfg = self.cfg
+        n, g, W = raw["pos"].shape
+        valid = (raw["pos"] >= 0)[..., None, None]
+
+        def _cal(x):
+            ax = torch.amax(x.to(torch.float32).abs() * valid, dim=(2, 3, 4))
+            return calibrate_exp(ax, cfg.width, cfg.margin_bits)
+
+        k_e, v_e = _cal(raw["k"]), _cal(raw["v"])
+        exp = (..., None, None, None)
+        f32 = dict(dtype=torch.float32, device=raw["pos"].device)
+        return {
+            "k_m": pack(raw["k"], cfg.width, k_e[exp]).mantissa,
+            "v_m": pack(raw["v"], cfg.width, v_e[exp]).mantissa,
+            "k_e": k_e,
+            "v_e": v_e,
+            "pos": raw["pos"],
+            "acc_k": torch.zeros((n, g, 3), **f32),
+            "acc_v": torch.zeros((n, g, 3), **f32),
+            "tot_k": torch.zeros((n, g, 3), **f32),
+            "tot_v": torch.zeros((n, g, 3), **f32),
+            "n_app": torch.zeros((n, g), **f32),
+        }
+
+
+def make_pool(cfg: T.ModelConfig, max_slots: int, max_len: int,
+              codec: Optional[PackedKVCodec] = None, *, device="cpu") -> dict:
+    """Zero slot pool: ``init_cache`` with attn entries optionally packed."""
+    raw = T.init_cache(cfg, max_slots, max_len, device=device)
+    if codec is None:
+        return raw
+    return {sname: {bkey: codec.init_like(e) for bkey, e in sc.items()}
+            for sname, sc in raw.items()}
+
+
+@dataclasses.dataclass
+class KVPool:
+    """A constructed serve KV pool: tensors + codec + quantization config.
+
+    ``codec`` is ``None`` for the plain f32 ring pool on the plain
+    attention path (the model layer falls back to ``RAW_KV_CODEC``).
+    """
+
+    pool: dict
+    codec: object
+    cache_cfg: Optional[CacheQuantConfig]
+
+    @property
+    def packed(self) -> bool:
+        return self.cache_cfg is not None
+
+
+def make_kv_pool(cfg: T.ModelConfig, policy, *, max_slots: int,
+                 max_len: int, cache_bits: int = 0,
+                 cache_cfg: Optional[CacheQuantConfig] = None,
+                 page_size: Optional[int] = None,
+                 device=None) -> KVPool:
+    """Build the slot-major serve KV pool and its codec on ``device``.
+
+    ``cache_bits`` 0 keeps f32 rings, 8/16 packs mantissas;
+    ``policy.fused_decode`` routes attention through the flash kernels.
+    Paged pools are not ported: a ``page_size`` raises.
+    """
+    device = resolve_device(device)
+    if page_size:
+        raise NotImplementedError(
+            "paged KV pools (serve/paged.py, kernels K5/K6) are not ported "
+            "yet; use the slot-major pool (page_size=0)")
+    fused = policy.fused_decode
+    if cache_bits:
+        ccfg = cache_cfg or CacheQuantConfig(width=cache_bits)
+        if ccfg.width != cache_bits:
+            raise ValueError("cache_bits and cache_cfg.width disagree")
+        codec = PackedKVCodec(ccfg, fused_decode=fused)
+    else:
+        ccfg = None    # a cache_cfg without cache_bits is ignored (f32)
+        codec = L.RawKVCodec(fused_decode=True) if fused else None
+    pool = make_pool(cfg, max_slots, max_len,
+                     codec if ccfg is not None else None, device=device)
+    return KVPool(pool=pool, codec=codec, cache_cfg=ccfg)
+
+
+def insert(pool: dict, raw_entry: dict, slots: Tensor,
+           codec: Optional[PackedKVCodec] = None) -> dict:
+    """Write a fresh prefill cache (group size g) into pool rows ``slots``,
+    in place.  In packed mode each entry is quantized via
+    ``codec.pack_entry`` first.  Returns ``pool``."""
+    slots = slots.long()
+    for sname, sc in pool.items():
+        for bkey, pe in sc.items():
+            src = raw_entry[sname][bkey]
+            if codec is not None and "k_m" in pe:
+                src = codec.pack_entry(src)
+            for name, dst in pe.items():
+                dst[:, slots] = src[name].to(dst.dtype)
+    return pool
+
+
+def _packed_entries(pool: dict):
+    for sc in pool.values():
+        for e in sc.values():
+            if "tot_k" in e:
+                yield e
+
+
+def overflow_summary(pool: dict, active=None) -> dict:
+    """Cumulative append overflow rates of the packed pool (metrics hook).
+
+    ``active``: optional bool [B] mask restricting the summary to occupied
+    slots.  Returns zeros for float32 pools.
+    """
+    ovf = tot = 0.0
+    for e in _packed_entries(pool):
+        for t in (e["tot_k"], e["tot_v"]):
+            if active is not None:
+                act = torch.as_tensor(active, device=t.device)
+                t = t * act.to(torch.float32)[None, :, None]
+            ovf += float(t[..., 0].sum())
+            tot += float(t[..., 2].sum())
+    return {"cache_overflow_rate": ovf / tot if tot else 0.0,
+            "cache_appends_quantized": tot}
+
+
+def slot_overflow_rates(pool: dict, n_slots: int) -> Tensor:
+    """Per-slot cumulative §5 overflow rate: f32 [n_slots] of overflowed
+    over quantized elements since admission, summed over layers and K/V.
+    Float32 pools return zeros."""
+    dev = next(iter(next(iter(pool.values())).values()))["pos"].device
+    ovf = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
+    tot = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
+    for e in _packed_entries(pool):
+        for t in (e["tot_k"], e["tot_v"]):
+            ovf = ovf + t[..., 0].sum(dim=0)
+            tot = tot + t[..., 2].sum(dim=0)
+    return ovf / torch.clamp(tot, min=1.0)
+
+
+def slot_totals(pool: dict, slot: int) -> Tensor:
+    """One slot's cumulative ``(ovf, ovf_half, total)`` over all layers —
+    between admit and finish, the occupying request's append statistics."""
+    dev = next(iter(next(iter(pool.values())).values()))["pos"].device
+    out = torch.zeros((3,), dtype=torch.float32, device=dev)
+    for e in _packed_entries(pool):
+        out = out + e["tot_k"][:, slot].sum(dim=0)
+        out = out + e["tot_v"][:, slot].sum(dim=0)
+    return out
