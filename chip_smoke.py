@@ -5,20 +5,31 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the flash-decode (K3) and flash-prefill (K4) CUDA kernels from
-   ``src/repro_torch/kernels/attn/csrc`` with ``nvcc`` (in parallel) and
-   print each kernel's registers and shared memory;
+2. build the four attention kernels — flash-decode (K3), flash-prefill
+   (K4) and their paged variants (K5, K6) — from
+   ``src/repro_torch/kernels/attn/csrc`` with ``nvcc`` (one process per
+   source, in parallel) and print each kernel's registers;
 3. hold each kernel against its plain PyTorch version on card tensors at
-   the serving slice's shapes (K3: B=4 slots, W=400, K=8, G=4, hd=128 for
+   the serving slices' shapes (K3: B=4 slots, W=400, K=8, G=4, hd=128 for
    int8, int16, f32 and a sliding window; K4: C=128 with ragged n_valid
-   and p0 > 0), and time kernel, plain version and a library yardstick;
+   and p0 > 0; K5: B=4 slots over 64-row pages, 8 blocks, null pages, a
+   shared page, an empty slot; K6: C=64 at p0=384 and a ragged chunk),
+   hold K5 against K3 on the same data laid out as a ring, and time
+   kernel, plain version and a library yardstick;
 4. smoke-size parity: the port's model on the card (kernels) against the
-   same model on the CPU (plain versions);
+   same model on the CPU (plain versions), slot-major and paged (engine
+   logits with prefix sharing, and a tight arena that preempts);
 5. the main path: ``repro_torch.launch.serve`` at full llama3-8B width,
    DFXP-10, int8 pool, fused decode, chunked prefill (6 requests, 4
    slots, 16 tokens each); every request must end OK and both kernels
    must have launched, K3 once per layer per decode step;
-6. a whole-prompt run (``prefill_chunk=0``) on the same weights.
+6. the paged main path on the same weights: P = C = 64, int8 pages,
+   fused decode, 6 requests with a shared 256-token prefix and two
+   identical prompts; K5 and K6 must launch once per layer per decode
+   step and per chunk, K3 and K4 not at all, and the allocator's
+   counters must equal their arithmetic;
+7. one profiled decode step and prefill chunk of each layout;
+8. a whole-prompt run (``prefill_chunk=0``) on the same weights.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest
@@ -30,6 +41,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 TOL = 1e-4                      # kernel vs plain, outputs of size O(1..16)
@@ -37,6 +49,7 @@ SERVE_ARGS = ["--arch", "llama3_8b", "--num-requests", "6", "--slots", "4",
               "--prompt-len", "96,200,384", "--max-new", "16",
               "--cache-bits", "8", "--fused-decode", "--prefill-chunk",
               "128"]
+PAGE = 64                       # the paged run's page size and chunk
 
 
 def log(*a):
@@ -70,23 +83,27 @@ def _on_device(evt) -> bool:
 
 
 def device_ms(fn, match=None, n_iter: int = 20):
-    """Mean device time per call of ``fn()`` in ms: the ``torch.profiler``
-    time of the kernels whose name contains ``match`` (every kernel the
-    call launches when ``match`` is None).  Host-side launch gaps are not
-    in it; :func:`cuda_ms` measures the call as the stream sees it."""
+    """Mean device time per call of ``fn()`` in ms and its source: the
+    ``torch.profiler`` time of the kernels whose name contains ``match``
+    (every kernel the call launches when ``match`` is None), host-side
+    launch gaps excluded.  Some profiler sessions on the card record no
+    device activity at all; after three such sessions the time is taken
+    with CUDA events instead (:func:`cuda_ms`, the call as the stream
+    sees it), and the source says so."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_iter):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_device_time_us(e) for e in prof.key_averages()
-             if _on_device(e) and (match is None or match in e.key))
-    if us <= 0:
-        raise SystemExit("the profiler recorded no device time")
-    return us / 1e3 / n_iter
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_iter):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_device_time_us(e) for e in prof.key_averages()
+                 if _on_device(e) and (match is None or match in e.key))
+        if us > 0:
+            return us / 1e3 / n_iter, "profiler"
+    return cuda_ms(fn, n_iter), "cuda_events"
 
 
 def rotating(fn_of_case, cases_list):
@@ -113,16 +130,19 @@ def phase_build():
             log("  ", ln)
     # dynamic shared memory a block asks for (attn_common.cuh smem_floats:
     # a padded K tile, a V tile and the block's query rows, f32)
-    for name, rows in (("flash_decode", 4), ("flash_prefill", 32)):
+    for name, rows in (("flash_decode", 4), ("flash_prefill", 32),
+                       ("flash_decode_paged", 4),
+                       ("flash_prefill_paged", 32)):
         log(f"  {name}: {(32 * 129 + 32 * 128 + rows * 128) * 4} bytes of "
             f"dynamic shared memory per block at hd=128")
 
 
 def phase_kernels():
-    """K3/K4 against their plain versions; timings and bounds."""
+    """K3-K6 against their plain versions; timings and bounds."""
     from repro_torch.kernels.attn import cases, ops, ref
     dev = torch.device("cuda")
     B, W, K, G, HD, C = 4, 400, 8, 4, 128, 128
+    NBLK = 8                    # paged: 464-token max_len over 64-row pages
 
     def k3(a):
         return ops.flash_decode(a["q"], a["k"], a["v"], a["pos"], a["q_pos"],
@@ -158,16 +178,49 @@ def phase_kernels():
     def sdpa_prefill(a):
         # f32 history + self K/V concatenated and the joint mask built
         # outside the timed call
-        Bq = a["q"].shape[0]
+        Bq, Cq = a["q"].shape[:2]
         vh, vs = cases.prefill_valid(a)
         mask = torch.cat([vh, vs], dim=-1)                     # [B, C, W+C]
         mask = mask.repeat_interleave(G, dim=1)[:, None]       # [B,1,CG,W+C]
-        q = a["q"].permute(0, 2, 1, 3, 4).reshape(Bq, K, C * G, HD)
+        q = a["q"].permute(0, 2, 1, 3, 4).reshape(Bq, K, Cq * G, HD)
         kc = torch.cat([a["k"], a["k_new"]], 1).permute(0, 2, 1, 3)
         vc = torch.cat([a["v"], a["v_new"]], 1).permute(0, 2, 1, 3)
         kc, vc = kc.contiguous(), vc.contiguous()
         return lambda: torch.nn.functional.scaled_dot_product_attention(
             q, kc, vc, attn_mask=mask, scale=a["scale"])
+
+    def k5(a):
+        return ops.flash_decode_paged(
+            a["q"], a["k"], a["v"], a["bt"], a["pos"], a["q_pos"],
+            a["k_exp"], a["v_exp"], width=a["width"], scale=a["scale"],
+            window=a["window"])
+
+    def k5_plain(a):
+        return ref.paged_decode_attention_ref(
+            a["q"], a["k"], a["v"], a["bt"], a["pos"], a["q_pos"],
+            k_exp=a["k_exp"], v_exp=a["v_exp"], width=a["width"],
+            scale=a["scale"], window=a["window"])
+
+    def k6(a):
+        return ops.flash_prefill_paged(
+            a["q"], a["k_new"], a["v_new"], a["k"], a["v"], a["bt"],
+            a["pos"], a["p0"], a["n_valid"], a["k_exp"], a["v_exp"],
+            width=a["width"], scale=a["scale"], window=a["window"])
+
+    def k6_plain(a):
+        return ref.paged_prefill_attention_ref(
+            a["q"], a["k"], a["v"], a["bt"], a["pos"], a["k_new"],
+            a["v_new"], a["p0"], a["n_valid"], k_exp=a["k_exp"],
+            v_exp=a["v_exp"], width=a["width"], scale=a["scale"],
+            window=a["window"])
+
+    def gathered(a):
+        """A paged f32 case with its pages gathered into slot-major K/V
+        (outside any timed call), for the library yardstick."""
+        g = dict(a)
+        g["k"] = ref.gather_pages(a["k"], None, a["bt"], None)
+        g["v"] = ref.gather_pages(a["v"], None, a["bt"], None)
+        return g
 
     results = {}
 
@@ -182,19 +235,23 @@ def phase_kernels():
         return err
 
     def timed(name, kernel, fn, plain, make, cost, library=None):
-        # ms / plain_ms / library_ms: device time per call (profiler);
-        # *_call_ms: CUDA-event time per call in a loop, host gaps included
+        # ms / plain_ms / library_ms: device time per call (profiler, or
+        # CUDA events where "timers" says so); *_call_ms: CUDA-event time
+        # per call in a loop, host gaps included
         copies = [make(seed) for seed in range(24)]
         nbytes, flops = cost(copies[0])
         bound, bound_by = cases.bound_ms(nbytes, flops)
-        row = dict(ms=device_ms(rotating(fn, copies), kernel),
-                   call_ms=cuda_ms(rotating(fn, copies)),
-                   plain_ms=device_ms(rotating(plain, copies)),
-                   plain_call_ms=cuda_ms(rotating(plain, copies), 10),
-                   bound_ms=bound, bound_by=bound_by, bytes=nbytes,
-                   flops=flops)
+        timers = {}
+        row = dict(bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                   flops=flops, timers=timers)
+        row["ms"], timers["ms"] = device_ms(rotating(fn, copies), kernel)
+        row["call_ms"] = cuda_ms(rotating(fn, copies))
+        row["plain_ms"], timers["plain_ms"] = device_ms(
+            rotating(plain, copies))
+        row["plain_call_ms"] = cuda_ms(rotating(plain, copies), 10)
         if library is not None:
-            row["library_ms"] = device_ms(library(copies[0]))
+            row["library_ms"], timers["library_ms"] = device_ms(
+                library(copies[0]))
         log(f"{name}: {json.dumps(row)}")
         return row
 
@@ -231,10 +288,80 @@ def phase_kernels():
                                                   p0=[256], n_valid=[C],
                                                   seed=s, device=dev),
             cases.prefill_cost, sdpa_prefill if width is None else None)
+    # K5 / K6: the paged run's shapes (4 slots over 8 blocks of 64 rows;
+    # one 64-row chunk against a 384-row history)
+    errs["flash_decode_paged"], errs["flash_prefill_paged"] = [], []
+    for width, tag in ((8, "int8"), (16, "int16"), (None, "f32")):
+        for window in (None, 128):
+            a = cases.decode_paged_case(B, PAGE, NBLK, K, G, HD, width,
+                                        fill=[NBLK * PAGE, 257, 96, 0],
+                                        window=window, seed=6, device=dev)
+            errs["flash_decode_paged"].append(
+                check(f"K5 {tag} window={window}", k5, k5_plain, a))
+            if not torch.all(k5(a)[3] == 0):
+                raise SystemExit("K5: a slot with no pages is not 0")
+        a = cases.prefill_paged_case(2, PAGE, PAGE, NBLK, K, G, HD, width,
+                                     p0=[384, 64], n_valid=[PAGE, 37],
+                                     seed=7, device=dev)
+        errs["flash_prefill_paged"].append(
+            check(f"K6 {tag} B=2 p0=[384,64] nv=[64,37]", k6, k6_plain, a))
+    # K5 against K3 on the same data: the pages gathered into a ring,
+    # one exponent per slot
+    k5_vs_k3 = 0.0
+    for width in (8, 16, None):
+        a = cases.decode_paged_case(B, PAGE, NBLK, K, G, HD, width,
+                                    fill=[NBLK * PAGE, 257, 96, 0],
+                                    share=False, seed=9, device=dev)
+        slot_e = None
+        if width is not None:
+            slot_e = torch.arange(B, dtype=torch.float32, device=dev) \
+                + 1 - width
+            for name in ("k_exp", "v_exp"):
+                e = torch.zeros_like(a[name])
+                for b in range(B):
+                    e[a["bt"][b].long()] = slot_e[b]
+                e[0] = 0.0
+                a[name] = e
+        idx = a["bt"].long()
+        ring = dict(a, k=a["k"][idx].reshape(B, NBLK * PAGE, K, HD)
+                    .contiguous(),
+                    v=a["v"][idx].reshape(B, NBLK * PAGE, K, HD)
+                    .contiguous(), k_exp=slot_e, v_exp=slot_e)
+        d = float((k5(a) - k3(ring)).abs().max())
+        k5_vs_k3 = max(k5_vs_k3, d)
+        if d > TOL:
+            raise SystemExit(f"K5 and K3 disagree on the same data: {d}")
+    log(f"K5 vs K3 on the same data (int8, int16, f32): max_abs_diff "
+        f"{k5_vs_k3:.3e}")
+    decode_paged_rows, prefill_paged_rows = {}, {}
+    fills = [320, 384, 448, 200]      # the paged run's prompt lengths
+    for width, tag in ((8, "int8"), (16, "int16"), (None, "f32")):
+        decode_paged_rows[tag] = timed(
+            f"K5 {tag} timing (B=4, P=64, nblocks=8, fill={fills})",
+            "flash_decode_paged_kernel", k5, k5_plain,
+            lambda s, w=width: cases.decode_paged_case(
+                B, PAGE, NBLK, K, G, HD, w, fill=fills, seed=s, device=dev),
+            cases.decode_paged_cost,
+            (lambda a: sdpa_decode(gathered(a))) if width is None else None)
+    for width, tag in ((8, "int8"), (16, "int16"), (None, "f32")):
+        prefill_paged_rows[tag] = timed(
+            f"K6 {tag} timing (B=1, C=64, p0=384, P=64, nblocks=8)",
+            "flash_prefill_paged_kernel", k6, k6_plain,
+            lambda s, w=width: cases.prefill_paged_case(
+                1, PAGE, PAGE, NBLK, K, G, HD, w, p0=[384], n_valid=[PAGE],
+                seed=s, device=dev),
+            cases.prefill_paged_cost,
+            (lambda a: sdpa_prefill(gathered(a))) if width is None else None)
     results["flash_decode"] = dict(rows=decode_rows,
                                    max_abs_err=max(errs["flash_decode"]))
     results["flash_prefill"] = dict(rows=prefill_rows,
                                     max_abs_err=max(errs["flash_prefill"]))
+    results["flash_decode_paged"] = dict(
+        rows=decode_paged_rows, max_abs_err=max(errs["flash_decode_paged"]),
+        k5_vs_k3_max_abs_diff=k5_vs_k3)
+    results["flash_prefill_paged"] = dict(
+        rows=prefill_paged_rows,
+        max_abs_err=max(errs["flash_prefill_paged"]))
     return results
 
 
@@ -283,13 +410,78 @@ def phase_parity():
         raise SystemExit("the port on the card disagrees with the CPU")
 
 
+def phase_parity_paged():
+    """Smoke-size paged engine on the card (K5/K6) vs the CPU (plain):
+    the logits of every chunk and decode step under prefix sharing, at
+    float32 arithmetic over f32 pages; and a tight arena that preempts,
+    whose statuses and preemption count must match."""
+    from repro_torch import configs
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.launch.serve import prompt
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import EngineOptions, ServeEngine
+
+    cfg = configs.get_smoke("llama3_8b")
+    P = 32
+    pol = PrecisionPolicy("float32", fused_decode=True, page_size=P)
+    shared = prompt(200, 2 * P, cfg.vocab_size)
+    pa, pb = (np.concatenate([shared, prompt(201 + i, 16, cfg.vocab_size)])
+              for i in range(2))
+
+    def run(dev, prompts, slots, max_new, n_pages=None):
+        params = _to(T.init_params(cfg, 7, device="cpu"), dev)
+        eng = ServeEngine(cfg, pol, params, max_slots=slots,
+                          max_len=len(pa) + max_new,
+                          options=EngineOptions(n_pages=n_pages), device=dev)
+        seen, sample = [], eng._sample
+
+        def spy(logits):                 # every chunk's and step's logits
+            seen.append(logits.cpu())
+            return sample(logits)
+        eng._sample = spy
+        for p in prompts:
+            eng.submit(p, max_new=max_new)
+        eng.run()
+        return eng, seen
+
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        eng, seen = run(dev, [pa, pb, shared], 2, 6)
+        st = eng.stats()
+        if not (st["page_cache_hits"] > 0 and st["page_cow_forks"] > 0):
+            raise SystemExit("paged parity run shared no page")
+        logits[dev] = torch.cat(seen)
+    if logits["cuda"].shape != logits["cpu"].shape:
+        raise SystemExit("paged parity: the card and the CPU took "
+                         "different schedules")
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    log(f"paged smoke parity card vs cpu: logits "
+        f"{tuple(logits['cpu'].shape)} max_abs_err {err:.3e}")
+    if not (torch.isfinite(logits["cuda"]).all() and err < TOL):
+        raise SystemExit("the paged port on the card disagrees with the CPU")
+    tight = {}
+    for dev in ("cuda", "cpu"):
+        eng, _ = run(dev, [pa, pb], 2, 20, n_pages=5)
+        tight[dev] = ([s.value for s in eng.statuses.values()],
+                      eng.stats()["preemptions"])
+    log(f"paged tight arena (4 pages): card {tight['cuda']} cpu "
+        f"{tight['cpu']}")
+    if tight["cuda"] != tight["cpu"] or tight["cuda"][1] < 1:
+        raise SystemExit("the tight-arena run differs between the card and "
+                         "the CPU, or did not preempt")
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
 
 
-def _check_served(eng, n_layers, max_new, chunked):
+def _check_served(eng, n_layers, max_new, decode_kernel, prefill_kernel):
+    """All requests OK with ``max_new`` in-vocabulary tokens; the run's
+    decode kernel launched once per layer per decode step, its prefill
+    kernel (None: whole-prompt) once per layer per chunk, and no other
+    attention kernel at all."""
     from repro_torch.kernels.attn import ops
     st = eng.stats()
     statuses = [s.value for s in eng.statuses.values()]
@@ -301,17 +493,19 @@ def _check_served(eng, n_layers, max_new, chunked):
         f"ttft_mean_s {st['ttft_mean_s']:.3f} ttft_max_s "
         f"{st['ttft_max_s']:.3f} wall_s {st['wall_s']:.2f}")
     vocab = eng.cfg.vocab_size
+    want = {name: 0 for name in launches}
+    want[decode_kernel] = n_layers * st["decode_steps"]
+    if prefill_kernel is not None:
+        want[prefill_kernel] = n_layers * st["prefill_chunks"]
     ok = (all(s == "ok" for s in statuses)
           and all(n == max_new for n in lens)
           and all(((r >= 0) & (r < vocab)).all()
                   for r in eng.results.values())
-          and launches["flash_decode"] == n_layers * st["decode_steps"] > 0
-          and launches["flash_prefill"] == (
-              n_layers * st["prefill_chunks"] if chunked else 0))
-    if chunked and not launches["flash_prefill"] > 0:
-        ok = False
+          and launches == want and launches[decode_kernel] > 0
+          and (prefill_kernel is None or launches[prefill_kernel] > 0))
     if not ok:
-        raise SystemExit("serving run failed its checks")
+        raise SystemExit(f"serving run failed its checks (launches "
+                         f"{launches}, expected {want})")
     return st, launches
 
 
@@ -324,11 +518,105 @@ def phase_serve():
     eng = serve.main(SERVE_ARGS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    st, launches = _check_served(eng, eng.cfg.num_layers, 16, chunked=True)
+    st, launches = _check_served(eng, eng.cfg.num_layers, 16,
+                                 "flash_decode", "flash_prefill")
     peak = torch.cuda.max_memory_allocated()
     log(f"main path: {wall:.1f}s including weight init; peak memory "
         f"{peak / 1e9:.2f} GB (max_memory_allocated)")
     return eng, st, launches, peak
+
+
+def paged_prompts(vocab: int):
+    """The paged run's six prompts: three that share one 256-token prefix
+    (4 pages) followed by 64, 128 and 192 tokens of their own, one of 200
+    tokens (a partial tail page), and two identical 256-token prompts
+    (the second maps all four pages and, its last row capped out of the
+    match, forks the fourth copy-on-write)."""
+    from repro_torch.launch.serve import prompt
+    prefix = prompt(100, 256, vocab)
+    own = [np.concatenate([prefix, prompt(101 + i, n, vocab)])
+           for i, n in enumerate((64, 128, 192))]
+    twin = prompt(110, 256, vocab)
+    return own + [prompt(104, 200, vocab), twin, twin.copy()]
+
+
+def paged_expected(prompts, max_new: int, P: int):
+    """(prefill chunks, pages allocated, prefix page hits, forks) that the
+    allocator's arithmetic gives for :func:`paged_prompts` served in
+    order with a full-residency arena: each request maps the registered
+    pages of its longest page-aligned prefix (capped at ``L - 1``
+    tokens), prefills the rest in P-token chunks, allocates a page for
+    every block it writes that it does not map, and forks a shared page
+    it writes into.  Its decode writes rows ``L .. L + max_new - 2``."""
+    import hashlib
+    index, chunks, pages, hits, forks = set(), 0, 0, 0, 0
+    for toks in prompts:
+        L = len(toks)
+        h, matched = hashlib.sha1(), 0
+        for i in range(L // P):
+            h.update(np.asarray(toks[i * P:(i + 1) * P], np.int64).tobytes())
+            if h.hexdigest() not in index:
+                break
+            matched += 1
+        shared = min(matched * P, L - 1)
+        hits += matched
+        chunks += -(-(L - shared) // P)
+        last = (L + max_new - 2) // P              # last block written
+        pages += last + 1 - matched                # fresh blocks
+        if shared < matched * P:                   # writes a shared page
+            pages, forks = pages + 1, forks + 1
+        h = hashlib.sha1()
+        for i in range(L // P):
+            h.update(np.asarray(toks[i * P:(i + 1) * P], np.int64).tobytes())
+            index.add(h.hexdigest())
+    return chunks, pages, hits, forks
+
+
+def serve_paged(cfg, params, device, max_new: int = 16, P: int = PAGE):
+    """The paged main path: 4 slots, DFXP-10, int8 pages, fused decode,
+    P = C, the :func:`paged_prompts` requests.  Returns the drained
+    engine."""
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.serve import EngineOptions, ServeEngine
+    prompts = paged_prompts(cfg.vocab_size)
+    pol = PrecisionPolicy("dfxp", fused_decode=True, page_size=P)
+    eng = ServeEngine(cfg, pol, params, max_slots=4,
+                      max_len=max(map(len, prompts)) + max_new,
+                      options=EngineOptions(cache_bits=8), device=device)
+    for p in prompts:
+        eng.submit(p, max_new=max_new)
+    eng.run()
+    return eng
+
+
+def phase_paged(eng):
+    """The paged main path at full width on the serving run's weights."""
+    from repro_torch.kernels.attn import ops
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    peng = serve_paged(eng.cfg, eng.params, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st, launches = _check_served(peng, eng.cfg.num_layers, 16,
+                                 "flash_decode_paged", "flash_prefill_paged")
+    chunks, pages, hits, forks = paged_expected(
+        paged_prompts(eng.cfg.vocab_size), 16, PAGE)
+    counters = {k: st[k] for k in ("prefill_chunks", "pages_allocated",
+                                   "page_cache_hits", "page_cow_forks",
+                                   "pages_in_use_peak", "pages_registered",
+                                   "page_evictions", "preemptions")}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"paged path: {wall:.1f}s; counters {counters}; expected chunks "
+        f"{chunks} pages {pages} hits {hits} forks {forks}; arena "
+        f"{peng.kv.total_pages} pages x {peng.kv.nblocks} blocks; peak "
+        f"memory {peak / 1e9:.2f} GB (max_memory_allocated)")
+    if (st["prefill_chunks"], st["pages_allocated"], st["page_cache_hits"],
+            st["page_cow_forks"]) != (chunks, pages, hits, forks) \
+            or not hits > 0 or not forks >= 1:
+        raise SystemExit("the paged run's page counters disagree with the "
+                         "allocator's arithmetic")
+    return peng, st, launches, peak
 
 
 def phase_whole_prompt(eng):
@@ -345,50 +633,32 @@ def phase_whole_prompt(eng):
     ops.reset_launches()
     whole.run()
     torch.cuda.synchronize()
-    st, launches = _check_served(whole, eng.cfg.num_layers, 8, chunked=False)
+    st, launches = _check_served(whole, eng.cfg.num_layers, 8,
+                                 "flash_decode", None)
     return st, launches
 
 
 def _kind(name: str) -> str:
-    if "flash_decode_kernel" in name:
-        return "flash_decode (K3)"
-    if "flash_prefill_kernel" in name:
-        return "flash_prefill (K4)"
+    for kernel, label in (("flash_decode_kernel", "flash_decode (K3)"),
+                          ("flash_prefill_kernel", "flash_prefill (K4)"),
+                          ("flash_decode_paged_kernel",
+                           "flash_decode_paged (K5)"),
+                          ("flash_prefill_paged_kernel",
+                           "flash_prefill_paged (K6)")):
+        if kernel in name:
+            return label
     if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "gemv")):
         return "matmul"
     return "elementwise/reduction"
 
 
-def phase_profile(eng):
-    """Where one decode step and one prefill chunk spend device time, at
-    full width, from ``torch.profiler``; device idle share = 1 - device
-    time / host wall time of the call."""
+def _profile(name, fn):
+    """Device time of one call of ``fn`` by kind, from ``torch.profiler``;
+    device idle share = 1 - device time / host wall time of the call."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import transformer as T
-    cfg, pol, params, codec = eng.cfg, eng.policy, eng.params, eng.codec
-    pool, B = eng.kv.pool, eng.max_slots
-    dev = torch.device("cuda")
-    tok = torch.zeros(B, dtype=torch.int32, device=dev)
-    pos = torch.full((B,), 300, dtype=torch.int32, device=dev)
-    toks = torch.zeros((1, 128), dtype=torch.int32, device=dev)
-    one = {s: {b: {n: t[:, :1] for n, t in e.items()} for b, e in sc.items()}
-           for s, sc in pool.items()}
-
-    def decode():
-        T.decode_step(cfg, pol, params, pool, tok, pos, eng.exps,
-                      kv_codec=codec)
-
-    def chunk():
-        T.prefill_chunk_step(
-            cfg, pol, params, one, toks,
-            torch.tensor([128], dtype=torch.int32, device=dev),
-            torch.tensor([128], dtype=torch.int32, device=dev), eng.exps,
-            kv_codec=codec)
-
-    out = {}
-    for name, fn in (("decode_step", decode), ("prefill_chunk", chunk)):
-        fn()
-        torch.cuda.synchronize()
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):        # some sessions record no device activity
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -405,14 +675,57 @@ def phase_profile(eng):
             total += us
             k = _kind(evt.key)
             by_kind[k] = by_kind.get(k, 0.0) + us / 1e3
-        row = {"wall_ms": wall, "device_ms": total / 1e3,
-               "device_ms_by_kind": by_kind}
         if total > 0:
-            row["device_idle_share"] = 1.0 - total / 1e3 / wall
-        else:
-            row["device_ms"] = "not measured (no device time in the trace)"
-        out[name] = row
-        log(f"profile {name}: {json.dumps(row)}")
+            break
+    row = {"wall_ms": wall, "device_ms": total / 1e3,
+           "device_ms_by_kind": by_kind}
+    if total > 0:
+        row["device_idle_share"] = 1.0 - total / 1e3 / wall
+    else:
+        row["device_ms"] = "not measured (no device time in the trace)"
+    log(f"profile {name}: {json.dumps(row)}")
+    return row
+
+
+def phase_profile(eng, peng):
+    """Where one decode step (4 slots at position 300) and one prefill
+    chunk spend device time at full width, slot-major (``eng``, C=128 at
+    p0=128) and paged (``peng``, C=64 at p0=128 over mapped pages)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import paged
+    cfg, pol, params = eng.cfg, eng.policy, eng.params
+    B = eng.max_slots
+    dev = torch.device("cuda")
+    tok = torch.zeros(B, dtype=torch.int32, device=dev)
+    pos = torch.full((B,), 300, dtype=torch.int32, device=dev)
+
+    def steps(e, C):
+        toks = torch.zeros((1, C), dtype=torch.int32, device=dev)
+        one = paged.slice_slot(e.kv.pool, 0)
+
+        def decode():
+            T.decode_step(cfg, e.policy, params, e.kv.pool, tok, pos,
+                          e.exps, kv_codec=e.codec)
+
+        def chunk():
+            T.prefill_chunk_step(
+                cfg, e.policy, params, one, toks,
+                torch.tensor([128], dtype=torch.int32, device=dev),
+                torch.tensor([C], dtype=torch.int32, device=dev), e.exps,
+                kv_codec=e.codec)
+        return decode, chunk
+
+    # the drained paged engine's arena: every slot maps 8 private pages
+    # with rows 0..299 live, so both steps attend real history
+    nb = peng.kv.nblocks
+    for slot in range(B):
+        row = 1 + slot * nb + np.arange(nb)
+        paged.reset_slot(peng.kv.pool, slot, 300, row, 300.0)
+    out = {}
+    for tag, e, C in (("", eng, 128), ("paged_", peng, PAGE)):
+        decode, chunk = steps(e, C)
+        out[f"{tag}decode_step"] = _profile(f"{tag}decode_step", decode)
+        out[f"{tag}prefill_chunk"] = _profile(f"{tag}prefill_chunk", chunk)
     return out
 
 
@@ -433,37 +746,54 @@ def main():
     kern = phase_kernels()
     log(f"[{time.perf_counter() - t0:.0f}s] kernels checked")
     phase_parity()
+    phase_parity_paged()
     log(f"[{time.perf_counter() - t0:.0f}s] smoke parity checked")
     eng, st, launches, peak = phase_serve()
     log(f"[{time.perf_counter() - t0:.0f}s] main path served")
-    prof = phase_profile(eng)
-    log(f"[{time.perf_counter() - t0:.0f}s] one step profiled")
+    peng, pst, plaunches, ppeak = phase_paged(eng)
+    log(f"[{time.perf_counter() - t0:.0f}s] paged path served")
+    prof = phase_profile(eng, peng)
+    log(f"[{time.perf_counter() - t0:.0f}s] steps profiled")
     wst, wlaunches = phase_whole_prompt(eng)
     log(f"[{time.perf_counter() - t0:.0f}s] whole-prompt path served")
 
-    srcs = {"flash_decode": ("src/repro_torch/kernels/attn/csrc/flash_decode.cu",
-                             "src/repro/kernels/attn/attn_kernel.py:123"),
-            "flash_prefill": ("src/repro_torch/kernels/attn/csrc/flash_prefill.cu",
-                              "src/repro/kernels/attn/prefill_kernel.py:125")}
+    csrc = "src/repro_torch/kernels/attn/csrc/"
+    srcs = {"flash_decode": ("src/repro/kernels/attn/attn_kernel.py:123",
+                             launches),
+            "flash_prefill": ("src/repro/kernels/attn/prefill_kernel.py:125",
+                              launches),
+            "flash_decode_paged": (
+                "src/repro/kernels/attn/attn_kernel.py:248", plaunches),
+            "flash_prefill_paged": (
+                "src/repro/kernels/attn/prefill_kernel.py:281", plaunches)}
     rows = []
-    for name, (src, replaces) in srcs.items():
+    for name, (replaces, main_launches) in srcs.items():
         k = kern[name]
         main_row = k["rows"]["int8"]           # the pool the main path runs
         rows.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "name": name, "route": "cuda", "source": f"{csrc}{name}.cu",
+            "replaces": replaces, "launches": main_launches[name],
             "max_abs_err": k["max_abs_err"], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": k["rows"]["f32"].get("library_ms"),
-            "library_note": "scaled_dot_product_attention on the f32-pool "
-                            "case of the same shape and mask",
+            "library_note": "scaled_dot_product_attention on the f32 case "
+                            "of the same shape and mask (paged: its pages "
+                            "gathered first, outside the timed call)",
             "cases": k["rows"],
             "whole_prompt_launches": wlaunches[name]})
+    rows[2]["k5_vs_k3_max_abs_diff"] = \
+        kern["flash_decode_paged"]["k5_vs_k3_max_abs_diff"]
     summary = {"peak_memory_bytes": peak, "tok_per_s": st["tok_per_s"],
                "ttft_mean_s": st["ttft_mean_s"], "decode_steps":
                st["decode_steps"], "prefill_chunks": st["prefill_chunks"],
-               "whole_prompt_tok_per_s": wst["tok_per_s"], "profile": prof}
+               "whole_prompt_tok_per_s": wst["tok_per_s"],
+               "paged": {k: pst[k] for k in (
+                   "tok_per_s", "ttft_mean_s", "ttft_max_s", "wall_s",
+                   "decode_steps", "prefill_chunks", "pages_allocated",
+                   "page_cache_hits", "page_cow_forks",
+                   "pages_in_use_peak")} | {"peak_memory_bytes": ppeak},
+               "profile": prof}
     log("serve: " + json.dumps(summary))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

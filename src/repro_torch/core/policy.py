@@ -6,9 +6,9 @@ computations: activations, weighted sums, and every gradient) and
 radix point after the ``fixed_int_bits``-th MSB), the float names
 reproduce §3.
 
-The fields the serving slice reads, with the reference's meaning and
-validation (``repro.core.policy``); the training, distributed and paged
-fields join with the slices that port their machinery.
+The fields the serving slices read, with the reference's meaning and
+validation (``repro.core.policy``); the training and distributed fields
+join with the slices that port their machinery.
 """
 from __future__ import annotations
 
@@ -48,10 +48,16 @@ class PrecisionPolicy:
     #   flash-prefill kernels on the KV pool's storage (CLI --fused-decode)
     prefill_chunk: int = 0           # serve: chunked prefill size C; 0 =
     #   whole-prompt prefill (CLI --prefill-chunk)
+    page_size: int = 0               # serve: paged KV pool page size P; 0 =
+    #   slot-major rings.  P > 0 stores fixed-size pages behind per-request
+    #   block tables (serve/paged.py) and forces chunked prefill, C
+    #   defaulting to P (CLI --page-size)
 
     def __post_init__(self):
         if self.prefill_chunk < 0:
             raise ValueError("prefill_chunk must be >= 0")
+        if self.page_size < 0:
+            raise ValueError("page_size must be >= 0")
         if self.arithmetic not in (*_FLOATS, "fixed", "dfxp", "observe"):
             raise ValueError(f"unknown arithmetic {self.arithmetic!r}")
         if self.storage not in ("sim", "packed"):

@@ -1,6 +1,14 @@
-"""Attention over the KV pool: flash-decode (K3) and flash-prefill (K4).
+"""Attention over the KV pool: flash-decode (K3) and flash-prefill (K4) on
+slot-major rings, and their paged variants (K5, K6) through block tables.
 
 ``ops`` holds the wrappers, ``ref`` the plain PyTorch versions, ``build``
 the nvcc/ctypes loader, ``csrc`` the CUDA sources.
 """
-from .ops import LAUNCHES, flash_decode, flash_prefill, reset_launches  # noqa: F401
+from .ops import (  # noqa: F401
+    LAUNCHES,
+    flash_decode,
+    flash_decode_paged,
+    flash_prefill,
+    flash_prefill_paged,
+    reset_launches,
+)

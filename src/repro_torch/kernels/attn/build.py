@@ -29,6 +29,10 @@ SIGNATURES = {
                      [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
     "flash_prefill": ("flash_prefill_launch",
                       [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P]),
+    "flash_decode_paged": ("flash_decode_paged_launch",
+                           [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P]),
+    "flash_prefill_paged": ("flash_prefill_paged_launch",
+                            [_P] * 11 + [_I] * 8 + [_F, _I, _I, _P]),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -1,7 +1,8 @@
-// Shared pieces of the flash-decode (K3) and flash-prefill (K4) kernels.
+// Shared pieces of the flash-decode (K3, K5 paged) and flash-prefill (K4,
+// K6 paged) kernels.
 //
-// Both kernels walk the keys of one (slot, kv head) in tiles of 32, one
-// key per lane.  A tile is staged into shared memory by the whole block,
+// All four kernels walk the keys of one (slot, kv head) in tiles of 32,
+// one key per lane.  A tile is staged into shared memory by the whole block,
 // dequantized on the way in (value = mantissa * step, step = 2**e of the
 // slot, or 1 for a float pool).  Each warp then owns a few query rows
 // and runs the online softmax over the tile with the running
@@ -69,6 +70,25 @@ __device__ void stage_tile(const T* __restrict__ kbase,
     ks[j * (hd + 1) + d] = kv;
     vs[j * hd + d] = vv;
   }
+}
+
+// Paged variants (K5, K6): with a page size P that is a multiple of
+// kTile, the logical rows [w0, w0 + kTile) of a slot lie in one page,
+// bt_row[w0 / P], at offsets w0 % P ..; the tile is that page's rows,
+// staged by stage_tile from the page's base with the page's own steps
+// (steps[2 * page], steps[2 * page + 1]).  Arena layout [n_pages, P, K,
+// hd]: row stride K * hd inside a page, as in a slot-major ring.
+template <typename T>
+__device__ void stage_page_tile(const T* __restrict__ k,
+                                const T* __restrict__ v,
+                                const int* __restrict__ bt_row,
+                                const float* __restrict__ steps, int w0,
+                                int P, int K, int kh, int hd, float* ks,
+                                float* vs) {
+  const int page = bt_row[w0 / P];
+  const long base = (((long)page * P + w0 % P) * K + kh) * hd;
+  stage_tile(k + base, v + base, (long)K * hd, kTile, steps[2 * page],
+             steps[2 * page + 1], hd, ks, vs);
 }
 
 // Running softmax state of the RPW query rows one warp owns; lane l holds

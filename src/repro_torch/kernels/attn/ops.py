@@ -1,12 +1,16 @@
-"""Wrappers of the hand-written attention kernels K3 and K4.
+"""Wrappers of the hand-written attention kernels K3, K4, K5 and K6.
 
-``flash_decode`` and ``flash_prefill`` keep the signatures of
-``repro.kernels.attn.ops`` (minus ``tp_axis``, and minus ``block_w`` and
-``interpret``: the CUDA kernels tile by the warp width and have no
-interpret mode).  For tensors on the CPU they compute the plain versions
-in :mod:`.ref`; for tensors on the card they check device, dtype, shape
-and contiguity, launch the kernel on the current stream, and raise if the
-launch fails.  There is no fallback from one to the other.
+``flash_decode``, ``flash_prefill`` and their paged variants
+``flash_decode_paged`` and ``flash_prefill_paged`` keep the signatures of
+``repro.kernels.attn.ops`` (minus ``tp_axis``, and minus ``block_w``,
+``interpret`` and ``force_split``: the CUDA kernels tile by the warp
+width and have no interpret mode).  For tensors on the CPU they compute
+the plain versions in :mod:`.ref`; for tensors on the card they check
+device, dtype, shape and contiguity, launch the kernel on the current
+stream, and raise if the launch fails.  There is no fallback from one to
+the other.  The block tables' entries are not read on the host (that
+would cost a device sync per call): they must name pages of the arena,
+as the engine's allocator guarantees.
 
 ``LAUNCHES`` counts kernel launches per wrapper — incremented where the
 kernel launches and nowhere else — so a run can show that its main path
@@ -27,7 +31,10 @@ from . import ref as R
 
 Tensor = torch.Tensor
 
-LAUNCHES: Dict[str, int] = {"flash_decode": 0, "flash_prefill": 0}
+LAUNCHES: Dict[str, int] = {"flash_decode": 0, "flash_prefill": 0,
+                             "flash_decode_paged": 0,
+                             "flash_prefill_paged": 0}
+TILE = 32          # keys per kernel tile; a page size must be a multiple
 
 _DTYPE_CODE = {torch.int8: 0, torch.int16: 1, torch.float32: 2}
 
@@ -53,10 +60,11 @@ def _check(name: str, t: Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _steps(B: int, k_exp, v_exp, width: Optional[int], device) -> Tensor:
-    """Per-slot dequant steps [B, 2] = [2**k_e, 2**v_e] (ones for f32)."""
+def _steps(n: int, k_exp, v_exp, width: Optional[int], device) -> Tensor:
+    """Dequant steps [n, 2] = [2**k_e, 2**v_e] per slot (K3, K4) or per
+    page (K5, K6); ones for f32."""
     if width is None:
-        return torch.ones((B, 2), dtype=torch.float32, device=device)
+        return torch.ones((n, 2), dtype=torch.float32, device=device)
     ke = torch.as_tensor(k_exp, dtype=torch.float32, device=device)
     ve = torch.as_tensor(v_exp, dtype=torch.float32, device=device)
     return torch.stack([exact_pow2(ke), exact_pow2(ve)], dim=-1).contiguous()
@@ -158,4 +166,116 @@ def flash_prefill(q: Tensor, k_new: Tensor, v_new: Tensor, k: Tensor,
         raise RuntimeError(f"flash_prefill kernel launch failed: CUDA error "
                            f"{rc}")
     LAUNCHES["flash_prefill"] += 1
+    return out
+
+
+def _check_paged(k: Tensor, v: Tensor, bt: Tensor, pos: Tensor, B: int,
+                 K: int, hd: int, width: Optional[int], dev):
+    """Check the arenas, block table and positions of a paged call;
+    returns ``(n_pages, P, nblocks)``."""
+    n_pages, P = k.shape[:2]
+    nblocks = bt.shape[1] if bt.ndim == 2 else -1
+    sdt = _storage_dtype(width)
+    _check("k", k, (n_pages, P, K, hd), sdt, dev)
+    _check("v", v, (n_pages, P, K, hd), sdt, dev)
+    _check("bt", bt, (B, nblocks), torch.int32, dev)
+    _check("pos", pos, (B, nblocks * P), torch.int32, dev)
+    if P % TILE:
+        raise ValueError(f"the paged kernels take a page size that is a "
+                         f"multiple of {TILE}, got {P}")
+    if hd > 256:
+        raise ValueError(f"the paged kernels take hd <= 256, got hd={hd}")
+    return n_pages, P, nblocks
+
+
+def flash_decode_paged(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
+                       pos: Tensor, q_pos: Tensor, k_exp=None, v_exp=None, *,
+                       width: Optional[int] = None, scale: float,
+                       window: Optional[int] = None,
+                       causal: bool = True) -> Tensor:
+    """Single-query GQA attention through a per-request block table — K5.
+
+    ``q``: f32 [B, K, G, hd] · ``k``/``v``: [n_pages, P, K, hd] page
+    arenas (int8/int16 mantissas or f32) · ``bt``: int32 [B, nblocks]
+    block tables (0 = null page; every entry names a page of the arena)
+    · ``pos``: int32 [B, nblocks·P] logical positions (-1 = empty) ·
+    ``q_pos``: int32 [B] · ``k_exp``/``v_exp``: f32 [n_pages] per-PAGE
+    log2-steps.  On the card ``P`` must be a multiple of 32.  Returns f32
+    [B, K, G, hd]; numerics are
+    :func:`repro_torch.kernels.attn.ref.paged_decode_attention_ref`.
+    """
+    if q.device.type == "cpu":
+        return R.paged_decode_attention_ref(
+            q, k, v, bt, pos, q_pos, k_exp=k_exp, v_exp=v_exp, width=width,
+            scale=scale, window=window, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_paged runs on cpu or cuda, not "
+                         f"{q.device}")
+    B, K, G, hd = q.shape
+    dev = q.device
+    _check("q", q, (B, K, G, hd), torch.float32, dev)
+    _check("q_pos", q_pos, (B,), torch.int32, dev)
+    n_pages, P, nblocks = _check_paged(k, v, bt, pos, B, K, hd, width, dev)
+    if G > 32:
+        raise ValueError(f"flash_decode_paged takes G <= 32, got G={G}")
+    steps = _steps(n_pages, k_exp, v_exp, width, dev)
+    _check("steps", steps, (n_pages, 2), torch.float32, dev)
+    out = torch.empty_like(q)
+    fn = build.library("flash_decode_paged").flash_decode_paged_launch
+    rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bt), _ptr(pos), _ptr(q_pos),
+            _ptr(steps), _ptr(out), B, nblocks, P, K, G, hd,
+            _DTYPE_CODE[_storage_dtype(width)], float(scale),
+            int(window or 0), int(causal), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"flash_decode_paged kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES["flash_decode_paged"] += 1
+    return out
+
+
+def flash_prefill_paged(q: Tensor, k_new: Tensor, v_new: Tensor, k: Tensor,
+                        v: Tensor, bt: Tensor, pos: Tensor, p0: Tensor,
+                        n_valid: Tensor, k_exp=None, v_exp=None, *,
+                        width: Optional[int] = None, scale: float,
+                        window: Optional[int] = None,
+                        causal: bool = True) -> Tensor:
+    """Chunked-prefill GQA attention through a block table — K6.
+
+    ``q``: f32 [B, C, K, G, hd] chunk queries starting at ``p0`` [B] ·
+    ``k_new``/``v_new``: f32 [B, C, K, hd] the chunk's own K/V ·
+    ``k``/``v``: [n_pages, P, K, hd] page arenas · ``bt``: int32
+    [B, nblocks] · ``pos``: int32 [B, nblocks·P] · ``n_valid``: int32 [B]
+    · ``k_exp``/``v_exp``: f32 [n_pages] per-PAGE log2-steps.  On the
+    card ``P`` must be a multiple of 32.  Returns f32 [B, C, K, G, hd];
+    numerics are
+    :func:`repro_torch.kernels.attn.ref.paged_prefill_attention_ref`.
+    """
+    if q.device.type == "cpu":
+        return R.paged_prefill_attention_ref(
+            q, k, v, bt, pos, k_new, v_new, p0, n_valid, k_exp=k_exp,
+            v_exp=v_exp, width=width, scale=scale, window=window,
+            causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_prefill_paged runs on cpu or cuda, not "
+                         f"{q.device}")
+    B, C, K, G, hd = q.shape
+    dev = q.device
+    _check("q", q, (B, C, K, G, hd), torch.float32, dev)
+    _check("k_new", k_new, (B, C, K, hd), torch.float32, dev)
+    _check("v_new", v_new, (B, C, K, hd), torch.float32, dev)
+    _check("p0", p0, (B,), torch.int32, dev)
+    _check("n_valid", n_valid, (B,), torch.int32, dev)
+    n_pages, P, nblocks = _check_paged(k, v, bt, pos, B, K, hd, width, dev)
+    steps = _steps(n_pages, k_exp, v_exp, width, dev)
+    _check("steps", steps, (n_pages, 2), torch.float32, dev)
+    out = torch.empty_like(q)
+    fn = build.library("flash_prefill_paged").flash_prefill_paged_launch
+    rc = fn(_ptr(q), _ptr(k_new), _ptr(v_new), _ptr(k), _ptr(v), _ptr(bt),
+            _ptr(pos), _ptr(p0), _ptr(n_valid), _ptr(steps), _ptr(out), B, C,
+            nblocks, P, K, G, hd, _DTYPE_CODE[_storage_dtype(width)],
+            float(scale), int(window or 0), int(causal), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"flash_prefill_paged kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES["flash_prefill_paged"] += 1
     return out

@@ -2,9 +2,10 @@
 
 These are the numerics contract of :mod:`repro_torch.kernels.attn`, a
 line-for-line port of ``repro.kernels.attn.ref``: single-query and
-chunked GQA attention over a (possibly DFXP-packed) KV ring buffer, on
-the full ``[B, ...]`` shapes.  The kernel wrappers compute these for CPU
-tensors; on the card they are what each kernel is held against.
+chunked GQA attention over a (possibly DFXP-packed) KV ring buffer, or
+over a paged arena through a per-request block table, on the full
+``[B, ...]`` shapes.  The kernel wrappers compute these for CPU tensors;
+on the card they are what each kernel is held against.
 
 Masking semantics match the reference's ``attention_decode``:
 
@@ -122,6 +123,59 @@ def _wide(k: Tensor, v: Tensor, k_exp, v_exp, width: Optional[int]):
     if width is None:
         return k.to(torch.float32), v.to(torch.float32)
     return dequant(k, k_exp), dequant(v, v_exp)
+
+
+def gather_pages(m: Tensor, e: Optional[Tensor], bt: Tensor,
+                 width: Optional[int]) -> Tensor:
+    """Block-table gather: paged storage → the slot-major wide layout.
+
+    ``m``: [n_pages, P, K, hd] page arena (int mantissas when ``width``,
+    raw floats otherwise) · ``e``: f32 [n_pages] per-page log2-steps ·
+    ``bt``: int32 [B, nblocks] block table.  Returns f32
+    [B, nblocks·P, K, hd] — logical row ``r`` is page ``bt[b, r // P]``
+    offset ``r % P``, exactly the layout ``pos`` [B, nblocks·P] indexes,
+    so :func:`attend`/:func:`chunk_attend` apply unchanged.
+    """
+    idx = bt.long()
+    x = m[idx].to(torch.float32)                       # [B, nblocks, P, ...]
+    if width is not None:
+        x = x * exact_pow2(e[idx])[..., None, None, None]
+    B, nblocks, P = x.shape[:3]
+    return x.reshape((B, nblocks * P) + tuple(x.shape[3:]))
+
+
+def paged_decode_attention_ref(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
+                               pos: Tensor, q_pos: Tensor, *, k_exp=None,
+                               v_exp=None, width: Optional[int] = None,
+                               scale: float, window: Optional[int] = None,
+                               causal: bool = True) -> Tensor:
+    """Decode through the block-table gather — the plain K5.
+
+    ``k``/``v`` are the [n_pages, P, K, hd] page arenas with per-**page**
+    ``k_exp``/``v_exp`` [n_pages] (the
+    :class:`repro_torch.serve.paged.PagedKVCodec` layout, one layer); the
+    rest matches :func:`decode_attention_ref`.
+    """
+    kf = gather_pages(k, k_exp, bt, width)
+    vf = gather_pages(v, v_exp, bt, width)
+    return attend(q.to(torch.float32), kf, vf, pos, q_pos, scale=scale,
+                  window=window, causal=causal)
+
+
+def paged_prefill_attention_ref(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
+                                pos: Tensor, k_new: Tensor, v_new: Tensor,
+                                p0: Tensor, n_valid: Tensor, *, k_exp=None,
+                                v_exp=None, width: Optional[int] = None,
+                                scale: float, window: Optional[int] = None,
+                                causal: bool = True) -> Tensor:
+    """Chunked prefill through the block-table gather — the plain K6, in
+    the :class:`repro_torch.serve.paged.PagedKVCodec` entry layout."""
+    kf = gather_pages(k, k_exp, bt, width)
+    vf = gather_pages(v, v_exp, bt, width)
+    return chunk_attend(q.to(torch.float32), kf, vf, pos,
+                        k_new.to(torch.float32), v_new.to(torch.float32),
+                        p0, n_valid, scale=scale, window=window,
+                        causal=causal)
 
 
 def decode_attention_ref(q: Tensor, k: Tensor, v: Tensor, pos: Tensor,

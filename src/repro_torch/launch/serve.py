@@ -2,12 +2,16 @@
 
 Mixed-length prompts, per-request budgets, greedy sampling, an optionally
 DFXP-packed KV pool (``--cache-bits 8|16``), the hand-written
-flash-decode/flash-prefill kernels (``--fused-decode``) and chunked
-prefill (``--prefill-chunk C``), on the card by default:
+flash-decode/flash-prefill kernels (``--fused-decode``), chunked prefill
+(``--prefill-chunk C``) and the paged pool with prefix sharing
+(``--page-size P``), on the card by default:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \\
       --num-requests 6 --slots 4 --prompt-len 96,200,384 --max-new 16 \\
       --cache-bits 8 --fused-decode --prefill-chunk 128
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \\
+      --num-requests 6 --slots 4 --prompt-len 96,200,384 --max-new 16 \\
+      --cache-bits 8 --fused-decode --page-size 64
 
 ``--smoke`` takes the reduced config, ``--device cpu`` runs the plain
 PyTorch versions on the CPU.  Weights are random, drawn on the device
@@ -61,6 +65,13 @@ def main(argv=None):
                     help="chunked prefill: admit any request into any free "
                          "slot immediately and prefill C tokens per engine "
                          "step interleaved with decode. 0 = whole-prompt")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="paged KV pool: page size P in tokens (0 = "
+                         "slot-major rings). Pages carry their own DFXP "
+                         "exponents; requests sharing a prompt prefix map "
+                         "the same pages (refcounted, copy-on-write on "
+                         "divergence). Implies --prefill-chunk P unless "
+                         "set. The paged kernels take P a multiple of 32")
     ap.add_argument("--sampler", default="greedy",
                     choices=("greedy", "temperature", "top_k"))
     ap.add_argument("--temperature", type=float, default=1.0)
@@ -73,7 +84,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
     policy = PrecisionPolicy(args.arithmetic, fused_decode=args.fused_decode,
-                             prefill_chunk=args.prefill_chunk)
+                             prefill_chunk=args.prefill_chunk or
+                             args.page_size, page_size=args.page_size)
     scfg = SamplerConfig(kind=args.sampler, temperature=args.temperature,
                          top_k=args.top_k if args.sampler == "top_k" else 0)
     params = T.init_params(cfg, args.seed, device=device)
@@ -96,10 +108,12 @@ def main(argv=None):
     print("stats:", json.dumps({k: round(v, 4) if isinstance(v, float) else v
                                 for k, v in stats.items()}))
     print("sample:", out[uids[0]][:8].tolist())
-    print(f"{'uid':>5} {'status':>10} {'tokens':>7}")
+    print(f"{'uid':>5} {'status':>10} {'tokens':>7} {'preempts':>9}")
     for u in uids:
         st = eng.status(u)
-        print(f"{u:>5} {st.value if st else '?':>10} {out[u].size:>7}")
+        tr = eng.metrics.traces[u]
+        print(f"{u:>5} {st.value if st else '?':>10} {out[u].size:>7} "
+              f"{tr.preempts:>9}")
     return eng
 
 

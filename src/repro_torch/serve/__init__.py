@@ -1,4 +1,5 @@
-"""repro_torch.serve — continuous batching over a DFXP-packed KV-cache pool."""
+"""repro_torch.serve — continuous batching over a DFXP-packed KV-cache pool,
+slot-major or paged."""
 from .engine import EngineOptions, Request, RequestStatus, ServeEngine  # noqa: F401
 from .kv_pool import (  # noqa: F401
     CacheQuantConfig,
@@ -12,4 +13,5 @@ from .kv_pool import (  # noqa: F401
     slot_totals,
 )
 from .metrics import RequestTrace, ServeMetrics  # noqa: F401
+from .paged import PageAllocator, PagedKVCodec, PageExhausted  # noqa: F401
 from .sampler import SamplerConfig, guard_logits, sample  # noqa: F401

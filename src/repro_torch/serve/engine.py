@@ -23,20 +23,36 @@ Every device step has fixed shapes:
   off for it (``append_mask``), so its pool row and controller state stay
   as a solo run would leave them.
 
+* paged mode (``page_size=P > 0``, :mod:`repro_torch.serve.paged`)
+  forces chunked prefill (``C`` defaults to ``P``).  A request's first
+  chunk maps its block table, sharing any registered prompt-prefix pages
+  (``PageAllocator.match_prefix``); before every chunk and every decode
+  append the engine makes the blocks it will write private — a fresh
+  page at a block boundary, a copy-on-write fork of a shared page — and
+  the final chunk registers the prompt's full pages for later requests.
+* **preemption under page exhaustion** (paged mode): when the arena runs
+  dry the engine evicts the youngest decoding request (else the youngest
+  prefilling one, never the requester), releases its pages, and requeues
+  it at the front with its generated tokens carried as prompt suffix
+  (``Request.carry``); it re-prefills and resumes where it stopped.  A
+  request preempted more than ``max_preempts`` times, or a requester with
+  no sibling to evict, resolves ``FAILED``.
+
 Each step makes one device-to-host transfer: the sampled tokens with
 their NaN/Inf flags (``sampler.guard_logits``).  A flagged slot resolves
 ``FAILED`` with its clean prefix; ``run()`` out of step budget resolves
-every in-flight request ``TIMED_OUT`` with its harvested tokens.
+every in-flight request ``TIMED_OUT`` (a queued preempted one
+``PREEMPTED``) with its harvested tokens.
 
-Not in this slice: paged pools, admission control and deadlines,
-preemption, fault injection, tracing and numerics logging, meshes.
+Not in this slice: admission control and deadlines, fault injection,
+tracing and numerics logging, meshes.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import enum
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,7 +62,7 @@ from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.scale import ScaleState
 from repro_torch.models import transformer as T
 
-from . import kv_pool, metrics, sampler
+from . import kv_pool, metrics, paged, sampler
 
 
 class RequestStatus(enum.Enum):
@@ -54,17 +70,26 @@ class RequestStatus(enum.Enum):
 
     OK = "ok"                  # finished: EOS or its max_new budget
     TIMED_OUT = "timed_out"    # run() ran out of steps
-    FAILED = "failed"          # quarantined: NaN/Inf logits
+    PREEMPTED = "preempted"    # evicted for pages, still queued at drain end
+    FAILED = "failed"          # quarantined: NaN/Inf logits, or page
+    #                            exhaustion with no victim
 
 
 @dataclasses.dataclass
 class Request:
-    """One generation request. ``tokens``: 1-D prompt ids."""
+    """One generation request. ``tokens``: 1-D prompt ids.
+
+    ``carry`` holds tokens generated before a preemption (they ride along
+    as prompt suffix on requeue and lead the final result); ``n_preempt``
+    counts evictions.
+    """
 
     uid: int
     tokens: np.ndarray
     max_new: int = 16
     eos_id: Optional[int] = None
+    carry: Tuple[int, ...] = ()
+    n_preempt: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +102,11 @@ class EngineOptions:
     per-request sampling streams once those are ported; ``init_exp`` is
     every scale group's log2-step; ``prefill_chunk`` is the chunk size
     ``C`` (``None`` takes ``policy.prefill_chunk``, 0 is whole-prompt).
+    ``page_size`` ``P > 0`` (``None`` takes ``policy.page_size``) switches
+    to the paged pool and forces chunked prefill; ``n_pages`` is its page
+    budget (default: full residency plus the null page), below which
+    exhaustion preempts; a request evicted ``max_preempts`` times resolves
+    ``FAILED`` at the next eviction.
     """
 
     cache_bits: int = 0
@@ -85,6 +115,9 @@ class EngineOptions:
     seed: int = 0
     init_exp: float = -6.0
     prefill_chunk: Optional[int] = None
+    page_size: Optional[int] = None
+    n_pages: Optional[int] = None
+    max_preempts: int = 4
 
 
 class ServeEngine:
@@ -95,7 +128,7 @@ class ServeEngine:
     on ``device`` (default ``cuda``); every request needs ``prompt_len +
     max_new <= max_len``.  With ``policy.fused_decode`` the attention runs
     the hand-written flash-decode and flash-prefill kernels on the pool's
-    storage.
+    storage (their paged variants on a paged pool).
     """
 
     def __init__(self, cfg: T.ModelConfig, policy: PrecisionPolicy, params,
@@ -121,12 +154,21 @@ class ServeEngine:
         kvp = kv_pool.make_kv_pool(
             cfg, policy, max_slots=max_slots, max_len=max_len,
             cache_bits=opts.cache_bits, cache_cfg=opts.cache_cfg,
+            page_size=opts.page_size, n_pages=opts.n_pages,
             device=self.device)
         self.kv = kvp
         self.codec = kvp.codec
         self.cache_cfg = kvp.cache_cfg
+        self.page_size = kvp.page_size
+        self.max_preempts = opts.max_preempts
         self._packed = kvp.packed
+        self._paged = kvp.paged
         self._pool = kvp.pool
+        if self._paged:
+            # prefix sharing is always on: the reference turns it off only
+            # under stochastic rounding, which the port does not have yet
+            self._alloc = paged.PageAllocator(kvp.total_pages,
+                                              self.page_size, kvp.nblocks)
 
         B = max_slots
         self._tok = np.zeros(B, np.int32)
@@ -134,17 +176,24 @@ class ServeEngine:
         self._active = np.zeros(B, bool)
         self._reqs: List[Optional[Request]] = [None] * B
         self._gen: List[List[int]] = [[] for _ in range(B)]
+        self._seq = np.zeros(B, np.int64)     # admission order (victim pick)
+        self._admit_counter = 0
         self._queue: collections.deque = collections.deque()
         self._results: Dict[int, np.ndarray] = {}
         self._status: Dict[int, RequestStatus] = {}
         self._next_uid = 0
+        self._budget = 1 << 62                # run() tightens this
+        self._auto_budget = True
         self._ovf = np.zeros(3, np.float64)   # harvested at request finish
         self.metrics = metrics.ServeMetrics()
 
         pc = opts.prefill_chunk if opts.prefill_chunk is not None else \
             int(getattr(policy, "prefill_chunk", 0))
+        if self._paged and not pc:
+            pc = self.page_size   # paged mode always prefills in chunks
         self.prefill_chunk = pc
         self._pfill = np.zeros(B, np.int32)       # prefill frontier per slot
+        self._pstarted = np.zeros(B, bool)        # paged: block table mapped
         self._prefilling: collections.deque = collections.deque()  # slot FIFO
 
     # -- device steps --------------------------------------------------------
@@ -182,16 +231,16 @@ class ServeEngine:
     def _chunk_impl(self, tokens, slot: int, p0: int, n_valid: int):
         """One prefill chunk for one slot. ``tokens``: [1, C] (padded).
 
-        The slot's rows are views into the pool, so the chunk's in-place
-        cache update lands in the pool directly."""
-        sub = {sname: {bkey: {n: t[:, slot:slot + 1] for n, t in e.items()}
-                       for bkey, e in sc.items()}
-               for sname, sc in self._pool.items()}
-        logits, _, _ = T.prefill_chunk_step(
+        The slot's rows are views into the pool (a paged pool passes its
+        page arenas whole), so the chunk's in-place cache update lands in
+        the pool directly."""
+        sub = paged.slice_slot(self._pool, slot)
+        logits, _, sub = T.prefill_chunk_step(
             self.cfg, self.policy, self.params, sub, self._dev(tokens),
             self._dev([p0]).to(torch.int32),
             self._dev([n_valid]).to(torch.int32), self.exps,
             kv_codec=self.codec)
+        paged.merge_slot(self._pool, sub, slot)
         return self._sample(logits)
 
     # -- request lifecycle ---------------------------------------------------
@@ -228,22 +277,40 @@ class ServeEngine:
         """Generated ids of every resolved request, by uid."""
         return dict(self._results)
 
-    def _finish(self, slot: int,
-                status: RequestStatus = RequestStatus.OK) -> None:
-        req = self._reqs[slot]
-        self._results[req.uid] = np.asarray(self._gen[slot], np.int32)
-        self._status[req.uid] = status
-        self.metrics.on_finish(req.uid, status.value)
-        # harvest only if this request wrote the slot: one resolved before
-        # its first chunk would count the previous occupant's counters
-        started = not self.prefill_chunk or self._pfill[slot] > 0
-        if self._packed and started:
-            self._ovf += kv_pool.slot_totals(self._pool, slot).cpu().numpy()
+    def _release_slot(self, slot: int) -> None:
+        """Drop the slot's host state and (paged) its page references."""
+        if self._paged:
+            # registered prefix pages stay resident for reuse; everything
+            # else decrefs back to the free list
+            self._alloc.free_slot(slot)
+            self._pstarted[slot] = False
         if slot in self._prefilling:
             self._prefilling.remove(slot)
         self._active[slot] = False
         self._reqs[slot] = None
         self._gen[slot] = []
+
+    def _finish(self, slot: int,
+                status: RequestStatus = RequestStatus.OK) -> None:
+        req = self._reqs[slot]
+        self._results[req.uid] = np.asarray(
+            list(req.carry) + self._gen[slot], np.int32)
+        self._status[req.uid] = status
+        self.metrics.on_finish(req.uid, status.value)
+        # harvest before the page release makes the reads stale, and only
+        # if this request wrote the slot: one resolved before its first
+        # chunk would count the previous occupant's counters
+        started = not self.prefill_chunk or (
+            self._pstarted[slot] if self._paged else self._pfill[slot] > 0)
+        if self._packed and started:
+            self._ovf += kv_pool.slot_totals(self._pool, slot).cpu().numpy()
+        self._release_slot(slot)
+
+    def _finish_queued(self, req: Request, status: RequestStatus) -> None:
+        """Resolve a request that never (re)reached a slot."""
+        self._results[req.uid] = np.asarray(list(req.carry), np.int32)
+        self._status[req.uid] = status
+        self.metrics.on_finish(req.uid, status.value)
 
     def _maybe_finish(self, slot: int, tok: int) -> bool:
         """Finish the slot if its budget is spent or ``tok`` is its EOS."""
@@ -253,6 +320,93 @@ class ServeEngine:
             self._finish(slot)
             return True
         return False
+
+    # -- preemption ----------------------------------------------------------
+    def _preempt(self, victim: int) -> None:
+        """Evict ``victim`` to the queue front, tokens-so-far carried.
+
+        The requeued request's prompt is ``original prompt + generated
+        tokens``: re-admission chunk-prefills it (sharing any still
+        registered prefix pages) and samples its next token at absolute
+        position ``len(prompt) + len(carry)``, so a greedy stream resumes
+        where it stopped.  A request past ``max_preempts`` resolves FAILED
+        instead (the thrash bound).
+        """
+        req = self._reqs[victim]
+        if req.n_preempt >= self.max_preempts:
+            self._finish(victim, RequestStatus.FAILED)
+            return
+        gen = self._gen[victim]
+        tokens = np.concatenate(
+            [req.tokens, np.asarray(gen, np.int32)]) if gen else req.tokens
+        nr = Request(req.uid, tokens, req.max_new - len(gen), req.eos_id,
+                     carry=tuple(req.carry) + tuple(gen),
+                     n_preempt=req.n_preempt + 1)
+        self._release_slot(victim)
+        self._queue.appendleft(nr)
+        self._status[req.uid] = RequestStatus.PREEMPTED
+        self.metrics.on_preempt(req.uid)
+        if self._auto_budget:
+            # the requeue re-prefills and re-decodes: extend the drain
+            # budget so an auto-budgeted run() still ends cleanly
+            self._budget += (-(-int(tokens.size) // self.prefill_chunk)
+                             + nr.max_new + 2)
+
+    def _handle_exhaustion(self, slot: int) -> bool:
+        """Free pages for ``slot`` by preempting a sibling.
+
+        Victim order: the youngest *decoding* request first (least sunk
+        cost, shortest re-prefill), then the youngest prefilling one.
+        Never the requester itself: its re-admission would need at least
+        the pages it holds.  Returns False when no sibling exists.
+        """
+        cands = [s for s in range(self.max_slots)
+                 if s != slot and self._reqs[s] is not None
+                 and self._active[s]]
+        if not cands:
+            cands = [s for s in range(self.max_slots)
+                     if s != slot and self._reqs[s] is not None]
+        if not cands:
+            return False
+        self._preempt(max(cands, key=lambda s: self._seq[s]))
+        return True
+
+    def _ensure_blocks(self, slot: int, start: int, n: int) -> None:
+        """Paged mode: make the blocks covering rows ``[start, start+n)``
+        privately writable — allocate fresh pages at block boundaries and
+        fork (copy-on-write) shared pages the slot is about to write."""
+        P = self.page_size
+        for b in range(start // P, (start + n - 1) // P + 1):
+            act = self._alloc.ensure_block(slot, b)
+            if act is None:
+                continue
+            kind, src, dst = act
+            if kind == "cow":
+                paged.cow_page(self._pool, src, dst)
+            paged.set_block(self._pool, slot, b, dst)
+
+    def _ensure_blocks_safe(self, slot: int, start: int, n: int) -> bool:
+        """:meth:`_ensure_blocks` that answers exhaustion with preemption.
+
+        Retries after each preemption (freed pages recycle at once;
+        ``ensure_block`` is idempotent for blocks already made private).
+        When no victim remains the requester resolves FAILED with its
+        harvested tokens and this returns False.
+        """
+        while True:
+            try:
+                self._ensure_blocks(slot, start, n)
+                return True
+            except paged.PageExhausted:
+                if not self._handle_exhaustion(slot):
+                    self._finish(slot, RequestStatus.FAILED)
+                    return False
+
+    # -- admission -----------------------------------------------------------
+    def _mark_admitted(self, slot: int, req: Request) -> None:
+        self._admit_counter += 1
+        self._seq[slot] = self._admit_counter
+        self.metrics.on_admit(req.uid)
 
     def _admit(self) -> None:
         """Fill free slots from the queue, grouping equal prompt lengths."""
@@ -268,7 +422,7 @@ class ServeEngine:
             first, bad, entry = self._prefill_impl(tokens)
             self._insert_impl(entry, self._dev(slots))
             for r, s, tok, b in zip(group, slots, first, bad):
-                self.metrics.on_admit(r.uid)
+                self._mark_admitted(s, r)
                 self._reqs[s], self._gen[s] = r, []
                 self._tok[s], self._pos[s] = tok, plen
                 self._active[s] = True
@@ -290,11 +444,12 @@ class ServeEngine:
             s = free.pop(0)
             self._reqs[s] = r
             self._pfill[s] = 0
+            self._pstarted[s] = False
             self._pos[s] = 0
             self._gen[s] = []
             self._active[s] = False
             self._prefilling.append(s)
-            self.metrics.on_admit(r.uid)
+            self._mark_admitted(s, r)
 
     def _step_prefill_chunk(self) -> None:
         """Run ONE chunk for the oldest prefilling slot (FIFO)."""
@@ -302,17 +457,31 @@ class ServeEngine:
             return
         s = self._prefilling[0]
         r = self._reqs[s]
+        if self._paged and not self._pstarted[s]:
+            # first chunk of this request: map its block table, reusing any
+            # registered prefix pages (refcounted, read-only until a write
+            # forks them).  FIFO chunk order means an earlier request
+            # registers its prefix before a later one's first chunk looks.
+            pages, shared = self._alloc.match_prefix(r.tokens)
+            row = self._alloc.new_slot(s, pages)
+            paged.reset_slot(self._pool, s, shared, row, float(shared))
+            self._pfill[s] = shared   # shared rows are already written
+            self._pstarted[s] = True
         f = int(self._pfill[s])
         C = self.prefill_chunk
         n = min(C, r.tokens.size - f)
         toks = np.zeros((1, C), np.int32)
         toks[0, :n] = r.tokens[f:f + n]
+        if self._paged and not self._ensure_blocks_safe(s, f, n):
+            return                    # requester failed: no victim left
         first, bad = self._chunk_impl(toks, s, f, n)
         self._pfill[s] = f + n
         self._pos[s] = f + n          # frontier (RoPE-safe while masked)
         self.metrics.on_prefill_chunk(r.uid)
         if f + n == r.tokens.size:    # final chunk: first token sampled
             self._prefilling.popleft()
+            if self._paged:
+                self._alloc.register_prefix(s, r.tokens)
             self._active[s] = True
             if bad[0]:
                 self._finish(s, RequestStatus.FAILED)
@@ -331,6 +500,14 @@ class ServeEngine:
             self._step_prefill_chunk()
         else:
             self._admit()
+        if self._paged:
+            # each active slot appends one row at _pos this step: a fresh
+            # page at a block boundary, a fork if still shared; exhaustion
+            # preempts the youngest sibling and never raises
+            for s in np.where(self._active)[0]:
+                s = int(s)
+                if self._active[s]:   # an earlier preemption may clear it
+                    self._ensure_blocks_safe(s, int(self._pos[s]), 1)
         if not self._active.any():
             return
         mask = self._dev(self._active) if self.prefill_chunk else None
@@ -351,15 +528,18 @@ class ServeEngine:
             self._maybe_finish(s, tok)
 
     def _drain_timeout(self) -> None:
-        """Out of steps: resolve everything TIMED_OUT instead of raising."""
+        """Out of steps: resolve everything in flight instead of raising.
+
+        In-flight slots resolve TIMED_OUT with every harvested token;
+        queued requests resolve TIMED_OUT, except preempted ones, which
+        keep PREEMPTED (they had a slot and lost it)."""
         for s in range(self.max_slots):
             if self._reqs[s] is not None:
                 self._finish(s, RequestStatus.TIMED_OUT)
         while self._queue:
             r = self._queue.popleft()
-            self._results[r.uid] = np.zeros(0, np.int32)
-            self._status[r.uid] = RequestStatus.TIMED_OUT
-            self.metrics.on_finish(r.uid, RequestStatus.TIMED_OUT.value)
+            self._finish_queued(r, RequestStatus.PREEMPTED if r.n_preempt
+                                else RequestStatus.TIMED_OUT)
 
     def run(self, max_steps: Optional[int] = None) -> Dict[int, np.ndarray]:
         """Drive until the queue drains; returns ``{uid: generated ids}``.
@@ -368,18 +548,22 @@ class ServeEngine:
         budget on a wedged engine) every in-flight request resolves
         ``TIMED_OUT`` with its harvested tokens.
         """
-        if max_steps is None:
+        if max_steps is not None:
+            self._budget = max_steps
+            self._auto_budget = False
+        else:
             pending = list(self._queue) + [r for r in self._reqs
                                            if r is not None]
             chunks = 0
             if self.prefill_chunk:
                 chunks = sum(-(-r.tokens.size // self.prefill_chunk)
                              for r in pending)
-            max_steps = (sum(r.max_new for r in pending) + chunks
-                         + len(self._queue) + self.max_slots + 4)
+            self._budget = (sum(r.max_new for r in pending) + chunks
+                            + len(self._queue) + self.max_slots + 4)
+            self._auto_budget = True
         steps = 0
         while self._queue or self._prefilling or self._active.any():
-            if steps >= max_steps:
+            if steps >= self._budget:
                 self._drain_timeout()
                 break
             self.step()
@@ -397,4 +581,7 @@ class ServeEngine:
                 "cache_appends_quantized": float(tot)}
 
     def stats(self) -> dict:
-        return self.metrics.summary(extra=self.cache_stats())
+        extra = self.cache_stats()
+        if self._paged:
+            extra.update(self._alloc.stats())
+        return self.metrics.summary(extra=extra)

@@ -1,6 +1,8 @@
 """Slot-pooled KV cache with DFXP-packed storage (paper §5/§6, serve-side).
 
-The port of ``repro.serve.kv_pool`` for slot-major, single-device pools.
+The port of ``repro.serve.kv_pool`` for single-device pools: the
+slot-major layout here, the paged layout in :mod:`repro_torch.serve.paged`
+(:func:`make_kv_pool` builds either).
 :class:`PackedKVCodec` keeps K/V as int8/int16 **mantissas** plus a
 per-layer/per-slot log2-step, quantized on append and dequantized in the
 attention kernels' tile loads.  Scale management is the core controller:
@@ -306,36 +308,58 @@ class KVPool:
     pool: dict
     codec: object
     cache_cfg: Optional[CacheQuantConfig]
+    page_size: int = 0                # 0 = slot-major
+    total_pages: int = 0              # incl. the null page; 0 if slot-major
+    nblocks: int = 0                  # block-table width; 0 if slot-major
 
     @property
     def packed(self) -> bool:
         return self.cache_cfg is not None
+
+    @property
+    def paged(self) -> bool:
+        return bool(self.page_size)
 
 
 def make_kv_pool(cfg: T.ModelConfig, policy, *, max_slots: int,
                  max_len: int, cache_bits: int = 0,
                  cache_cfg: Optional[CacheQuantConfig] = None,
                  page_size: Optional[int] = None,
-                 device=None) -> KVPool:
-    """Build the slot-major serve KV pool and its codec on ``device``.
+                 n_pages: Optional[int] = None, device=None) -> KVPool:
+    """Build the serve KV pool and its codec on ``device``.
 
-    ``cache_bits`` 0 keeps f32 rings, 8/16 packs mantissas;
+    ``cache_bits`` 0 keeps f32 K/V, 8/16 packs mantissas;
     ``policy.fused_decode`` routes attention through the flash kernels.
-    Paged pools are not ported: a ``page_size`` raises.
+    ``page_size`` (``None`` takes ``policy.page_size``) > 0 builds the
+    paged pool of :mod:`repro_torch.serve.paged` with ``n_pages`` pages
+    (default: full residency plus the null page); 0 the slot-major one.
     """
     device = resolve_device(device)
-    if page_size:
-        raise NotImplementedError(
-            "paged KV pools (serve/paged.py, kernels K5/K6) are not ported "
-            "yet; use the slot-major pool (page_size=0)")
     fused = policy.fused_decode
+    psize = int(page_size if page_size is not None
+                else getattr(policy, "page_size", 0) or 0)
     if cache_bits:
         ccfg = cache_cfg or CacheQuantConfig(width=cache_bits)
         if ccfg.width != cache_bits:
             raise ValueError("cache_bits and cache_cfg.width disagree")
-        codec = PackedKVCodec(ccfg, fused_decode=fused)
     else:
         ccfg = None    # a cache_cfg without cache_bits is ignored (f32)
+    if psize:
+        from . import paged
+        if cfg.family != "dense":
+            raise ValueError("paged KV pool requires the dense attention "
+                             "family (chunked prefill writes pages "
+                             "incrementally)")
+        codec = paged.PagedKVCodec(psize, ccfg, fused_decode=fused)
+        pool = paged.make_paged_pool(cfg, max_slots, max_len, codec,
+                                     n_pages=n_pages, device=device)
+        nblocks = -(-max_len // psize)
+        total = n_pages if n_pages is not None else 1 + max_slots * nblocks
+        return KVPool(pool=pool, codec=codec, cache_cfg=ccfg,
+                      page_size=psize, total_pages=total, nblocks=nblocks)
+    if ccfg is not None:
+        codec = PackedKVCodec(ccfg, fused_decode=fused)
+    else:
         codec = L.RawKVCodec(fused_decode=True) if fused else None
     pool = make_pool(cfg, max_slots, max_len,
                      codec if ccfg is not None else None, device=device)
@@ -365,14 +389,46 @@ def _packed_entries(pool: dict):
                 yield e
 
 
+def _by_slot(t: Tensor, bt: Tensor) -> Tensor:
+    """Per-page counters ``t`` [n, pages, 3] gathered through the block
+    tables ``bt`` [n, B, nblocks] → [n, B, nblocks, 3] (the null page
+    carries zeros)."""
+    n = t.shape[0]
+    layer = torch.arange(n, device=t.device)[:, None, None]
+    return t[layer, bt.long()]
+
+
 def overflow_summary(pool: dict, active=None) -> dict:
     """Cumulative append overflow rates of the packed pool (metrics hook).
 
     ``active``: optional bool [B] mask restricting the summary to occupied
-    slots.  Returns zeros for float32 pools.
+    slots.  Returns zeros for float32 pools (slot-major or paged).
+
+    Paged pools keep statistics per PAGE: the summary walks the active
+    slots' block tables and counts each referenced page ONCE, however
+    many requests share it.  With ``active=None`` every page counts but
+    the null page (and the scratch page, which holds dropped rows).
     """
     ovf = tot = 0.0
     for e in _packed_entries(pool):
+        if "bt" in e:                     # paged: per-page statistics
+            n, n_arena = e["tot_k"].shape[:2]
+            dev = e["tot_k"].device
+            if active is None:
+                used = torch.ones((n, n_arena), dtype=torch.bool, device=dev)
+            else:
+                act = torch.as_tensor(active, dtype=torch.bool, device=dev)
+                sel = torch.where(act[None, :, None], e["bt"], 0)
+                used = torch.zeros((n, n_arena), dtype=torch.bool,
+                                   device=dev)
+                used.scatter_(1, sel.reshape(n, -1).long(), True)
+            used[:, 0] = False               # the null page never counts
+            used[:, -1] = False              # nor the scratch page
+            m = used.to(torch.float32)[..., None]
+            for t in (e["tot_k"], e["tot_v"]):
+                ovf += float((t * m)[..., 0].sum())
+                tot += float((t * m)[..., 2].sum())
+            continue
         for t in (e["tot_k"], e["tot_v"]):
             if active is not None:
                 act = torch.as_tensor(active, device=t.device)
@@ -385,24 +441,37 @@ def overflow_summary(pool: dict, active=None) -> dict:
 
 def slot_overflow_rates(pool: dict, n_slots: int) -> Tensor:
     """Per-slot cumulative §5 overflow rate: f32 [n_slots] of overflowed
-    over quantized elements since admission, summed over layers and K/V.
-    Float32 pools return zeros."""
+    over quantized elements since admission, summed over layers and K/V;
+    paged pools gather their per-page counters through each slot's block
+    table.  Float32 pools return zeros."""
     dev = next(iter(next(iter(pool.values())).values()))["pos"].device
     ovf = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
     tot = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
     for e in _packed_entries(pool):
         for t in (e["tot_k"], e["tot_v"]):
-            ovf = ovf + t[..., 0].sum(dim=0)
-            tot = tot + t[..., 2].sum(dim=0)
+            if "bt" in e:
+                g = _by_slot(t, e["bt"])
+                ovf = ovf + g[..., 0].sum(dim=(0, 2))
+                tot = tot + g[..., 2].sum(dim=(0, 2))
+            else:
+                ovf = ovf + t[..., 0].sum(dim=0)
+                tot = tot + t[..., 2].sum(dim=0)
     return ovf / torch.clamp(tot, min=1.0)
 
 
 def slot_totals(pool: dict, slot: int) -> Tensor:
     """One slot's cumulative ``(ovf, ovf_half, total)`` over all layers —
-    between admit and finish, the occupying request's append statistics."""
+    between admit and finish, the occupying request's append statistics.
+
+    Paged pools gather the per-page counters of every page on the slot's
+    block table, so pages inherited from a shared prefix count toward
+    each request that maps them, as the reference's totals do."""
     dev = next(iter(next(iter(pool.values())).values()))["pos"].device
     out = torch.zeros((3,), dtype=torch.float32, device=dev)
     for e in _packed_entries(pool):
-        out = out + e["tot_k"][:, slot].sum(dim=0)
-        out = out + e["tot_v"][:, slot].sum(dim=0)
+        for t in (e["tot_k"], e["tot_v"]):
+            if "bt" in e:
+                out = out + _by_slot(t, e["bt"])[:, slot].sum(dim=(0, 1))
+            else:
+                out = out + t[:, slot].sum(dim=0)
     return out

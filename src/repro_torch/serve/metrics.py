@@ -5,7 +5,7 @@ Host-side and allocation-free on the hot path: the engine calls the
 the numbers a serving dashboard wants — TTFT, queue wait, aggregate
 decode throughput — plus the packed pool's cumulative cache overflow rate
 (see ``kv_pool.overflow_summary``) and the terminal-status counters
-(timed out, failed, queue-depth high-water mark).
+(timed out, preempted, failed, queue-depth high-water mark).
 
 Timestamps come from ``time.perf_counter()`` — monotonic, so TTFT and
 queue-wait survive NTP steps and wall-clock slews (stamps are deltas
@@ -40,6 +40,7 @@ class RequestTrace:
     t_finish: Optional[float] = None
     new_tokens: int = 0
     prefill_chunks: int = 0
+    preempts: int = 0
     status: Optional[str] = None      # terminal RequestStatus.value
 
     @property
@@ -55,8 +56,8 @@ class ServeMetrics:
     """Collects request traces; ``summary()`` aggregates them.
 
     Event counts live in ``self.registry``; ``decode_steps``,
-    ``timed_out``, ``failed`` and ``queue_depth_peak`` are read-only
-    views over it.
+    ``timed_out``, ``preemptions``, ``failed`` and ``queue_depth_peak``
+    are read-only views over it.
     """
 
     def __init__(self, registry: Optional[MetricsRegistry] = None):
@@ -72,6 +73,8 @@ class ServeMetrics:
             "serve_requests_finished", "requests resolved OK")
         self._c_timed_out = r.counter(
             "serve_requests_timed_out", "deadline / drain expiries")
+        self._c_preempt = r.counter(
+            "serve_preemptions", "page-pressure eviction events")
         self._c_failed = r.counter(
             "serve_requests_failed", "quarantined / exhausted requests")
         self._c_tokens = r.counter(
@@ -102,8 +105,13 @@ class ServeMetrics:
         return int(self._c_timed_out.value)
 
     @property
+    def preemptions(self) -> int:
+        # preemption EVENTS (one uid may repeat)
+        return int(self._c_preempt.value)
+
+    @property
     def failed(self) -> int:
-        # quarantined (numeric sentinel)
+        # quarantined (numeric sentinel) + page exhaustion with no victim
         return int(self._c_failed.value)
 
     @property
@@ -117,8 +125,9 @@ class ServeMetrics:
 
     def on_admit(self, uid: int) -> None:
         tr = self.traces[uid]
-        tr.t_admit = _now()
-        self._h_wait.observe(tr.queue_wait)
+        if tr.t_admit is None:        # re-admission after preemption keeps
+            tr.t_admit = _now()       # the first admit stamp (true wait)
+            self._h_wait.observe(tr.queue_wait)
         if self.t_start is None:
             self.t_start = _now()
 
@@ -156,6 +165,11 @@ class ServeMetrics:
             if span > 0:
                 self._h_tps.observe(tr.new_tokens / span)
 
+    def on_preempt(self, uid: int) -> None:
+        """The request lost its slot and pages and went back to the queue."""
+        self.traces[uid].preempts += 1
+        self._c_preempt.inc()
+
     def on_decode_step(self) -> None:
         self._c_steps.inc()
         t = _now()
@@ -181,6 +195,7 @@ class ServeMetrics:
             "requests_finished": len(finished_ok),
             "requests_timed_out": self.timed_out,
             "requests_failed": self.failed,
+            "preemptions": self.preemptions,
             "queue_depth_peak": self.queue_depth_peak,
             "new_tokens": new_tokens,
             "decode_steps": self.decode_steps,

@@ -124,11 +124,23 @@ def test_make_kv_pool_refuses_what_is_not_ported():
     from repro_torch import configs
     from repro_torch.core.policy import PrecisionPolicy
     cfg = configs.get_smoke("llama3_8b")
-    with pytest.raises(NotImplementedError):
-        tkv.make_kv_pool(cfg, PrecisionPolicy(), max_slots=2, max_len=8,
-                         page_size=4, device="cpu")
+    # paged pools are ported: page_size builds one (arena with its
+    # scratch page, block tables, per-page exponents)
+    kvp = tkv.make_kv_pool(cfg, PrecisionPolicy(), max_slots=2, max_len=10,
+                           cache_bits=8, page_size=4, device="cpu")
+    e = kvp.pool["dec"]["0:attn"]
+    assert kvp.paged and kvp.nblocks == 3 and kvp.total_pages == 7
+    assert e["k_m"].dtype == torch.int8
+    assert tuple(e["k_m"].shape) == (cfg.num_layers, 7 + 1, 4,
+                                     cfg.num_kv_heads, cfg.head_dim)
+    assert tuple(e["bt"].shape) == (cfg.num_layers, 2, 3)
+    assert tuple(e["k_e"].shape) == (cfg.num_layers, 8)
     with pytest.raises(NotImplementedError):
         tkv.PackedKVCodec(tkv.CacheQuantConfig(stochastic=True))
+    with pytest.raises(NotImplementedError):
+        tkv.make_kv_pool(cfg, PrecisionPolicy(), max_slots=2, max_len=10,
+                         cache_bits=8, page_size=4, device="cpu",
+                         cache_cfg=tkv.CacheQuantConfig(stochastic=True))
     kvp = tkv.make_kv_pool(cfg, PrecisionPolicy(fused_decode=True),
                            max_slots=2, max_len=8, cache_bits=16,
                            device="cpu")
