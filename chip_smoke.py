@@ -5,10 +5,11 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the four attention kernels — flash-decode (K3), flash-prefill
-   (K4) and their paged variants (K5, K6) — from
-   ``src/repro_torch/kernels/attn/csrc`` with ``nvcc`` (one process per
-   source, in parallel) and print each kernel's registers;
+2. build all six kernels — flash-decode (K3), flash-prefill (K4), their
+   paged variants (K5, K6), the fused quantize (K1) and the quantized
+   matmul (K2) — from the ``csrc`` directories under
+   ``src/repro_torch/kernels`` with ``nvcc`` (one process per source, in
+   parallel) and print each kernel's registers and shared memory;
 3. hold each kernel against its plain PyTorch version on card tensors at
    the serving slices' shapes (K3: B=4 slots, W=400, K=8, G=4, hd=128 for
    int8, int16, f32 and a sliding window; K4: C=128 with ragged n_valid
@@ -29,7 +30,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    step and per chunk, K3 and K4 not at all, and the allocator's
    counters must equal their arithmetic;
 7. one profiled decode step and prefill chunk of each layout;
-8. a whole-prompt run (``prefill_chunk=0``) on the same weights.
+8. a whole-prompt run (``prefill_chunk=0``) on the same weights;
+9. K1 bit-exact and K2 within ``rtol=1e-5, atol=1e-5·sqrt(D)`` against
+   their plain versions (maxout sites and shapes, every K2 layout and
+   width pairing, ragged sizes, f16/bf16, NaN/±inf, exponents ±30, the
+   llama3-8B ``w_up`` weight and chunk product), timed beside
+   ``torch.fake_quantize_per_tensor_affine`` / eager ``fixed_round`` and
+   ``torch.matmul``;
+10. training parity at smoke size: DFXP-10/12 maxout on the card (K1,
+    K2) against the CPU (plain versions), 10 steps;
+11. the training main path: ``repro_torch.examples.quickstart`` at the
+    paper's full PI-MNIST width (the four Table-3 rows, DFXP calibrated,
+    150 steps each, fused matmul and kernel quantize on); K1 and K2 must
+    launch exactly as often as the rounding sites and products give,
+    every row must reach 0.99 eval accuracy, DFXP's loss must end below
+    fixed 20/20's and within 10x of float32's (mean of the last 10
+    steps), its parameters on their grids, and an exponent must have
+    moved; then 20 conv-maxout steps at the conv defaults;
+12. one profiled full-width DFXP training step.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest
@@ -50,6 +68,7 @@ SERVE_ARGS = ["--arch", "llama3_8b", "--num-requests", "6", "--slots", "4",
               "--cache-bits", "8", "--fused-decode", "--prefill-chunk",
               "128"]
 PAGE = 64                       # the paged run's page size and chunk
+MIN_SIZE = 1 << 14              # enable_pallas_quantize's threshold (K1)
 
 
 def log(*a):
@@ -120,11 +139,12 @@ def rotating(fn_of_case, cases_list):
 
 
 def phase_build():
-    from repro_torch.kernels.attn import build
+    from repro_torch.kernels import build
     report = build.build_all(force=True)
     for name, r in report.items():
         info = [ln.strip() for ln in r["ptxas"].splitlines()
-                if "registers" in ln or "Compiling entry" in ln]
+                if "registers" in ln or "Compiling entry" in ln
+                or "smem" in ln]
         log(f"built {name} in {r['seconds']:.1f}s")
         for ln in info:
             log("  ", ln)
@@ -135,6 +155,10 @@ def phase_build():
                        ("flash_prefill_paged", 32)):
         log(f"  {name}: {(32 * 129 + 32 * 128 + rows * 128) * 4} bytes of "
             f"dynamic shared memory per block at hd=128")
+    # static shared memory (the "smem" lines above): K1 two per-warp count
+    # arrays, K2 a 16x65 f32 tile of each operand
+    log(f"  dfxp_quantize: {2 * 8 * 4} bytes of static shared memory per "
+        f"block; qmatmul: {2 * 16 * 65 * 4} bytes")
 
 
 def phase_kernels():
@@ -235,25 +259,14 @@ def phase_kernels():
         return err
 
     def timed(name, kernel, fn, plain, make, cost, library=None):
-        # ms / plain_ms / library_ms: device time per call (profiler, or
-        # CUDA events where "timers" says so); *_call_ms: CUDA-event time
-        # per call in a loop, host gaps included
+        # the library yardstick runs on the first case, as built by
+        # ``library`` (its inputs made outside the timed call)
         copies = [make(seed) for seed in range(24)]
-        nbytes, flops = cost(copies[0])
-        bound, bound_by = cases.bound_ms(nbytes, flops)
-        timers = {}
-        row = dict(bound_ms=bound, bound_by=bound_by, bytes=nbytes,
-                   flops=flops, timers=timers)
-        row["ms"], timers["ms"] = device_ms(rotating(fn, copies), kernel)
-        row["call_ms"] = cuda_ms(rotating(fn, copies))
-        row["plain_ms"], timers["plain_ms"] = device_ms(
-            rotating(plain, copies))
-        row["plain_call_ms"] = cuda_ms(rotating(plain, copies), 10)
+        lib = None
         if library is not None:
-            row["library_ms"], timers["library_ms"] = device_ms(
-                library(copies[0]))
-        log(f"{name}: {json.dumps(row)}")
-        return row
+            call = library(copies[0])
+            lib = lambda a: call()
+        return time_row(name, kernel, fn, plain, copies, cost, lib)
 
     errs = {"flash_decode": [], "flash_prefill": []}
     decode_rows = {}
@@ -492,6 +505,9 @@ def _check_served(eng, n_layers, max_new, decode_kernel, prefill_kernel):
         f"{st['prefill_chunks']} tok/s {st['tok_per_s']:.2f} "
         f"ttft_mean_s {st['ttft_mean_s']:.3f} ttft_max_s "
         f"{st['ttft_max_s']:.3f} wall_s {st['wall_s']:.2f}")
+    if any(train_launches().values()):
+        raise SystemExit(f"serving launched a training kernel: "
+                         f"{train_launches()}")
     vocab = eng.cfg.vocab_size
     want = {name: 0 for name in launches}
     want[decode_kernel] = n_layers * st["decode_steps"]
@@ -510,10 +526,9 @@ def _check_served(eng, n_layers, max_new, decode_kernel, prefill_kernel):
 
 
 def phase_serve():
-    from repro_torch.kernels.attn import ops
     from repro_torch.launch import serve
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
+    reset_all_launches()
     t0 = time.perf_counter()
     eng = serve.main(SERVE_ARGS)
     torch.cuda.synchronize()
@@ -591,9 +606,8 @@ def serve_paged(cfg, params, device, max_new: int = 16, P: int = PAGE):
 
 def phase_paged(eng):
     """The paged main path at full width on the serving run's weights."""
-    from repro_torch.kernels.attn import ops
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
+    reset_all_launches()
     t0 = time.perf_counter()
     peng = serve_paged(eng.cfg, eng.params, "cuda")
     torch.cuda.synchronize()
@@ -621,7 +635,6 @@ def phase_paged(eng):
 
 def phase_whole_prompt(eng):
     from repro_torch.core.policy import PrecisionPolicy
-    from repro_torch.kernels.attn import ops
     from repro_torch.launch.serve import prompt
     from repro_torch.serve import EngineOptions, ServeEngine
     pol = PrecisionPolicy("dfxp", fused_decode=True)
@@ -630,7 +643,7 @@ def phase_whole_prompt(eng):
                         device="cuda")
     for i, n in enumerate((96, 96, 200, 200)):
         whole.submit(prompt(i, n, eng.cfg.vocab_size), max_new=8)
-    ops.reset_launches()
+    reset_all_launches()
     whole.run()
     torch.cuda.synchronize()
     st, launches = _check_served(whole, eng.cfg.num_layers, 8,
@@ -644,7 +657,9 @@ def _kind(name: str) -> str:
                           ("flash_decode_paged_kernel",
                            "flash_decode_paged (K5)"),
                           ("flash_prefill_paged_kernel",
-                           "flash_prefill_paged (K6)")):
+                           "flash_prefill_paged (K6)"),
+                          ("dfxp_quantize_kernel", "dfxp_quantize (K1)"),
+                          ("qmm_kernel", "qmatmul (K2)")):
         if kernel in name:
             return label
     if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "gemv")):
@@ -729,6 +744,420 @@ def phase_profile(eng, peng):
     return out
 
 
+# ---------------------------------------------------------------------------
+# training slice: K1 (fused quantize) and K2 (quantized matmul)
+# ---------------------------------------------------------------------------
+
+def train_launches() -> dict:
+    from repro_torch.kernels.dfxp import ops as k1
+    from repro_torch.kernels.qmatmul import ops as k2
+    return {"dfxp_quantize": k1.LAUNCHES["dfxp_quantize"],
+            "qmatmul": k2.launches()}
+
+
+def reset_all_launches() -> None:
+    from repro_torch.kernels.attn import ops
+    from repro_torch.kernels.dfxp import ops as k1
+    from repro_torch.kernels.qmatmul import ops as k2
+    for m in (ops, k1, k2):
+        m.reset_launches()
+
+
+def time_row(name, kernel, fn, plain, copies, cost, library=None,
+             extra=None):
+    """A timing row on ``copies`` (a ring of inputs larger than the 50 MB
+    L2, or one input larger than it).  ``ms`` / ``plain_ms`` /
+    ``library_ms`` (and ``extra``'s keys): device time per call from the
+    profiler (or CUDA events where ``timers`` says so); ``*_call_ms``:
+    CUDA-event time per call in a loop, host gaps included; ``bound_ms``
+    from this case's bytes and operations."""
+    from repro_torch.kernels.attn import cases
+    nbytes, flops = cost(copies[0])
+    bound, bound_by = cases.bound_ms(nbytes, flops)
+    timers = {}
+    row = dict(bound_ms=bound, bound_by=bound_by, bytes=nbytes, flops=flops,
+               timers=timers)
+    row["ms"], timers["ms"] = device_ms(rotating(fn, copies), kernel)
+    row["call_ms"] = cuda_ms(rotating(fn, copies))
+    row["plain_ms"], timers["plain_ms"] = device_ms(rotating(plain, copies))
+    row["plain_call_ms"] = cuda_ms(rotating(plain, copies), 10)
+    if library is not None:
+        row["library_ms"], timers["library_ms"] = device_ms(
+            rotating(library, copies))
+    for key, f in (extra or {}).items():
+        row[key], timers[key] = device_ms(rotating(f, copies))
+    log(f"{name}: {json.dumps(row)}")
+    return row
+
+
+def phase_train_kernels():
+    """K1 bit-exact and K2 within tolerance against their plain versions
+    on card tensors; timings and bounds at the main path's shapes and at
+    llama3-8B's."""
+    from repro_torch.core.quant import fixed_round
+    from repro_torch.kernels.dfxp import cases as qc
+    from repro_torch.kernels.dfxp import ops as k1
+    from repro_torch.kernels.dfxp.ref import dfxp_quantize_ref
+    from repro_torch.kernels.qmatmul import cases as mc
+    from repro_torch.kernels.qmatmul import ops as k2
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref, round_operand
+    dev = torch.device("cuda")
+
+    def k1_call(a):
+        return k1.dfxp_quantize(a["x"], a["e"], width=a["width"])
+
+    def k1_plain(a):
+        return dfxp_quantize_ref(a["x"], a["e"], width=a["width"])
+
+    def k1_eager(a):
+        return fixed_round(a["x"], a["width"], a["e"])
+
+    def k1_library(a):
+        # one PyTorch call of the same rounding (no overflow counts)
+        q = 2 ** (a["width"] - 1)
+        return torch.fake_quantize_per_tensor_affine(
+            a["x"], 2.0 ** a["e"], 0, -q, q - 1)
+
+    k1_cases = {
+        "64x1200 f32 (maxout pre-activation site)": dict(shape=(64, 1200)),
+        "784x1200 f32 (maxout fc0 weight)": dict(shape=(784, 1200), e=-11.0,
+                                                 scale=0.05),
+        "1000003 f32 (ragged tail)": dict(shape=(1000003,)),
+        "64x1200 f16": dict(shape=(64, 1200), dtype=torch.float16, e=-3.0,
+                            scale=10.0),
+        "64x1200 bf16": dict(shape=(64, 1200), dtype=torch.bfloat16, e=-3.0,
+                             scale=10.0),
+        "17x31 NaN, +-inf, ties": dict(shape=(17, 31), e=-2.0,
+                                       specials=True),
+        "32x130 e=-30": dict(shape=(32, 130), e=-30.0, scale=2.0 ** -22),
+        "32x130 e=+30": dict(shape=(32, 130), e=30.0, scale=2.0 ** 38),
+        "4096x14336 f32 (llama3-8B w_up)": dict(shape=(4096, 14336), e=-12.0,
+                                                scale=0.02),
+    }
+    k1_bad = 0
+    for i, (tag, kw) in enumerate(k1_cases.items()):
+        shape = kw.pop("shape")
+        a = qc.quantize_case(shape, seed=i, device=dev, **kw)
+        y, st = k1_call(a)
+        yr, sr = k1_plain(a)
+        torch.cuda.synchronize()
+        nan = torch.isnan(yr)
+        ok = (torch.equal(torch.isnan(y), nan)
+              and torch.equal(y[~nan], yr[~nan]) and torch.equal(st, sr))
+        log(f"K1 {tag}: counts {st.tolist()} plain {sr.tolist()} "
+            f"bit-exact {ok}")
+        k1_bad += not ok
+    if k1_bad:
+        raise SystemExit("K1 disagrees with its plain version")
+
+    k1_rows = {}
+    for tag, shape, kw, n in (
+            ("maxout_w_fc0", (784, 1200), dict(e=-11.0, scale=0.05), 24),
+            ("maxout_pre", (64, 1200), dict(), 24),
+            ("llama3_8b_w_up", (4096, 14336), dict(e=-12.0, scale=0.02), 2)):
+        copies = [qc.quantize_case(shape, seed=s, device=dev, **kw)
+                  for s in range(n)]
+        k1_rows[tag] = time_row(
+            f"K1 {tag} {shape} timing", "dfxp_quantize_kernel", k1_call,
+            k1_plain, copies, qc.quantize_cost, k1_library,
+            extra={"eager_fixed_round_ms": k1_eager})
+        del copies
+
+    errs = []
+
+    def k2_check(tag, a):
+        n = k2.launches()
+        out = k2.qmm(a["a"], a["b"], a["e_a"], a["e_b"], kind=a["kind"],
+                     width_a=a["width_a"], width_b=a["width_b"])
+        want = qmatmul_ref(a["a"], a["b"], a["e_a"], a["e_b"],
+                           kind=a["kind"], width_a=a["width_a"],
+                           width_b=a["width_b"])
+        torch.cuda.synchronize()
+        _, _, D = k2.shapes(a["kind"], a["a"].shape, a["b"].shape)
+        tol = mc.tolerance(D)
+        err = float((out - want).abs().max())
+        bad = not (torch.allclose(out, want, **tol) and k2.launches() == n + 1)
+        log(f"K2 {tag}: max_abs_err {err:.3e} (atol {tol['atol']:.2e}, "
+            f"rtol {tol['rtol']})" + ("  FAIL" if bad else ""))
+        if bad:
+            raise SystemExit(f"K2 {tag} disagrees with its plain version")
+        errs.append(err)
+
+    for kind in ("nn", "nt", "tn"):
+        for wa, wb in ((10, 10), (None, 10), (10, None), (None, None)):
+            k2_check(f"{kind} widths=({wa},{wb}) 100x130x70",
+                     mc.qmm_case(kind, 100, 130, 70, width_a=wa, width_b=wb,
+                                 seed=3, device=dev))
+    maxout = {"fwd nn [64,784]x[784,1200]": ("nn", 64, 1200, 784),
+              "dgrad nt [64,1200]x[240,1200]^T": ("nt", 64, 240, 1200),
+              "wgrad tn [64,784]^Tx[64,1200]": ("tn", 784, 1200, 64),
+              "ragged nn [33,65]x[65,7]": ("nn", 33, 7, 65)}
+    for tag, (kind, R, C, D) in maxout.items():
+        wb = None if kind == "tn" else 10         # wgrad rounds nothing
+        k2_check(tag, mc.qmm_case(kind, R, C, D, width_b=wb, seed=4,
+                                  device=dev))
+    k2_check("llama3-8B chunk nn [128,4096]x[4096,14336]",
+             mc.qmm_case("nn", 128, 14336, 4096, seed=5, device=dev))
+    # the rounded operands are the plain version's, bit for bit: a width-8
+    # product of on-grid values is exact in any order
+    a = mc.qmm_case("nn", 96, 80, 64, width_a=8, width_b=8, seed=6,
+                    device=dev)
+    ex = k2.qmm(a["a"] * 0.125, a["b"] * 0.125, -10.0, -10.0, kind="nn",
+                width_a=8, width_b=8)
+    want = (round_operand(a["a"] * 0.125, -10.0, 8)
+            @ round_operand(a["b"] * 0.125, -10.0, 8))
+    if not torch.equal(ex, want):
+        raise SystemExit("K2's rounded operands differ from the plain "
+                         "version's")
+    log("K2 on-grid width-8 product: bit-exact True")
+
+    def k2_call(a):
+        return k2.qmm(a["a"], a["b"], a["e_a"], a["e_b"], kind=a["kind"],
+                      width_a=a["width_a"], width_b=a["width_b"])
+
+    def k2_plain(a):
+        return qmatmul_ref(a["a"], a["b"], a["e_a"], a["e_b"],
+                           kind=a["kind"], width_a=a["width_a"],
+                           width_b=a["width_b"])
+
+    def k2_library(a):
+        # torch.matmul on the operands rounded outside the timed call
+        if "_q" not in a:
+            a["_q"] = (round_operand(a["a"], a["e_a"], a["width_a"]),
+                       round_operand(a["b"], a["e_b"], a["width_b"]))
+        qa, qb = a["_q"]
+        if a["kind"] == "nt":
+            qb = qb.t()
+        elif a["kind"] == "tn":
+            qa = qa.t()
+        return torch.matmul(qa, qb)
+
+    k2_rows = {}
+    for tag, (kind, R, C, D), n in (
+            ("maxout_fwd_nn", ("nn", 64, 1200, 784), 24),
+            ("maxout_dgrad_nt", ("nt", 64, 240, 1200), 24),
+            ("maxout_wgrad_tn", ("tn", 784, 1200, 64), 24),
+            ("llama3_8b_chunk_nn", ("nn", 128, 14336, 4096), 2)):
+        wb = None if kind == "tn" else 10
+        copies = [mc.qmm_case(kind, R, C, D, width_b=wb, seed=s, device=dev)
+                  for s in range(n)]
+        for c in copies:
+            k2_library(c)             # round the yardstick's operands now
+        k2_rows[tag] = time_row(f"K2 {tag} timing", "qmm_kernel", k2_call,
+                                k2_plain, copies, mc.qmm_cost, k2_library)
+        del copies
+    return {"dfxp_quantize": dict(rows=k1_rows, max_abs_err=0.0),
+            "qmatmul": dict(rows=k2_rows, max_abs_err=max(errs))}
+
+
+def site_launches(cfg, pol, B: int, backward: bool):
+    """(K1, K2) launches of one forward (and backward) of the PI maxout
+    under ``pol`` at batch ``B``, from the rounding sites' sizes: every
+    weight site rounds once (its value, or under fused DFXP its
+    statistics); every ``pre``/``act`` site rounds its value forward and
+    its cotangent backward; K1 takes a site of at least ``MIN_SIZE``
+    elements.  Under fused DFXP each dot is one K2 forward, one wgrad and
+    — except the first layer, whose input needs no gradient — one dgrad."""
+    if pol.arithmetic not in ("fixed", "dfxp"):
+        return 0, 0
+    dims = [cfg.input_dim] + list(cfg.hidden)
+    layers = [(dims[i], cfg.pieces * h, h) for i, h in enumerate(cfg.hidden)]
+    layers.append((dims[-1], cfg.num_classes, None))
+    fused = pol.dynamic and pol.fused_matmul
+    k1 = k2 = 0
+    for i, (d_in, d_out, h) in enumerate(layers):
+        k1 += d_in * d_out >= MIN_SIZE
+        for n in [B * d_out] + ([B * h] if h else []):
+            k1 += (n >= MIN_SIZE) * (1 + backward)
+        if fused:
+            k2 += 1 + backward * (1 + (i > 0))
+    return k1, k2
+
+
+def phase_train_parity():
+    """Smoke-size DFXP-10/12 maxout, 10 steps, on the card (K1 from 4096
+    elements, K2) against the CPU (plain versions), from the same weights
+    and calibrated exponents."""
+    from repro_torch.core.quant import enable_pallas_quantize
+    from repro_torch.examples import quickstart as qs
+    from repro_torch.models import maxout as MX
+    cfg = MX.MaxoutConfig(hidden=(48,), pieces=3)
+    pol = qs.dfxp_policy(fused_matmul=True)
+    init = qs.calibrated_exps(cfg, pol, "cpu")
+    out = {}
+    enable_pallas_quantize(True, min_size=1 << 12)
+    try:
+        for dev in ("cuda", "cpu"):
+            before = train_launches()
+            r = qs.train(cfg, pol, dev, steps=10,
+                         init_exp={k: v.to(dev) for k, v in init.items()})
+            exps = {k: float(v) for k, v in r["state"].scale.exps.items()}
+            after = train_launches()
+            out[dev] = (r["losses"], exps,
+                        {k: after[k] - before[k] for k in after})
+    finally:
+        enable_pallas_quantize(False)
+    lc, lp = np.array(out["cuda"][0]), np.array(out["cpu"][0])
+    rel = np.abs(lc / lp - 1)
+    log(f"train parity card vs cpu (10 DFXP steps, hidden=(48,) x 3): max "
+        f"loss rel diff {rel.max():.3e}; exponents equal "
+        f"{out['cuda'][1] == out['cpu'][1]}; card launches {out['cuda'][2]}")
+    if not (np.isfinite(lc).all() and rel.max() <= 1e-4
+            and out["cuda"][1] == out["cpu"][1]
+            and out["cuda"][2]["dfxp_quantize"] > 0
+            and out["cuda"][2]["qmatmul"] > 0):
+        raise SystemExit("training on the card disagrees with the CPU")
+    return {"max_loss_rel_diff": float(rel.max()),
+            "card_launches": out["cuda"][2]}
+
+
+def _on_grid(state, width: int) -> bool:
+    """Every ``p:`` leaf an integer multiple of its group's step, within
+    the ``width``-bit range."""
+    from repro_torch.train.state import leaves_with_path
+    q = 2 ** (width - 1)
+    for path, x in leaves_with_path(state.params):
+        e = state.scale.exps["p:" + "/".join(path)]
+        m = x / torch.ldexp(torch.ones_like(e), e.to(torch.int32))
+        if not (torch.equal(m, torch.round(m)) and bool((m >= -q).all())
+                and bool((m <= q - 1).all())):
+            return False
+    return True
+
+
+def phase_train():
+    """The training main path at full width: the quickstart's four rows."""
+    from repro_torch.examples import quickstart as qs
+    from repro_torch.models import maxout as MX
+    reset_all_launches()
+    t0 = time.perf_counter()
+    res = qs.main(["--fused-matmul", "--kernel-quantize"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = train_launches()
+    cfg, rows = res["cfg"], res["rows"]
+    want = {"dfxp_quantize": 0, "qmatmul": 0}
+    summary, ok = {}, True
+    for (name, pol, _), r in zip(qs.rows(None, True), rows.values()):
+        k1s, k2s = site_launches(cfg, pol, qs.BATCH, backward=True)
+        k1e, k2e = site_launches(cfg, pol, 1024, backward=False)
+        step_want = {"dfxp_quantize": qs.STEPS * k1s, "qmatmul": qs.STEPS * k2s}
+        want["dfxp_quantize"] += step_want["dfxp_quantize"] + k1e
+        want["qmatmul"] += step_want["qmatmul"] + k2e
+        summary[name] = {"final_loss": r["loss"],
+                         "last10_mean_loss": float(np.mean(r["losses"][-10:])),
+                         "eval_acc": r["acc"],
+                         "train_s": r["seconds"],
+                         "ms_per_step": r["seconds"] / qs.STEPS * 1e3,
+                         "train_launches": r["launches"],
+                         "expected_train_launches": step_want,
+                         "per_step": {"dfxp_quantize": k1s, "qmatmul": k2s}}
+        ok &= r["launches"] == step_want and r["acc"] >= 0.99
+        ok &= bool(np.isfinite(r["losses"]).all())
+    d = rows["dfxp 10/12 (paper)"]
+    moved = sum(float(d["state"].scale.exps[k]) != float(v)
+                for k, v in res["init_exp"].items())
+
+    def tail(name):                   # mean loss of the last 10 steps
+        return float(np.mean(rows[name]["losses"][-10:]))
+
+    ratio = d["loss"] / rows["float32 (baseline)"]["loss"]
+    tail_ratio = tail("dfxp 10/12 (paper)") / tail("float32 (baseline)")
+    beats_fixed = tail("dfxp 10/12 (paper)") < tail("fixed point 20/20")
+    on_grid = _on_grid(d["state"], 12)
+    log(f"train main path ({cfg.name}, hidden {cfg.hidden} x "
+        f"{cfg.pieces}, batch {qs.BATCH}, {qs.STEPS} steps/row): "
+        f"{wall:.1f}s; launches {launches} expected {want}; exponents moved "
+        f"{moved}; dfxp/float32 final loss {ratio:.3f}, last-10 mean "
+        f"{tail_ratio:.3f}; dfxp below fixed 20/20 {beats_fixed}; p: on "
+        f"grid {on_grid}")
+    log("train rows: " + json.dumps(summary))
+    # The paper's claim, as this configuration lets it show: DFXP 10/12
+    # trains below 20-bit fixed point (its Table 3 ordering) and near
+    # float32.  Near, not within 3x: with dropout off float32 drives the
+    # training loss to ~3e-4, below DFXP-10's rounding floor; the
+    # reference's own run of this configuration on a CPU gives a last-10
+    # mean ratio of 4.3 (final-batch 5.1), so the bound is 10x.
+    if not (ok and launches == want and moved > 0 and tail_ratio <= 10.0
+            and beats_fixed and on_grid):
+        raise SystemExit("the training main path failed its checks")
+    return {"rows": summary, "launches": launches, "wall_s": wall,
+            "exponents_moved": moved, "dfxp_over_float32_final_loss": ratio,
+            "dfxp_over_float32_last10_loss": tail_ratio}
+
+
+def phase_conv():
+    """20 DFXP conv-maxout steps at the conv defaults (K1 on, fused),
+    calibrated, at ``quickstart.CONV_OPT``'s learning rate."""
+    from repro_torch.core.quant import enable_pallas_quantize
+    from repro_torch.examples import quickstart as qs
+    cfg, pol = qs.CONV, qs.dfxp_policy(fused_matmul=True)
+    reset_all_launches()
+    enable_pallas_quantize(True)
+    try:
+        init = qs.calibrated_exps(cfg, pol, "cuda", opt=qs.CONV_OPT)
+        r = qs.train(cfg, pol, "cuda", init_exp=init, steps=20, eval_n=256,
+                     opt=qs.CONV_OPT)
+    finally:
+        enable_pallas_quantize(False)
+    launches = train_launches()
+    ls = np.array(r["losses"])
+    log(f"conv maxout (channels {cfg.conv_channels} x {cfg.pieces}, "
+        f"{cfg.conv_kernel}x{cfg.conv_kernel}, pool {cfg.pool}): losses "
+        f"{np.round(ls, 4).tolist()}; launches {launches}; "
+        f"{r['seconds']:.2f}s for 20 steps; eval acc {r['acc']:.3f}")
+    if not (np.isfinite(ls).all() and ls[-5:].mean() < ls[:5].mean()
+            and launches["dfxp_quantize"] > 0):
+        raise SystemExit("the conv-maxout run failed its checks")
+    return {"losses": ls.tolist(), "launches": launches,
+            "ms_per_step": r["seconds"] / 20 * 1e3, "eval_acc": r["acc"]}
+
+
+def phase_train_profile():
+    """Device time of one full-width DFXP train step by kind, and of its
+    forward+backward alone (the rest of the step is the gradient rounding,
+    optimizer, storage rounding and controller)."""
+    from repro_torch.core.quant import enable_pallas_quantize
+    from repro_torch.examples import quickstart as qs
+    from repro_torch.models import maxout as MX
+    from repro_torch.optim.opt import sgd_init
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.step import loss_and_grads
+    cfg = MX.MaxoutConfig()
+    pol = qs.dfxp_policy(fused_matmul=True)
+    gs = MX.group_shapes(cfg)
+    params = MX.init_params(cfg, 7, "cuda")
+    state = init_train_state(params, sgd_init(params), gs, pol, -6.0)
+
+    def loss_fn(p, b, s, e):
+        return MX.loss_fn(cfg, pol, p, b, e, s)
+
+    step = make_train_step(loss_fn, gs, pol, qs.OPT)
+    batch = next(qs.batches(qs.data_for(cfg), 1, "cuda"))
+    sinks = {n: torch.zeros(3, device="cuda", requires_grad=True)
+             for n in gs if n.startswith("g:")}
+
+    def fwd_bwd():
+        loss_and_grads(loss_fn, state.params, batch, sinks, state.scale.exps)
+
+    enable_pallas_quantize(True)
+    try:
+        out = {"train_step": _profile("dfxp_train_step",
+                                      lambda: step(state, batch)),
+               "forward_backward": _profile("dfxp_forward_backward",
+                                            fwd_bwd)}
+    finally:
+        enable_pallas_quantize(False)
+    full, fb = out["train_step"]["device_ms"], out["forward_backward"][
+        "device_ms"]
+    if isinstance(full, float) and isinstance(fb, float):
+        # gradient rounding, optimizer, storage rounding and controller
+        out["after_backward_device_ms"] = full - fb
+        log(f"profile: {full - fb:.4f} ms of the step's device time comes "
+            f"after the backward (rounding, optimizer, controller)")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -744,10 +1173,18 @@ def main():
     phase_build()
     log(f"[{time.perf_counter() - t0:.0f}s] kernels built")
     kern = phase_kernels()
+    kern.update(phase_train_kernels())
     log(f"[{time.perf_counter() - t0:.0f}s] kernels checked")
     phase_parity()
     phase_parity_paged()
+    tpar = phase_train_parity()
     log(f"[{time.perf_counter() - t0:.0f}s] smoke parity checked")
+    train = phase_train()
+    log(f"[{time.perf_counter() - t0:.0f}s] training main path trained")
+    conv = phase_conv()
+    tprof = phase_train_profile()
+    log(f"[{time.perf_counter() - t0:.0f}s] conv maxout trained, train step "
+        f"profiled")
     eng, st, launches, peak = phase_serve()
     log(f"[{time.perf_counter() - t0:.0f}s] main path served")
     peng, pst, plaunches, ppeak = phase_paged(eng)
@@ -784,6 +1221,25 @@ def main():
             "whole_prompt_launches": wlaunches[name]})
     rows[2]["k5_vs_k3_max_abs_diff"] = \
         kern["flash_decode_paged"]["k5_vs_k3_max_abs_diff"]
+    for name, src, replaces, main_case, note in (
+            ("dfxp_quantize", "src/repro_torch/kernels/dfxp/csrc/"
+             "dfxp_quantize.cu", "src/repro/kernels/dfxp/dfxp_kernel.py:45",
+             "maxout_w_fc0", "torch.fake_quantize_per_tensor_affine, the "
+             "same rounding without the overflow counts"),
+            ("qmatmul", "src/repro_torch/kernels/qmatmul/csrc/qmatmul.cu",
+             "src/repro/kernels/qmatmul/qmatmul_kernel.py:78",
+             "maxout_fwd_nn", "torch.matmul (TF32 off) on the operands "
+             "rounded outside the timed call")):
+        k = kern[name]
+        main_row = k["rows"][main_case]
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": train["launches"][name],
+            "max_abs_err": k["max_abs_err"], "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row.get("library_ms"), "library_note": note,
+            "main_case": main_case, "cases": k["rows"]})
     summary = {"peak_memory_bytes": peak, "tok_per_s": st["tok_per_s"],
                "ttft_mean_s": st["ttft_mean_s"], "decode_steps":
                st["decode_steps"], "prefill_chunks": st["prefill_chunks"],
@@ -794,6 +1250,8 @@ def main():
                    "page_cache_hits", "page_cow_forks",
                    "pages_in_use_peak")} | {"peak_memory_bytes": ppeak},
                "profile": prof}
+    log("train: " + json.dumps({"parity": tpar, "main": train, "conv": conv,
+                                "profile": tprof}))
     log("serve: " + json.dumps(summary))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -21,11 +21,13 @@ from .policy import (  # noqa: F401
     PrecisionPolicy,
 )
 from .quant import (  # noqa: F401
+    enable_pallas_quantize,
     exact_pow2,
     fixed_round,
     float_round,
     q_stats,
     q_value,
+    new_sink,
     qbound,
     ste_quant,
 )

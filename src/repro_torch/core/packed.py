@@ -1,10 +1,12 @@
 """Packed int-mantissa storage (beyond paper): ``mantissa * 2**exp``.
 
 The serve-side KV pool keeps K/V as int8/int16 mantissas plus a
-power-of-two step; :func:`pack` and :func:`pack_rows` quantize into those
-containers and :func:`_overflow_counts` gives the §5 controller its pair
-of statistics.  Deterministic rounding only; stochastic rounding waits
-for the threefry PRNG port (ROADMAP module item 14).
+power-of-two step, and packed training storage keeps parameters and
+momentum so; :func:`pack` and :func:`pack_rows` quantize into those
+containers, :func:`unpack` reads them back, and :func:`_overflow_counts`
+gives the §5 controller its pair of statistics.  Deterministic rounding
+only; stochastic rounding waits for the threefry PRNG port (ROADMAP
+module item 14).
 """
 from __future__ import annotations
 
@@ -72,6 +74,11 @@ def pack(x: Tensor, width: int, e, *, stochastic: bool = False) -> PackedArray:
     m = torch.round(x.to(torch.float32) / exact_pow2(e))
     m = m.clamp_(qmin, qmax)
     return PackedArray(m.to(container_dtype(width)), e, width)
+
+
+def unpack(p: PackedArray, dtype=torch.float32) -> Tensor:
+    """``mantissa * 2**exp`` in ``dtype``."""
+    return (p.mantissa.to(torch.float32) * exact_pow2(p.exp)).to(dtype)
 
 
 def pack_rows(x: Tensor, width: int, e: Tensor):

@@ -6,9 +6,10 @@ computations: activations, weighted sums, and every gradient) and
 radix point after the ``fixed_int_bits``-th MSB), the float names
 reproduce §3.
 
-The fields the serving slices read, with the reference's meaning and
-validation (``repro.core.policy``); the training and distributed fields
-join with the slices that port their machinery.
+The serving and training fields, with the reference's meaning, defaults
+and validation (``repro.core.policy``); the distributed fields
+(``grad_compress_bits``, ``a2a_compress_bits``) join with the slice that
+ports ``repro.dist``.
 """
 from __future__ import annotations
 
@@ -42,8 +43,16 @@ class PrecisionPolicy:
     comp_width: int = 10             # paper: 10 (computations)
     update_width: int = 12           # paper: 12 (parameter updates)
     fixed_int_bits: int = 5          # paper Fig.1: radix after 5th MSB
+    max_overflow_rate: float = 1e-4  # paper: 0.01%
+    update_interval: int = 100       # controller cadence, in steps
+    stochastic_rounding: bool = False   # beyond-paper (param updates only);
+    #   raises until the threefry PRNG port (ROADMAP module item 14)
+    quantize_momentum: bool = True
     storage: str = "sim"             # sim|packed
     compute_dtype: str = "float32"   # container dtype for activations/compute
+    fused_matmul: bool = False       # route DFXP QTape.dot through the
+    #   hand-written quantized matmul K2 (forward nn, dgrad nt, wgrad tn;
+    #   repro_torch.kernels.dispatch)
     fused_decode: bool = False       # serve: hand-written flash-decode and
     #   flash-prefill kernels on the KV pool's storage (CLI --fused-decode)
     prefill_chunk: int = 0           # serve: chunked prefill size C; 0 =
@@ -54,6 +63,10 @@ class PrecisionPolicy:
     #   defaulting to P (CLI --page-size)
 
     def __post_init__(self):
+        if self.stochastic_rounding:
+            raise NotImplementedError(
+                "stochastic rounding needs the threefry PRNG port "
+                "(ROADMAP module item 14)")
         if self.prefill_chunk < 0:
             raise ValueError("prefill_chunk must be >= 0")
         if self.page_size < 0:

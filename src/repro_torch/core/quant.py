@@ -1,18 +1,35 @@
-"""Quantizers for low-precision arithmetic (paper §4-§7), forward only.
+"""Quantizers and autodiff plumbing for low-precision training (paper §4-§7).
 
-Values are held in wide float containers but are *representable* in the
-target format every time they cross a group boundary (paper §7).  This
-package serves and does not train, so the sites here are the forward
-values of ``repro.core.quant``: :func:`qbound` returns the activation
-rounding and :func:`ste_quant` the weight rounding; neither has a
-backward.
+Simulation contract (paper §7): values are held in wide float containers
+but are *representable* in the target format every time they cross a
+group boundary — activations and weights on the forward pass, cotangents
+on the backward pass, parameters at update time.  Accumulations stay wide
+(float32).
+
+Autodiff design, as in ``repro.core.quant``:
+  * :func:`qbound` rounds the forward value with the *activation* format
+    and the backward cotangent with the *gradient* format (a
+    ``torch.autograd.Function``).
+  * Backward-pass overflow statistics leave the backward as the
+    **gradient of a zero-valued sink**: a ``(3,)`` tensor that requires
+    grad, passed to the site and differentiated with the parameters
+    (``torch.autograd.grad(loss, [*params, *sinks])``).  Its gradient is
+    the site's ``(n_overflow, n_overflow_at_half_scale, n_total)``, and
+    two uses of one sink add, exactly as ``jax.grad(..., argnums=sinks)``
+    gives them.  Under :class:`Observe` the first slot carries ``max|ct|``.
+  * :func:`ste_quant` rounds the forward value and passes the cotangent
+    straight through.
+  * :func:`qbound_site` and :func:`ste_site` also return the forward
+    statistics from the same rounding pass (the tape's one-pass site).
 
 Scale exponents are float32 tensors holding integer values; the grid step
-is ``2**e``, built exactly by :func:`exact_pow2`.
+is ``2**e``, built exactly by :func:`exact_pow2`.  :func:`fixed_round`
+routes to the hand-written quantize kernel K1 under
+:func:`enable_pallas_quantize`.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -51,6 +68,23 @@ def _count(b: Tensor) -> Tensor:
     return torch.count_nonzero(b).to(torch.float32)
 
 
+# The name is the reference's (``repro.core.quant._PALLAS``), so a reader
+# finds the switch; here it routes to the CUDA kernel K1.
+_PALLAS = {"enabled": False, "min_size": 1 << 14}
+
+
+def enable_pallas_quantize(enable: bool = True, *,
+                           min_size: int = 1 << 14) -> None:
+    """Route :func:`fixed_round` to the fused quantize kernel K1
+    (:func:`repro_torch.kernels.dfxp.ops.dfxp_quantize`) for calls with a
+    scalar ``e``, deterministic rounding and ``x.numel() >= min_size``, as
+    the reference routes them to its Pallas kernel (``quant.py:90-95``).
+    Identical numbers (K1 is bit-exact with the composite); one pass over
+    ``x`` instead of several.  Off by default, as in the reference.  On
+    the CPU the wrapper computes K1's plain version."""
+    _PALLAS.update(enabled=bool(enable), min_size=int(min_size))
+
+
 def fixed_round(x: Tensor, width: int, e, *,
                 stochastic: bool = False) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
     """Round ``x`` onto the grid ``k * 2**e``, ``k`` two's-complement ``width``-bit.
@@ -66,6 +100,11 @@ def fixed_round(x: Tensor, width: int, e, *,
             "stochastic rounding needs the threefry PRNG port "
             "(ROADMAP module item 14)")
     e = torch.as_tensor(e, dtype=torch.float32, device=x.device)
+    if (_PALLAS["enabled"] and e.ndim == 0
+            and x.numel() >= _PALLAS["min_size"]):
+        from repro_torch.kernels.dfxp.ops import dfxp_quantize
+        y, stats = dfxp_quantize(x.contiguous(), e, width=width)
+        return y, (stats[0], stats[1])
     step = exact_pow2(e)
     qmax = float(2 ** (width - 1) - 1)
     qmin = -float(2 ** (width - 1))
@@ -127,12 +166,126 @@ def q_stats(x: Tensor, fmt: Format, e) -> Tensor:
     return torch.stack([zero, zero, n_total])
 
 
-def qbound(x: Tensor, act_fmt: Format, act_e) -> Tensor:
-    """Forward value of the reference's ``qbound``: ``x`` in ``act_fmt``."""
-    return q_value(x, act_fmt, act_e)
+def _site_stats(x: Tensor, fmt: Format, e) -> Tuple[Tensor, Tensor]:
+    """``(q_value(x), q_stats(x))`` from one rounding pass where the
+    format rounds onto a fixed-point grid."""
+    if isinstance(fmt, (FixedPoint, DynamicFixedPoint)):
+        ee = float(fmt.exp) if isinstance(fmt, FixedPoint) else e
+        y, (ovf, ovfh) = fixed_round(x, fmt.width, ee)
+        n = torch.tensor(float(x.numel()), dtype=torch.float32,
+                         device=x.device)
+        return y, torch.stack([ovf, ovfh, n])
+    return q_value(x, fmt, e), q_stats(x, fmt, e)
+
+
+def _forward(x: Tensor, fmt: Format, e,
+             want_stats: bool) -> Tuple[Tensor, Optional[Tensor]]:
+    if want_stats:
+        return _site_stats(x, fmt, e)
+    return q_value(x, fmt, e), None
+
+
+def _no_grad_flows(*ts) -> bool:
+    return not torch.is_grad_enabled() or not any(
+        t is not None and t.requires_grad for t in ts)
+
+
+class _QBound(torch.autograd.Function):
+    """Forward value in ``act_fmt``; cotangent in ``grad_fmt``; the
+    cotangent's statistics as the gradient of ``sink``."""
+
+    @staticmethod
+    def forward(ctx, x, act_e, grad_e, sink, act_fmt, grad_fmt, want_stats):
+        ctx.grad_fmt = grad_fmt
+        ctx.grad_e = grad_e
+        y, stats = _forward(x, act_fmt, act_e, want_stats)
+        if stats is not None:
+            ctx.mark_non_differentiable(stats)
+        return (x.view_as(x) if y is x else y), stats
+
+    @staticmethod
+    def backward(ctx, ct, _):
+        fmt = ctx.grad_fmt
+        n = float(ct.numel())
+        dev = ct.device
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        total = torch.tensor(n, dtype=torch.float32, device=dev)
+        if isinstance(fmt, Observe):
+            stats = torch.stack([ct.to(torch.float32).abs().max(), zero, total])
+            return ct, None, None, stats, None, None, None
+        if isinstance(fmt, (FixedPoint, DynamicFixedPoint)):
+            qct, stats = _site_stats(ct, fmt, ctx.grad_e)
+        elif isinstance(fmt, FloatFormat):
+            qct = float_round(ct, fmt)
+            stats = torch.stack([zero, zero, total])
+        else:                                   # None: pass-through
+            qct = ct
+            stats = torch.zeros((3,), dtype=torch.float32, device=dev)
+        return qct, None, None, stats, None, None, None
+
+
+class _STE(torch.autograd.Function):
+    """Forward value in ``fmt``; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, e, fmt, want_stats):
+        y, stats = _forward(x, fmt, e, want_stats)
+        if stats is not None:
+            ctx.mark_non_differentiable(stats)
+        return (x.view_as(x) if y is x else y), stats
+
+    @staticmethod
+    def backward(ctx, ct, _):
+        return ct, None, None, None
+
+
+def new_sink(device=None) -> Tensor:
+    """A fresh statistics sink for one quantization site: a zero ``(3,)``
+    tensor whose gradient will hold the site's backward statistics."""
+    return torch.zeros((3,), dtype=torch.float32, device=device,
+                       requires_grad=True)
+
+
+def qbound_site(x: Tensor, act_fmt: Format, grad_fmt: Format, act_e, grad_e,
+                sink: Optional[Tensor], *,
+                want_stats: bool) -> Tuple[Tensor, Optional[Tensor]]:
+    """:func:`qbound`, plus the forward statistics of ``x`` in ``act_fmt``
+    (``q_stats``) from the same rounding pass when ``want_stats``.  Where
+    no gradient can flow (serving, evaluation) it is the forward alone."""
+    if _no_grad_flows(x, sink):
+        return _forward(x, act_fmt, act_e, want_stats)
+    if sink is None:
+        sink = torch.zeros((3,), dtype=torch.float32, device=x.device)
+    return _QBound.apply(x, act_e, grad_e, sink, act_fmt, grad_fmt,
+                         want_stats)
+
+
+def qbound(x: Tensor, act_fmt: Format, grad_fmt: Format, act_e, grad_e,
+           sink: Optional[Tensor] = None) -> Tensor:
+    """Quantize the forward value with ``act_fmt`` and the cotangent with
+    ``grad_fmt``.  ``sink`` is a zero ``(3,)`` tensor (:func:`new_sink`);
+    its gradient receives the backward-pass overflow statistics."""
+    if act_fmt is None and grad_fmt is None:
+        return x
+    return qbound_site(x, act_fmt, grad_fmt, act_e, grad_e, sink,
+                       want_stats=False)[0]
+
+
+def ste_site(x: Tensor, fmt: Format, e, *,
+             want_stats: bool) -> Tuple[Tensor, Optional[Tensor]]:
+    """:func:`ste_quant`, plus the forward statistics of ``x`` from the
+    same rounding pass when ``want_stats``."""
+    if _no_grad_flows(x):
+        return _forward(x, fmt, e, want_stats)
+    return _STE.apply(x, e, fmt, want_stats)
 
 
 def ste_quant(x: Tensor, fmt: Format, e) -> Tensor:
-    """Forward value of the reference's ``ste_quant``: the stored weight
-    re-quantized to the computation width when it enters a product."""
-    return q_value(x, fmt, e)
+    """Forward quantization with a straight-through (identity) backward.
+
+    Used for *weight use-time* quantization: the stored (update-width)
+    parameter is re-quantized to the computation width when it enters a
+    multiplication; its gradient is quantized once, in the train step."""
+    if fmt is None:
+        return x
+    return ste_site(x, fmt, e, want_stats=False)[0]

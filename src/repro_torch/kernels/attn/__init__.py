@@ -1,8 +1,8 @@
 """Attention over the KV pool: flash-decode (K3) and flash-prefill (K4) on
 slot-major rings, and their paged variants (K5, K6) through block tables.
 
-``ops`` holds the wrappers, ``ref`` the plain PyTorch versions, ``build``
-the nvcc/ctypes loader, ``csrc`` the CUDA sources.
+``ops`` holds the wrappers, ``ref`` the plain PyTorch versions, ``csrc``
+the CUDA sources; :mod:`repro_torch.kernels.build` builds and loads them.
 """
 from .ops import (  # noqa: F401
     LAUNCHES,

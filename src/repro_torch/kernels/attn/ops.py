@@ -26,7 +26,7 @@ import torch
 from repro_torch.core.packed import container_dtype
 from repro_torch.core.quant import exact_pow2
 
-from . import build
+from .. import build
 from . import ref as R
 
 Tensor = torch.Tensor

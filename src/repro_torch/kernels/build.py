@@ -1,11 +1,14 @@
-"""Build the attention kernels with ``nvcc`` and load them with ``ctypes``.
+"""Build the hand-written kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` has a plain ``extern "C"`` entry point and no
-PyTorch headers, so one ``nvcc`` call per source builds in seconds.  The
+One module for every kernel family: ``kernels/attn/csrc`` (K3-K6),
+``kernels/dfxp/csrc`` (K1) and ``kernels/qmatmul/csrc`` (K2).  Each
+``csrc/<name>.cu`` has a plain ``extern "C"`` entry point and no PyTorch
+headers, so one ``nvcc`` call per source builds in seconds.  The
 libraries go to ``build/repro_torch/`` under the repository root, named
-by a hash of their sources, so an edited source rebuilds and an unchanged
-one is reused.  Building happens at first use (:func:`library`), or for
-all kernels at once, in parallel, through :func:`build_all`.
+by a hash of their own source and the headers of their directory, so an
+edited source rebuilds and an unchanged one is reused.  Building happens
+at first use (:func:`library`), or for all kernels at once, in parallel,
+through :func:`build_all`.
 """
 from __future__ import annotations
 
@@ -18,22 +21,32 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
+KERNELS = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS.parents[2] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# entry point and argument types of each kernel library
+_L = ctypes.c_longlong
+# family directory, entry point and argument types of each kernel library
 SIGNATURES = {
-    "flash_decode": ("flash_decode_launch",
+    "flash_decode": ("attn", "flash_decode_launch",
                      [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
-    "flash_prefill": ("flash_prefill_launch",
+    "flash_prefill": ("attn", "flash_prefill_launch",
                       [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P]),
-    "flash_decode_paged": ("flash_decode_paged_launch",
+    "flash_decode_paged": ("attn", "flash_decode_paged_launch",
                            [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P]),
-    "flash_prefill_paged": ("flash_prefill_paged_launch",
+    "flash_prefill_paged": ("attn", "flash_prefill_paged_launch",
                             [_P] * 11 + [_I] * 8 + [_F, _I, _I, _P]),
+    "dfxp_quantize": ("dfxp", "dfxp_quantize_launch",
+                      [_P] * 4 + [_L, _I, _I, _P]),
+    "qmatmul": ("qmatmul", "qmatmul_launch",
+                [_P] * 4 + [_I] * 6 + [_P]),
 }
+
+
+def csrc(name: str) -> Path:
+    """The ``csrc`` directory that holds kernel ``name``'s source."""
+    return KERNELS / SIGNATURES[name][0] / "csrc"
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -52,7 +65,7 @@ def _nvcc() -> str:
 def lib_path(name: str) -> Path:
     """Where the library of kernel ``name`` lives for the current sources."""
     h = hashlib.sha256()
-    for src in sorted(CSRC.iterdir()):
+    for src in sorted(csrc(name).iterdir()):
         if src.suffix in (".cu", ".cuh") and (src.stem == name
                                               or src.suffix == ".cuh"):
             h.update(src.name.encode())
@@ -64,7 +77,7 @@ def lib_path(name: str) -> Path:
 def _command(name: str, out: Path) -> list:
     return [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
             "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(out), str(CSRC / f"{name}.cu")]
+            "-o", str(out), str(csrc(name) / f"{name}.cu")]
 
 
 def build_all(names=None, force: bool = False) -> Dict[str, dict]:
@@ -107,7 +120,7 @@ def library(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_all([name])
         lib = ctypes.CDLL(str(path))
-        fn_name, argtypes = SIGNATURES[name]
+        _, fn_name, argtypes = SIGNATURES[name]
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

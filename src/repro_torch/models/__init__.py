@@ -1,1 +1,1 @@
-"""Model definitions of the port: the dense decoder."""
+"""Model definitions of the port: the dense decoder and the paper's maxout networks."""

@@ -7,12 +7,15 @@ torch tensors on the requested device, after checking every leaf against
 the port's own shapes.  The CPU tests use it so that both packages
 compute with the same weights; a full-width run on the card draws its
 own weights on the device (:func:`repro_torch.models.transformer.init_params`).
+``maxout_params_from_jax`` does the same for the maxout networks
+(``repro.models.maxout.init_params``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import maxout as MX
 from . import transformer as T
 
 
@@ -22,12 +25,10 @@ def _shapes(tree):
     return tuple(tree.shape)
 
 
-def params_from_jax(cfg: T.ModelConfig, tree: dict, *, device="cuda") -> dict:
-    """The reference's parameters as torch tensors on ``device``."""
-    want = _shapes(T.init_params(cfg, device="meta"))
+def _convert(want: dict, tree: dict, name: str, device) -> dict:
     got = _shapes(tree)
     if want != got:
-        raise ValueError(f"parameter tree does not match {cfg.name!r}: "
+        raise ValueError(f"parameter tree does not match {name!r}: "
                          f"expected {want}, got {got}")
 
     def conv(t):
@@ -37,3 +38,16 @@ def params_from_jax(cfg: T.ModelConfig, tree: dict, *, device="cuda") -> dict:
         return torch.from_numpy(a).to(device)
 
     return conv(tree)
+
+
+def params_from_jax(cfg: T.ModelConfig, tree: dict, *, device="cuda") -> dict:
+    """The reference's parameters as torch tensors on ``device``."""
+    return _convert(_shapes(T.init_params(cfg, device="meta")), tree,
+                    cfg.name, device)
+
+
+def maxout_params_from_jax(cfg: MX.MaxoutConfig, tree: dict, *,
+                           device="cuda") -> dict:
+    """The reference's maxout parameters as torch tensors on ``device``."""
+    return _convert(_shapes(MX.init_params(cfg, 0, device="meta")), tree,
+                    cfg.name, device)

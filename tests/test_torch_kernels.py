@@ -1,23 +1,34 @@
-"""The hand-written CUDA kernels K3-K6 against their plain versions, on the card.
+"""The hand-written CUDA kernels K1-K6 against their plain versions, on the card.
 
 Run on a machine with an H100 (no JAX needed there):
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels.py
 
 Each test builds the kernel (nvcc, at first use), runs it at the serving
-slices' shapes, and holds it against the plain PyTorch version on the
-same card tensors; the paged K5 is also held against K3 on the same data
-laid out as a ring.  Tolerance: atol = rtol = 1e-4 on outputs of size
-O(1..16) — both sides are f32, the kernel sums keys in 32-lane tiles
-with an online softmax, the plain version in one einsum.  Without a card
+and training slices' shapes, and holds it against the plain PyTorch
+version on the same card tensors; the paged K5 is also held against K3 on
+the same data laid out as a ring.  Tolerances: attention atol = rtol =
+1e-4 on outputs of size O(1..16) — both sides are f32, the kernel sums
+keys in 32-lane tiles with an online softmax, the plain version in one
+einsum; K1 (fused quantize) bit-exact, values and both counts; K2
+(quantized matmul) rtol = 1e-5, atol = 1e-5·sqrt(D) on unit-scale
+operands, and its rounded operands bit-exact (a width-only product of
+on-grid values).  Without a card
 every test skips (decided in a fixture, so all xdist workers collect the
 same tests).
 """
 import pytest
 import torch
 
-from repro_torch.core.quant import exact_pow2
+from repro_torch.core.quant import exact_pow2, fixed_round
+from repro_torch.kernels import dispatch
 from repro_torch.kernels.attn import cases, ops, ref
+from repro_torch.kernels.dfxp import cases as qcases
+from repro_torch.kernels.dfxp import ops as k1
+from repro_torch.kernels.dfxp.ref import dfxp_quantize_ref
+from repro_torch.kernels.qmatmul import cases as mcases
+from repro_torch.kernels.qmatmul import ops as k2
+from repro_torch.kernels.qmatmul.ref import qmatmul_ref, round_operand
 
 pytestmark = pytest.mark.gpu
 
@@ -230,3 +241,152 @@ def test_paged_wrappers_check_their_inputs(cuda):
         ops.flash_decode_paged(a["q"], a["k"], a["v"], a["bt"].long(),
                                a["pos"], a["q_pos"], a["k_exp"], a["v_exp"],
                                width=8, scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# K1: fused quantize (bit-exact)
+# ---------------------------------------------------------------------------
+
+def _k1_exact(a):
+    n = k1.LAUNCHES["dfxp_quantize"]
+    y, st = k1.dfxp_quantize(a["x"], a["e"], width=a["width"])
+    torch.cuda.synchronize()
+    assert k1.LAUNCHES["dfxp_quantize"] == n + 1
+    yr, sr = dfxp_quantize_ref(a["x"], a["e"], width=a["width"])
+    assert y.dtype == a["x"].dtype and y.shape == a["x"].shape
+    assert torch.equal(torch.isnan(y), torch.isnan(yr))
+    ok = ~torch.isnan(yr)
+    assert torch.equal(y[ok], yr[ok])
+    assert torch.equal(st, sr)
+    return st
+
+
+@pytest.mark.parametrize("shape", [(64, 1200), (784, 1200), (1000003,),
+                                   (3, 7), (4, 33, 65)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("width", [8, 10, 12, 16])
+def test_k1_matches_plain_bit_exact(cuda, shape, width):
+    st = _k1_exact(qcases.quantize_case(shape, e=4.0 - width, width=width,
+                                        seed=width, device=cuda))
+    assert st[1] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16],
+                         ids=["f16", "bf16"])
+def test_k1_half_types_bit_exact(cuda, dtype):
+    _k1_exact(qcases.quantize_case((64, 1200), dtype=dtype, e=-3.0,
+                                   scale=10.0, seed=1, device=cuda))
+
+
+@pytest.mark.parametrize("e", [-30.0, 30.0])
+def test_k1_extreme_exponents_bit_exact(cuda, e):
+    st = _k1_exact(qcases.quantize_case((32, 130), e=e,
+                                        scale=2.0 ** (e + 8), seed=2,
+                                        device=cuda))
+    assert st[0] > 0
+
+
+def test_k1_nan_inf_and_ties_bit_exact(cuda):
+    a = qcases.quantize_case((17, 31), e=-2.0, seed=3, device=cuda,
+                             specials=True)
+    st = _k1_exact(a)
+    y, _ = k1.dfxp_quantize(a["x"], a["e"], width=a["width"])
+    assert int(torch.isnan(y).sum()) == 1 and st[0] >= 3
+
+
+def test_fixed_round_routes_to_k1_on_the_card(cuda):
+    from repro_torch.core.quant import enable_pallas_quantize
+    x = qcases.quantize_case((64, 1200), device=cuda)["x"]
+    want = fixed_round(x, 10, -6.0)
+    n = k1.LAUNCHES["dfxp_quantize"]
+    enable_pallas_quantize(True)
+    try:
+        got = fixed_round(x, 10, -6.0)
+    finally:
+        enable_pallas_quantize(False)
+    assert k1.LAUNCHES["dfxp_quantize"] == n + 1
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+
+
+# ---------------------------------------------------------------------------
+# K2: quantized matmul
+# ---------------------------------------------------------------------------
+
+def _k2_close(a):
+    n = k2.launches()
+    out = k2.qmm(a["a"], a["b"], a["e_a"], a["e_b"], kind=a["kind"],
+                 width_a=a["width_a"], width_b=a["width_b"])
+    torch.cuda.synchronize()
+    assert k2.launches() == n + 1
+    want = qmatmul_ref(a["a"], a["b"], a["e_a"], a["e_b"], kind=a["kind"],
+                       width_a=a["width_a"], width_b=a["width_b"])
+    _, _, D = k2.shapes(a["kind"], a["a"].shape, a["b"].shape)
+    torch.testing.assert_close(out, want, **mcases.tolerance(D))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["nn", "nt", "tn"])
+@pytest.mark.parametrize("widths", [(10, 10), (None, 10), (10, None),
+                                    (None, None)],
+                         ids=["q-q", "raw-q", "q-raw", "raw-raw"])
+def test_k2_layouts_and_widths_match_plain(cuda, kind, widths):
+    _k2_close(mcases.qmm_case(kind, 100, 130, 70, width_a=widths[0],
+                              width_b=widths[1], seed=4, device=cuda))
+
+
+@pytest.mark.parametrize("kind,R,C,D", [("nn", 64, 1200, 784),
+                                        ("nt", 64, 240, 1200),
+                                        ("tn", 784, 1200, 64),
+                                        ("nn", 33, 7, 65)],
+                         ids=["fwd", "dgrad", "wgrad", "ragged"])
+def test_k2_maxout_shapes_match_plain(cuda, kind, R, C, D):
+    _k2_close(mcases.qmm_case(kind, R, C, D, seed=5, device=cuda))
+
+
+def test_k2_on_grid_product_is_exact(cuda):
+    """Both operands rounded at width 8 with matching steps: every product
+    and partial sum is an integer multiple of 2**(e_a+e_b) below 2**24
+    of them, so both sides are exact and equal bit for bit."""
+    a = mcases.qmm_case("nn", 96, 80, 64, width_a=8, width_b=8, seed=6,
+                        device=cuda)
+    a["a"], a["b"] = a["a"] * 2.0 ** -3, a["b"] * 2.0 ** -3
+    out = k2.qmm(a["a"], a["b"], -10.0, -10.0, kind="nn", width_a=8,
+                 width_b=8)
+    want = round_operand(a["a"], -10.0, 8) @ round_operand(a["b"], -10.0, 8)
+    assert torch.equal(out, want)
+
+
+def test_fused_dot_grads_match_plain_on_the_card(cuda):
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(3, 37, 72, generator=g).to(cuda).requires_grad_(True)
+    w = torch.randn(72, 56, generator=g).to(cuda).requires_grad_(True)
+    r = torch.randn(3, 37, 56, generator=g).to(cuda)
+    before = dict(k2.LAUNCHES)
+    y = dispatch.fused_dot(x, w, -6.0, -6.0, width=10, grad_width=10,
+                           e_g=-8.0)
+    (y * r).sum().backward()
+    torch.cuda.synchronize()
+    assert {k: k2.LAUNCHES[k] - before[k] for k in before} == \
+        {"qmm_nn": 1, "qmm_nt": 1, "qmm_tn": 1}
+    xc, wc = x.detach().cpu().requires_grad_(True), \
+        w.detach().cpu().requires_grad_(True)
+    yc = dispatch.fused_dot(xc, wc, -6.0, -6.0, width=10, grad_width=10,
+                            e_g=-8.0)
+    (yc * r.cpu()).sum().backward()
+    for got, want, D in ((y, yc, 72), (x.grad, xc.grad, 56),
+                         (w.grad, wc.grad, 111)):
+        torch.testing.assert_close(got.detach().cpu(), want.detach(),
+                                   **mcases.tolerance(D))
+
+
+def test_k2_wrapper_checks_its_inputs(cuda):
+    a = torch.zeros(4, 5, device=cuda)
+    with pytest.raises(TypeError):
+        k2.qmm(a.double(), a.t().double(), 0.0, 0.0, kind="nn", width_a=10,
+               width_b=10)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.qmm(a, torch.zeros(6, 5, device=cuda).t(), 0.0, 0.0, kind="nn",
+               width_a=10, width_b=10)
+    with pytest.raises(ValueError):
+        k2.qmm(a, a, 0.0, 0.0, kind="nn", width_a=30, width_b=10)
