@@ -14,9 +14,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the serving slices' shapes (K3: B=4 slots, W=400, K=8, G=4, hd=128 for
    int8, int16, f32 and a sliding window; K4: C=128 with ragged n_valid
    and p0 > 0; K5: B=4 slots over 64-row pages, 8 blocks, null pages, a
-   shared page, an empty slot; K6: C=64 at p0=384 and a ragged chunk),
-   hold K5 against K3 on the same data laid out as a ring, and time
-   kernel, plain version and a library yardstick;
+   shared page, an empty slot, and splits that see no key; K6: C=64 at
+   p0=384 and a ragged chunk), hold K5 against K3 on the same data laid
+   out as a ring, check that two K5 calls give the same bits, and time
+   kernel (every launch of a call: K5's split pass and its merge),
+   plain version and a library yardstick;
 4. smoke-size parity: the port's model on the card (kernels) against the
    same model on the CPU (plain versions), slot-major and paged (engine
    logits with prefix sharing, and a tight arena that preempts);
@@ -33,10 +35,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 8. a whole-prompt run (``prefill_chunk=0``) on the same weights;
 9. K1 bit-exact and K2 within ``rtol=1e-5, atol=1e-5·sqrt(D)`` against
    their plain versions (maxout sites and shapes, every K2 layout and
-   width pairing, ragged sizes, f16/bf16, NaN/±inf, exponents ±30, the
-   llama3-8B ``w_up`` weight and chunk product), timed beside
-   ``torch.fake_quantize_per_tensor_affine`` / eager ``fixed_round`` and
-   ``torch.matmul``;
+   width pairing, widths past TF32's 11 bits, ragged sizes, f16/bf16,
+   NaN/±inf, exponents ±30, the llama3-8B ``w_up`` weight and chunk
+   product), K2 bit-exact on an on-grid product and the same bits in two
+   calls of a split-K plan, timed (K2: its split pass and its reduction)
+   beside ``torch.fake_quantize_per_tensor_affine`` / eager
+   ``fixed_round`` and ``torch.matmul``;
 10. training parity at smoke size: DFXP-10/12 maxout on the card (K1,
     K2) against the CPU (plain versions), 10 steps;
 11. the training main path: ``repro_torch.examples.quickstart`` at the
@@ -140,6 +144,9 @@ def rotating(fn_of_case, cases_list):
 
 def phase_build():
     from repro_torch.kernels import build
+    from repro_torch.kernels.attn import ops as attn_ops
+    from repro_torch.kernels.qmatmul import ops as k2_ops
+    from repro_torch.kernels.qmatmul.ref import is_split
     report = build.build_all(force=True)
     for name, r in report.items():
         info = [ln.strip() for ln in r["ptxas"].splitlines()
@@ -151,14 +158,38 @@ def phase_build():
     # dynamic shared memory a block asks for (attn_common.cuh smem_floats:
     # a padded K tile, a V tile and the block's query rows, f32)
     for name, rows in (("flash_decode", 4), ("flash_prefill", 32),
-                       ("flash_decode_paged", 4),
                        ("flash_prefill_paged", 32)):
         log(f"  {name}: {(32 * 129 + 32 * 128 + rows * 128) * 4} bytes of "
             f"dynamic shared memory per block at hd=128")
+    # K5 (flash_decode_paged.cu smem_bytes): a ring of raw K and V tiles,
+    # 32 rows of hd values padded by 16 bytes (3 stages, f32: 2), the query
+    # rows and a vote and an index per tile of the block's page range
+    splits, pps = attn_ops.decode_splits(4, 8, 8)
+    for tag, size in (("int8", 1), ("int16", 2), ("f32", 4)):
+        stages = 2 if size == 4 else 3
+        n = stages * 2 * 32 * (128 * size + 16) + 4 * 128 * 4 \
+            + pps * (PAGE // 32) * 8 + 16
+        log(f"  flash_decode_paged {tag}: {n} bytes of dynamic shared "
+            f"memory per block at hd=128, G=4, P={PAGE} ({splits} splits of "
+            f"{pps} pages)")
+    # K2 (qmatmul.cu Smem): 3 stages of a 64x32 A tile and a 32 x bn B tile,
+    # rows padded by 4 (k contiguous) or 8 floats, and two lo planes of
+    # each split operand; the main path's widths (raw x 10 bits; the wgrad
+    # raw x raw)
+    for kind, (R, C, D), wb in (("nn", (64, 1200, 784), 10),
+                                ("nt", (64, 240, 1200), 10),
+                                ("tn", (784, 1200, 64), None)):
+        bn, splits, per = k2_ops.plan(R, C, D)
+        sa = 64 * 36 if kind != "tn" else 32 * 72
+        sb = bn * 36 if kind == "nt" else 32 * (bn + 8)
+        lo = sa + (sb if is_split(wb) else 0)
+        log(f"  qmatmul {kind} [{R},{C}] D={D}: tiles 64x{bn}, {splits} "
+            f"splits of {per} slices, {(3 * (sa + sb) + 2 * lo) * 4} bytes "
+            f"of dynamic shared memory per block")
     # static shared memory (the "smem" lines above): K1 two per-warp count
-    # arrays, K2 a 16x65 f32 tile of each operand
+    # arrays
     log(f"  dfxp_quantize: {2 * 8 * 4} bytes of static shared memory per "
-        f"block; qmatmul: {2 * 16 * 65 * 4} bytes")
+        f"block")
 
 
 def phase_kernels():
@@ -346,16 +377,38 @@ def phase_kernels():
             raise SystemExit(f"K5 and K3 disagree on the same data: {d}")
     log(f"K5 vs K3 on the same data (int8, int16, f32): max_abs_diff "
         f"{k5_vs_k3:.3e}")
+    # K5 splits the pages and merges the splits in a fixed order: the same
+    # bits from two calls; and splits that see no key (one slot and two kv
+    # heads give a split per page; a window leaves the early splits empty)
+    splits = ops.decode_splits(B, K, NBLK)
+    for width, tag in ((8, "int8"), (16, "int16"), (None, "f32")):
+        a = cases.decode_paged_case(B, PAGE, NBLK, K, G, HD, width,
+                                    fill=[NBLK * PAGE, 257, 96, 0], seed=11,
+                                    device=dev)
+        if not torch.equal(k5(a), k5(a)):
+            raise SystemExit(f"K5 {tag}: two calls differ")
+        errs["flash_decode_paged"].append(check(
+            f"K5 {tag} window=40 (3 of {splits[0]} splits masked)", k5,
+            k5_plain, dict(a, window=40)))
+        a = cases.decode_paged_case(2, PAGE, NBLK, 2, G, HD, width,
+                                    fill=[PAGE + 5, 1], seed=12, device=dev)
+        errs["flash_decode_paged"].append(check(
+            f"K5 {tag} B=2 K=2 ({ops.decode_splits(2, 2, NBLK)[0]} splits, "
+            f"2 live pages)", k5, k5_plain, a))
+    log(f"K5 (B={B}, K={K}, nblocks={NBLK}): {splits[0]} splits of "
+        f"{splits[1]} pages; two calls bit-identical (int8, int16, f32)")
     decode_paged_rows, prefill_paged_rows = {}, {}
     fills = [320, 384, 448, 200]      # the paged run's prompt lengths
     for width, tag in ((8, "int8"), (16, "int16"), (None, "f32")):
         decode_paged_rows[tag] = timed(
-            f"K5 {tag} timing (B=4, P=64, nblocks=8, fill={fills})",
+            f"K5 {tag} timing (B=4, P=64, nblocks=8, fill={fills}, "
+            f"{splits[0]} splits)",
             "flash_decode_paged_kernel", k5, k5_plain,
             lambda s, w=width: cases.decode_paged_case(
                 B, PAGE, NBLK, K, G, HD, w, fill=fills, seed=s, device=dev),
             cases.decode_paged_cost,
             (lambda a: sdpa_decode(gathered(a))) if width is None else None)
+        decode_paged_rows[tag]["splits"] = splits[0]
     for width, tag in ((8, "int8"), (16, "int16"), (None, "f32")):
         prefill_paged_rows[tag] = timed(
             f"K6 {tag} timing (B=1, C=64, p0=384, P=64, nblocks=8)",
@@ -764,19 +817,21 @@ def reset_all_launches() -> None:
 
 
 def time_row(name, kernel, fn, plain, copies, cost, library=None,
-             extra=None):
+             extra=None, info=None):
     """A timing row on ``copies`` (a ring of inputs larger than the 50 MB
     L2, or one input larger than it).  ``ms`` / ``plain_ms`` /
     ``library_ms`` (and ``extra``'s keys): device time per call from the
     profiler (or CUDA events where ``timers`` says so); ``*_call_ms``:
     CUDA-event time per call in a loop, host gaps included; ``bound_ms``
-    from this case's bytes and operations."""
+    from this case's bytes and operations (at ``cost``'s third item, a
+    rate in flop/s, where it gives one; else float32's); ``info``: more
+    keys printed with the row."""
     from repro_torch.kernels.attn import cases
-    nbytes, flops = cost(copies[0])
-    bound, bound_by = cases.bound_ms(nbytes, flops)
+    nbytes, flops, *rate = cost(copies[0])
+    bound, bound_by = cases.bound_ms(nbytes, flops, *rate)
     timers = {}
     row = dict(bound_ms=bound, bound_by=bound_by, bytes=nbytes, flops=flops,
-               timers=timers)
+               timers=timers, **(info or {}))
     row["ms"], timers["ms"] = device_ms(rotating(fn, copies), kernel)
     row["call_ms"] = cuda_ms(rotating(fn, copies))
     row["plain_ms"], timers["plain_ms"] = device_ms(rotating(plain, copies))
@@ -797,6 +852,7 @@ def phase_train_kernels():
     from repro_torch.core.quant import fixed_round
     from repro_torch.kernels.dfxp import cases as qc
     from repro_torch.kernels.dfxp import ops as k1
+    from repro_torch.kernels.attn.cases import H100_TF32_FLOPS
     from repro_torch.kernels.dfxp.ref import dfxp_quantize_ref
     from repro_torch.kernels.qmatmul import cases as mc
     from repro_torch.kernels.qmatmul import ops as k2
@@ -884,10 +940,13 @@ def phase_train_kernels():
         errs.append(err)
 
     for kind in ("nn", "nt", "tn"):
-        for wa, wb in ((10, 10), (None, 10), (10, None), (None, None)):
+        for wa, wb in ((10, 10), (None, 10), (10, None), (None, None),
+                       (13, 16), (24, None)):
+            e = (0.0 if wa is None else 3.0 - wa,
+                 0.0 if wb is None else 3.0 - wb)
             k2_check(f"{kind} widths=({wa},{wb}) 100x130x70",
                      mc.qmm_case(kind, 100, 130, 70, width_a=wa, width_b=wb,
-                                 seed=3, device=dev))
+                                 e_a=e[0], e_b=e[1], seed=3, device=dev))
     maxout = {"fwd nn [64,784]x[784,1200]": ("nn", 64, 1200, 784),
               "dgrad nt [64,1200]x[240,1200]^T": ("nt", 64, 240, 1200),
               "wgrad tn [64,784]^Tx[64,1200]": ("tn", 784, 1200, 64),
@@ -910,6 +969,15 @@ def phase_train_kernels():
         raise SystemExit("K2's rounded operands differ from the plain "
                          "version's")
     log("K2 on-grid width-8 product: bit-exact True")
+    # split-K sums its partials in split order: the same bits twice
+    for kind, R, C, D in (("nn", 64, 1200, 784), ("nt", 64, 240, 1200)):
+        a = mc.qmm_case(kind, R, C, D, seed=7, device=dev)
+        outs = [k2.qmm(a["a"], a["b"], a["e_a"], a["e_b"], kind=kind,
+                       width_a=None, width_b=10) for _ in range(2)]
+        if not torch.equal(*outs):
+            raise SystemExit(f"K2 {kind} [{R},{C}] D={D}: two calls differ")
+        log(f"K2 {kind} [{R},{C}] D={D} plan {k2.plan(R, C, D)}: two calls "
+            f"bit-identical")
 
     def k2_call(a):
         return k2.qmm(a["a"], a["b"], a["e_a"], a["e_b"], kind=a["kind"],
@@ -943,8 +1011,13 @@ def phase_train_kernels():
                   for s in range(n)]
         for c in copies:
             k2_library(c)             # round the yardstick's operands now
-        k2_rows[tag] = time_row(f"K2 {tag} timing", "qmm_kernel", k2_call,
-                                k2_plain, copies, mc.qmm_cost, k2_library)
+        bn, splits, per = k2.plan(R, C, D)
+        k2_rows[tag] = time_row(
+            f"K2 {tag} timing", "qmm_kernel", k2_call, k2_plain, copies,
+            lambda a: (*mc.qmm_cost(a), H100_TF32_FLOPS), k2_library,
+            info={"plan": {"bn": bn, "splits": splits, "per": per}}
+            | {k: v for k, v in mc.qmm_bounds(copies[0]).items()
+               if k.startswith("f32_") or k == "products"})
         del copies
     return {"dfxp_quantize": dict(rows=k1_rows, max_abs_err=0.0),
             "qmatmul": dict(rows=k2_rows, max_abs_err=max(errs))}
@@ -1229,7 +1302,8 @@ def main():
             ("qmatmul", "src/repro_torch/kernels/qmatmul/csrc/qmatmul.cu",
              "src/repro/kernels/qmatmul/qmatmul_kernel.py:78",
              "maxout_fwd_nn", "torch.matmul (TF32 off) on the operands "
-             "rounded outside the timed call")):
+             "rounded outside the timed call; bound_ms on the kernel's TF32 "
+             "route, f32_bound_ms at the float32 SIMT rate")):
         k = kern[name]
         main_row = k["rows"][main_case]
         rows.append({
@@ -1240,6 +1314,8 @@ def main():
             "bound_by": main_row["bound_by"],
             "library_ms": main_row.get("library_ms"), "library_note": note,
             "main_case": main_case, "cases": k["rows"]})
+        if "f32_bound_ms" in main_row:
+            rows[-1]["f32_bound_ms"] = main_row["f32_bound_ms"]
     summary = {"peak_memory_bytes": peak, "tok_per_s": st["tok_per_s"],
                "ttft_mean_s": st["ttft_mean_s"], "decode_steps":
                st["decode_steps"], "prefill_chunks": st["prefill_chunks"],

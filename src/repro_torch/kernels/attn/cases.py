@@ -24,6 +24,7 @@ from . import ref as R
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12        # float32 outside the tensor cores
+H100_TF32_FLOPS = 495e12      # TF32 on the tensor cores
 
 
 def _storage(gen, shape, width: Optional[int], device):
@@ -251,8 +252,9 @@ def prefill_paged_cost(a: dict):
     return nbytes, flops
 
 
-def bound_ms(nbytes: int, flops: int):
-    """(least ms on an H100, "bytes" or "operations")."""
+def bound_ms(nbytes: int, flops: int, flops_per_s: float = H100_F32_FLOPS):
+    """(least ms on an H100, "bytes" or "operations"), with the operations
+    at ``flops_per_s`` (float32 outside the tensor cores by default)."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

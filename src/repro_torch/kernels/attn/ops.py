@@ -12,9 +12,10 @@ the other.  The block tables' entries are not read on the host (that
 would cost a device sync per call): they must name pages of the arena,
 as the engine's allocator guarantees.
 
-``LAUNCHES`` counts kernel launches per wrapper — incremented where the
-kernel launches and nowhere else — so a run can show that its main path
-went through the kernels.
+``LAUNCHES`` counts calls per wrapper — incremented where a call launches
+its kernel (K5: and, after a split over the pages, the kernel that merges
+the splits) and nowhere else — so a run can show that its main path went
+through the kernels.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ LAUNCHES: Dict[str, int] = {"flash_decode": 0, "flash_prefill": 0,
                              "flash_decode_paged": 0,
                              "flash_prefill_paged": 0}
 TILE = 32          # keys per kernel tile; a page size must be a multiple
+SMS = 132          # streaming multiprocessors of an H100 SXM
 
 _DTYPE_CODE = {torch.int8: 0, torch.int16: 1, torch.float32: 2}
 
@@ -188,6 +190,16 @@ def _check_paged(k: Tensor, v: Tensor, bt: Tensor, pos: Tensor, B: int,
     return n_pages, P, nblocks
 
 
+def decode_splits(B: int, K: int, nblocks: int):
+    """``(splits, pps)`` of a K5 call: the block table's ``nblocks``
+    entries cut into ``splits`` contiguous ranges of ``pps`` entries
+    (the last may be shorter), so that ``K·B·splits`` blocks fill a wave
+    of :data:`SMS` where there are pages enough."""
+    want = min(nblocks, -(-SMS // (B * K)))
+    pps = -(-nblocks // want)
+    return -(-nblocks // pps), pps
+
+
 def flash_decode_paged(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
                        pos: Tensor, q_pos: Tensor, k_exp=None, v_exp=None, *,
                        width: Optional[int] = None, scale: float,
@@ -200,9 +212,11 @@ def flash_decode_paged(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
     block tables (0 = null page; every entry names a page of the arena)
     · ``pos``: int32 [B, nblocks·P] logical positions (-1 = empty) ·
     ``q_pos``: int32 [B] · ``k_exp``/``v_exp``: f32 [n_pages] per-PAGE
-    log2-steps.  On the card ``P`` must be a multiple of 32.  Returns f32
-    [B, K, G, hd]; numerics are
-    :func:`repro_torch.kernels.attn.ref.paged_decode_attention_ref`.
+    log2-steps.  On the card ``P`` and ``hd`` must be multiples of 32.
+    Returns f32 [B, K, G, hd]; numerics are
+    :func:`repro_torch.kernels.attn.ref.paged_decode_attention_ref` (on the
+    card split over the pages as :func:`decode_splits` says, and merged as
+    :func:`repro_torch.kernels.attn.ref.paged_decode_split_ref` does).
     """
     if q.device.type == "cpu":
         return R.paged_decode_attention_ref(
@@ -216,16 +230,22 @@ def flash_decode_paged(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
     _check("q", q, (B, K, G, hd), torch.float32, dev)
     _check("q_pos", q_pos, (B,), torch.int32, dev)
     n_pages, P, nblocks = _check_paged(k, v, bt, pos, B, K, hd, width, dev)
-    if G > 32:
-        raise ValueError(f"flash_decode_paged takes G <= 32, got G={G}")
+    if G > 32 or hd % 32:
+        raise ValueError(f"flash_decode_paged takes G <= 32 and hd a "
+                         f"multiple of 32, got G={G}, hd={hd}")
     steps = _steps(n_pages, k_exp, v_exp, width, dev)
     _check("steps", steps, (n_pages, 2), torch.float32, dev)
     out = torch.empty_like(q)
+    splits, pps = decode_splits(B, K, nblocks)
+    ws = torch.empty(splits * B * K * G * (hd + 2), dtype=torch.float32,
+                     device=dev) if splits > 1 else None
     fn = build.library("flash_decode_paged").flash_decode_paged_launch
     rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bt), _ptr(pos), _ptr(q_pos),
-            _ptr(steps), _ptr(out), B, nblocks, P, K, G, hd,
-            _DTYPE_CODE[_storage_dtype(width)], float(scale),
-            int(window or 0), int(causal), _stream(dev))
+            _ptr(steps), _ptr(out),
+            ctypes.c_void_p(None if ws is None else ws.data_ptr()), B,
+            nblocks, P, K, G, hd, _DTYPE_CODE[_storage_dtype(width)],
+            float(scale), int(window or 0), int(causal), splits, pps,
+            _stream(dev))
     if rc != 0:
         raise RuntimeError(f"flash_decode_paged kernel launch failed: CUDA "
                            f"error {rc}")

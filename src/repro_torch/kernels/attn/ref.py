@@ -162,6 +162,55 @@ def paged_decode_attention_ref(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
                   window=window, causal=causal)
 
 
+def paged_decode_split_ref(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
+                           pos: Tensor, q_pos: Tensor, *, splits: int,
+                           k_exp=None, v_exp=None,
+                           width: Optional[int] = None, scale: float,
+                           window: Optional[int] = None,
+                           causal: bool = True) -> Tensor:
+    """K5's split over the pages on the CPU (used by tests only): the
+    block table's entries cut into contiguous ranges of
+    ``ceil(nblocks / splits)``, the flash partial ``(m, l, acc)`` of each
+    range, then :func:`merge_splits`.  Equal to
+    :func:`paged_decode_attention_ref` up to f32 summation order."""
+    kf = gather_pages(k, k_exp, bt, width)
+    vf = gather_pages(v, v_exp, bt, width)
+    qf = q.to(torch.float32)
+    nblocks, P = bt.shape[1], k.shape[1]
+    pps = -(-nblocks // splits)
+    valid = valid_mask(pos, q_pos, window=window, causal=causal)
+    parts = []
+    for b0 in range(0, nblocks, pps):
+        r = slice(b0 * P, min(b0 + pps, nblocks) * P)
+        v4 = valid[:, None, None, r]
+        s = torch.einsum("bkgh,bwkh->bkgw", qf, kf[:, r]) * scale
+        s = torch.where(v4, s, _NEG)
+        m = torch.where(v4.any(dim=-1), torch.amax(s, dim=-1), -torch.inf)
+        p = torch.where(v4, torch.exp(s - m[..., None]), 0.0)
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("bkgw,bwkh->bkgh", p, vf[:, r])))
+    return merge_splits(parts)
+
+
+def merge_splits(parts) -> Tensor:
+    """Merge flash partials ``[(m, l, acc), ...]`` (``m``/``l``: [...],
+    ``acc``: [..., hd]) in list order: ``m* = max m_s``, ``l* = Σ l_s
+    e^(m_s - m*)``, ``out = Σ acc_s e^(m_s - m*) / max(l*, 1e-30)``.  A
+    part with ``m = -inf`` weighs exactly 0, and a row whose parts all
+    have ``m = -inf`` gives 0, not NaN."""
+    mstar = parts[0][0]
+    for m, _, _ in parts[1:]:
+        mstar = torch.maximum(mstar, m)
+    seen = mstar > -torch.inf
+    el = torch.zeros_like(mstar)
+    o = torch.zeros_like(parts[0][2])
+    for m, l_s, acc in parts:
+        w = torch.where(seen & (m > -torch.inf), torch.exp(m - mstar), 0.0)
+        el = el + l_s * w
+        o = o + acc * w[..., None]
+    return o / torch.clamp(el, min=1e-30)[..., None]
+
+
 def paged_prefill_attention_ref(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
                                 pos: Tensor, k_new: Tensor, v_new: Tensor,
                                 p0: Tensor, n_valid: Tensor, *, k_exp=None,

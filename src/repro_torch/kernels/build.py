@@ -34,13 +34,13 @@ SIGNATURES = {
     "flash_prefill": ("attn", "flash_prefill_launch",
                       [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P]),
     "flash_decode_paged": ("attn", "flash_decode_paged_launch",
-                           [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P]),
+                           [_P] * 9 + [_I] * 7 + [_F] + [_I] * 4 + [_P]),
     "flash_prefill_paged": ("attn", "flash_prefill_paged_launch",
                             [_P] * 11 + [_I] * 8 + [_F, _I, _I, _P]),
     "dfxp_quantize": ("dfxp", "dfxp_quantize_launch",
                       [_P] * 4 + [_L, _I, _I, _P]),
     "qmatmul": ("qmatmul", "qmatmul_launch",
-                [_P] * 4 + [_I] * 6 + [_P]),
+                [_P] * 5 + [_I] * 9 + [_P]),
 }
 
 

@@ -4,10 +4,12 @@ Shared by the card tests and ``chip_smoke.py``: :func:`qmm_case` returns
 the arguments of one :func:`~repro_torch.kernels.qmatmul.ops.qmm` call
 drawn on ``device`` from ``seed`` (unit-scale operands); :func:`qmm_cost`
 the bytes the call must move (each operand read once, the product written
-once) and its ``2·R·C·D`` float32 operations, from which
-:func:`repro_torch.kernels.attn.cases.bound_ms` gives the least time an
-H100 could take.  :func:`tolerance` is the stated agreement of K2 with its
-plain version.
+once) and the TF32 tensor-core operations of the kernel's route,
+``products · 2·R·C·D``; :func:`qmm_bounds` the least time an H100 could
+take on that route (bytes at 3.35 TB/s against those operations at the
+dense TF32 rate) beside the float32 bound of ``2·R·C·D`` operations
+outside the tensor cores.  :func:`tolerance` is the stated agreement of
+K2 with its plain version.
 """
 from __future__ import annotations
 
@@ -15,7 +17,10 @@ import math
 
 import torch
 
-from .ops import shapes
+from repro_torch.kernels.attn.cases import (H100_F32_FLOPS,
+                                            H100_TF32_FLOPS, bound_ms)
+
+from .ops import products, shapes
 
 RTOL = 1e-5
 
@@ -39,6 +44,18 @@ def qmm_case(kind: str, R: int, C: int, D: int, *, width_a=None, width_b=10,
 
 
 def qmm_cost(a: dict):
-    """(bytes, flops) one call needs."""
+    """(bytes, TF32 flops) one call needs on the kernel's route."""
     R, C, D = shapes(a["kind"], a["a"].shape, a["b"].shape)
-    return 4 * (R * D + D * C + R * C) + 16, 2 * R * C * D
+    n = products(a["width_a"], a["width_b"])
+    return 4 * (R * D + D * C + R * C) + 16, n * 2 * R * C * D
+
+
+def qmm_bounds(a: dict) -> dict:
+    """The route's bound and the float32 (SIMT) bound of one call, ms."""
+    nbytes, flops = qmm_cost(a)
+    R, C, D = shapes(a["kind"], a["a"].shape, a["b"].shape)
+    tc, tc_by = bound_ms(nbytes, flops, H100_TF32_FLOPS)
+    f32, f32_by = bound_ms(nbytes, 2 * R * C * D, H100_F32_FLOPS)
+    return {"products": products(a["width_a"], a["width_b"]),
+            "bound_ms": tc, "bound_by": tc_by, "f32_bound_ms": f32,
+            "f32_bound_by": f32_by}

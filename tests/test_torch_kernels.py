@@ -203,9 +203,10 @@ def test_flash_prefill_paged_window_and_small_heads(cuda):
 @pytest.mark.parametrize("width", WIDTHS, ids=WIDTH_IDS)
 def test_flash_decode_paged_matches_k3_on_the_same_data(cuda, width):
     """The block tables' pages gathered into a ring, with one exponent
-    per slot: K5 on the arena and K3 on the ring walk the same tiles in
-    the same order, so they agree to the tolerance (and, as the card run
-    records, exactly)."""
+    per slot: K5 on the arena and K3 on the ring see the same keys, so
+    they agree to the tolerance.  Not bit for bit: K5 splits the walk over
+    the pages and merges the splits' softmax states, and sums each dot
+    product in four chains; K3 walks all keys in one online softmax."""
     a = cases.decode_paged_case(B, P, NBLK, K, G, HD, width,
                                 fill=[NBLK * P, 257, 96, 0], share=False,
                                 seed=9, device=cuda)
@@ -241,6 +242,63 @@ def test_paged_wrappers_check_their_inputs(cuda):
         ops.flash_decode_paged(a["q"], a["k"], a["v"], a["bt"].long(),
                                a["pos"], a["q_pos"], a["k_exp"], a["v_exp"],
                                width=8, scale=1.0)
+
+
+@pytest.mark.parametrize("width", WIDTHS, ids=WIDTH_IDS)
+def test_flash_decode_paged_is_bit_identical_from_run_to_run(cuda, width):
+    """The serving shape splits the pages (S = 4) and merges the splits in
+    a fixed order: two calls give the same bits."""
+    a = cases.decode_paged_case(B, P, NBLK, K, G, HD, width,
+                                fill=[NBLK * P, 257, 96, 0], seed=11,
+                                device=cuda)
+    assert ops.decode_splits(B, K, NBLK)[0] == 4
+    first, second = _decode_paged(a), _decode_paged(a)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("width", WIDTHS, ids=WIDTH_IDS)
+def test_flash_decode_paged_more_splits_than_live_pages(cuda, width):
+    """One slot, two kv heads: one split per block-table entry (S = 8), of
+    which the first two hold keys; the rest map the null page and must
+    weigh nothing.  A second slot of one key only."""
+    a = cases.decode_paged_case(2, P, NBLK, 2, G, HD, width,
+                                fill=[P + 5, 1], seed=12, device=cuda)
+    assert ops.decode_splits(2, 2, NBLK) == (NBLK, 1)
+    n = ops.LAUNCHES["flash_decode_paged"]
+    out = _decode_paged(a)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_decode_paged"] == n + 1
+    torch.testing.assert_close(out, _decode_paged_plain(a), **TOL)
+
+
+@pytest.mark.parametrize("width", WIDTHS, ids=WIDTH_IDS)
+def test_flash_decode_paged_window_masks_whole_splits(cuda, width):
+    """A 40-key window at position 511: the first three of the four splits
+    see no key (m = -inf), the last one sees 40; a slot whose window
+    holds no key at all gives 0."""
+    a = cases.decode_paged_case(B, P, NBLK, K, G, HD, width,
+                                fill=[NBLK * P, NBLK * P, 300, 0],
+                                window=40, seed=13, device=cuda)
+    out = _decode_paged(a)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, _decode_paged_plain(a), **TOL)
+    assert torch.isfinite(out).all() and torch.all(out[3] == 0)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 96, 256])
+def test_flash_decode_paged_other_head_dims(cuda, hd):
+    a = cases.decode_paged_case(2, 32, 3, 2, 2, hd, 8, fill=[96, 40],
+                                seed=14, device=cuda)
+    torch.testing.assert_close(_decode_paged(a), _decode_paged_plain(a),
+                               **TOL)
+
+
+def test_flash_decode_paged_takes_head_dims_of_32s(cuda):
+    a = cases.decode_paged_case(1, 32, 2, 2, 2, 48, 8, fill=[40], seed=10,
+                                device=cuda)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        _decode_paged(a)
 
 
 # ---------------------------------------------------------------------------
@@ -355,6 +413,70 @@ def test_k2_on_grid_product_is_exact(cuda):
                  width_b=8)
     want = round_operand(a["a"], -10.0, 8) @ round_operand(a["b"], -10.0, 8)
     assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("kind,R,C,D", [("nn", 64, 1200, 784),
+                                        ("nt", 64, 240, 1200)],
+                         ids=["fwd", "dgrad"])
+def test_k2_split_k_is_bit_identical_from_run_to_run(cuda, kind, R, C, D):
+    """The split partials are summed in split order by a second kernel:
+    two calls give the same bits."""
+    assert k2.plan(R, C, D)[1] > 1
+    a = mcases.qmm_case(kind, R, C, D, seed=8, device=cuda)
+    first, second = _k2_close(a), _k2_close(a)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("kind", ["nn", "nt", "tn"])
+@pytest.mark.parametrize("width", [13, 16, 24, None],
+                         ids=["w13", "w16", "w24", "raw"])
+def test_k2_wide_and_raw_operands_match_plain(cuda, kind, width):
+    """Widths past TF32's 11 bits go as hi + lo, three products with both
+    operands split; the step 2^(3 - width) fills the grid's bits."""
+    e = 0.0 if width is None else 3.0 - width
+    _k2_close(mcases.qmm_case(kind, 100, 130, 70, width_a=width,
+                              width_b=width, e_a=e, e_b=e, seed=9,
+                              device=cuda))
+
+
+def _k2_close_scaled(a, scale):
+    """K2 against plain with the tolerance scaled to the product's size."""
+    out = k2.qmm(a["a"], a["b"], a["e_a"], a["e_b"], kind=a["kind"],
+                 width_a=a["width_a"], width_b=a["width_b"])
+    want = qmatmul_ref(a["a"], a["b"], a["e_a"], a["e_b"], kind=a["kind"],
+                       width_a=a["width_a"], width_b=a["width_b"])
+    torch.cuda.synchronize()
+    _, _, D = k2.shapes(a["kind"], a["a"].shape, a["b"].shape)
+    tol = mcases.tolerance(D)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, want, rtol=tol["rtol"],
+                               atol=tol["atol"] * scale)
+
+
+@pytest.mark.parametrize("kind", ["nn", "nt", "tn"])
+@pytest.mark.parametrize("e", [-30.0, 30.0])
+def test_k2_extreme_exponents_match_plain(cuda, kind, e):
+    """K1's extreme exponents: both operands on a width-10 grid of step
+    2^e (one product), and a raw unit operand against one on that grid."""
+    g = 2.0 ** (e + 7)                  # operand scale: mantissas ~2^7
+    for wa, sa in ((10, g), (None, 1.0)):
+        a = mcases.qmm_case(kind, 96, 80, 200, width_a=wa, width_b=10,
+                            e_a=e, e_b=e, seed=10, device=cuda)
+        a["a"], a["b"] = a["a"] * sa, a["b"] * g
+        _k2_close_scaled(a, sa * g)
+
+
+@pytest.mark.parametrize("kind", ["nn", "nt", "tn"])
+@pytest.mark.parametrize("widths", [(None, 10), (None, None)],
+                         ids=["raw-q10", "raw-raw"])
+def test_k2_tiny_raw_operands_match_plain(cuda, kind, widths):
+    """A raw operand scaled by 2^-120: its lo parts would be f32
+    subnormals, which the tensor cores may flush; the kernel keeps them
+    2^12 larger, so the result holds the tolerance scaled to 2^-120."""
+    a = mcases.qmm_case(kind, 96, 80, 200, width_a=widths[0],
+                        width_b=widths[1], seed=11, device=cuda)
+    a["a"] = a["a"] * 2.0 ** -120
+    _k2_close_scaled(a, 2.0 ** -120)
 
 
 def test_fused_dot_grads_match_plain_on_the_card(cuda):
