@@ -12,12 +12,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    parallel) and print each kernel's registers and shared memory;
 3. hold each kernel against its plain PyTorch version on card tensors at
    the serving slices' shapes (K3: B=4 slots, W=400, K=8, G=4, hd=128 for
-   int8, int16, f32 and a sliding window; K4: C=128 with ragged n_valid
-   and p0 > 0; K5: B=4 slots over 64-row pages, 8 blocks, null pages, a
-   shared page, an empty slot, and splits that see no key; K6: C=64 at
-   p0=384 and a ragged chunk), hold K5 against K3 on the same data laid
-   out as a ring, check that two K5 calls give the same bits, and time
-   kernel (every launch of a call: K5's split pass and its merge),
+   int8, int16, f32 and sliding windows that leave splits with no key,
+   and hd=48 over a ragged ring; K4: C=128 with ragged n_valid and p0 > 0,
+   a window, and hd=48; K5: B=4 slots over 64-row pages, 8 blocks, null
+   pages, a shared page, an empty slot, splits that see no key, and
+   hd=40, 48, 72; K6: C=64 at p0=384 and a ragged chunk), hold K5 against
+   K3 on the same data laid out as a ring (hd=128 and 48), check that two
+   calls of K3, K4 and K5 give the same bits, and time kernel (every
+   launch of a call: the split pass and the merge of K3, K4 and K5),
    plain version and a library yardstick;
 4. smoke-size parity: the port's model on the card (kernels) against the
    same model on the CPU (plain versions), slot-major and paged (engine
@@ -35,14 +37,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 8. a whole-prompt run (``prefill_chunk=0``) on the same weights;
 9. K1 bit-exact and K2 within ``rtol=1e-5, atol=1e-5·sqrt(D)`` against
    their plain versions (maxout sites and shapes, every K2 layout and
-   width pairing, widths past TF32's 11 bits, ragged sizes, f16/bf16,
+   width pairing, widths past TF32's 11 bits up to 32, ragged sizes,
+   f16/bf16,
    NaN/±inf, exponents ±30, the llama3-8B ``w_up`` weight and chunk
    product), K2 bit-exact on an on-grid product and the same bits in two
    calls of a split-K plan, timed (K2: its split pass and its reduction)
    beside ``torch.fake_quantize_per_tensor_affine`` / eager
    ``fixed_round`` and ``torch.matmul``;
 10. training parity at smoke size: DFXP-10/12 maxout on the card (K1,
-    K2) against the CPU (plain versions), 10 steps;
+    K2) against the CPU (plain versions), 10 steps, and 5 steps computing
+    at width 31 (K2 at width 31);
 11. the training main path: ``repro_torch.examples.quickstart`` at the
     paper's full PI-MNIST width (the four Table-3 rows, DFXP calibrated,
     150 steps each, fused matmul and kernel quantize on); K1 and K2 must
@@ -53,7 +57,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     moved; then 20 conv-maxout steps at the conv defaults;
 12. one profiled full-width DFXP training step.
 
-The line before the last is the ``kernels`` JSON; the last line is
+The ``kernels`` JSON gives each attention kernel's device time per call
+inside the profiled serving step (``in_step_ms_per_call``) beside its
+isolated rows.  The line before the last is the ``kernels`` JSON; the
+last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest
 of the repository, it exits non-zero and prints no result.
 """
@@ -155,23 +162,32 @@ def phase_build():
         log(f"built {name} in {r['seconds']:.1f}s")
         for ln in info:
             log("  ", ln)
-    # dynamic shared memory a block asks for (attn_common.cuh smem_floats:
-    # a padded K tile, a V tile and the block's query rows, f32)
-    for name, rows in (("flash_decode", 4), ("flash_prefill", 32),
-                       ("flash_prefill_paged", 32)):
-        log(f"  {name}: {(32 * 129 + 32 * 128 + rows * 128) * 4} bytes of "
-            f"dynamic shared memory per block at hd=128")
-    # K5 (flash_decode_paged.cu smem_bytes): a ring of raw K and V tiles,
-    # 32 rows of hd values padded by 16 bytes (3 stages, f32: 2), the query
-    # rows and a vote and an index per tile of the block's page range
+    # dynamic shared memory a block asks for (K6, attn_common.cuh
+    # smem_floats: a padded K tile, a V tile and the block's query rows)
+    log(f"  flash_prefill_paged: {(32 * 129 + 32 * 128 + 32 * 128) * 4} "
+        f"bytes of dynamic shared memory per block at hd=128")
+    # K3 and K5 (decode_common.cuh smem_bytes): a ring of raw K and V
+    # tiles, 32 rows of hd values padded by 16 bytes (3 stages, f32: 2),
+    # the query rows and a vote and an index per tile of the block's range
+    k3_splits, tps = attn_ops.ring_splits(4, 8, 400)
     splits, pps = attn_ops.decode_splits(4, 8, 8)
     for tag, size in (("int8", 1), ("int16", 2), ("f32", 4)):
         stages = 2 if size == 4 else 3
-        n = stages * 2 * 32 * (128 * size + 16) + 4 * 128 * 4 \
-            + pps * (PAGE // 32) * 8 + 16
-        log(f"  flash_decode_paged {tag}: {n} bytes of dynamic shared "
-            f"memory per block at hd=128, G=4, P={PAGE} ({splits} splits of "
-            f"{pps} pages)")
+        ring = stages * 2 * 32 * (128 * size + 16) + 4 * 128 * 4 + 16
+        log(f"  flash_decode {tag}: {ring + tps * 8} bytes of dynamic "
+            f"shared memory per block at hd=128, G=4, W=400 ({k3_splits} "
+            f"splits of {tps} tiles)")
+        log(f"  flash_decode_paged {tag}: {ring + pps * (PAGE // 32) * 8} "
+            f"bytes of dynamic shared memory per block at hd=128, G=4, "
+            f"P={PAGE} ({splits} splits of {pps} pages)")
+    # K4 (flash_prefill.cu PGeo): a 2-stage ring of K and V tiles at f32's
+    # padded rows (528 bytes at hd=128), the block's query rows as TF32 hi
+    # and lo planes (132 floats a row), a list entry and a vote per tile
+    warps, p_splits = attn_ops.prefill_plan(1, 128, 400, 8, 4, 128)
+    n = 2 * 2 * 32 * 528 + 2 * 16 * warps * 132 * 4 + (13 + 4) * 8 + 16
+    log(f"  flash_prefill: {n} bytes of dynamic shared memory per block at "
+        f"hd=128, W=400, C=128 ({16 * warps}-row blocks, {p_splits} splits "
+        f"at B=1)")
     # K2 (qmatmul.cu Smem): 3 stages of a 64x32 A tile and a 32 x bn B tile,
     # rows padded by 4 (k contiguous) or 8 floats, and two lo planes of
     # each split operand; the main path's widths (raw x 10 bits; the wgrad
@@ -289,7 +305,7 @@ def phase_kernels():
             raise SystemExit(f"{name} disagrees with its plain version")
         return err
 
-    def timed(name, kernel, fn, plain, make, cost, library=None):
+    def timed(name, kernel, fn, plain, make, cost, library=None, info=None):
         # the library yardstick runs on the first case, as built by
         # ``library`` (its inputs made outside the timed call)
         copies = [make(seed) for seed in range(24)]
@@ -297,24 +313,45 @@ def phase_kernels():
         if library is not None:
             call = library(copies[0])
             lib = lambda a: call()
-        return time_row(name, kernel, fn, plain, copies, cost, lib)
+        return time_row(name, kernel, fn, plain, copies, cost, lib, info=info)
+
+    def same_bits(name, fn, a):
+        if not torch.equal(fn(a), fn(a)):
+            raise SystemExit(f"{name}: two calls differ")
 
     errs = {"flash_decode": [], "flash_prefill": []}
     decode_rows = {}
+    k3_splits = ops.ring_splits(B, K, W)
     for width, tag in ((8, "int8"), (16, "int16"), (None, "f32")):
-        for window in (None, 128):
+        for window in (None, 128, 40):
+            # window 40 at the slots' last position: the early splits of
+            # the ring see no key (m = -inf); slot 3 holds one key
             a = cases.decode_case(B, W, K, G, HD, width, window=window,
                                   fill=[W, 3 * W // 2, 37, 1], seed=1,
                                   device=dev)
             errs["flash_decode"].append(
-                check(f"K3 {tag} window={window}", k3, k3_plain, a))
+                check(f"K3 {tag} window={window} ({k3_splits[0]} splits of "
+                      f"{k3_splits[1]} tiles)", k3, k3_plain, a))
+            same_bits(f"K3 {tag} window={window}", k3, a)
+        a = cases.decode_case(3, 333, 2, G, 48, width, window=200,
+                              fill=[333, 400, 0], seed=2, device=dev)
+        errs["flash_decode"].append(check(
+            f"K3 {tag} hd=48 W=333 ({ops.ring_splits(3, 2, 333)[0]} "
+            f"splits)", k3, k3_plain, a))
+        if not torch.all(k3(a)[2] == 0):
+            raise SystemExit("K3: an empty slot is not 0")
+    log(f"K3 (B={B}, K={K}, W={W}): {k3_splits[0]} splits of "
+        f"{k3_splits[1]} tiles; two calls bit-identical (int8, int16, f32)")
     for width, tag in ((8, "int8"), (16, "int16"), (None, "f32")):
         decode_rows[tag] = timed(
-            f"K3 {tag} timing", "flash_decode_kernel", k3, k3_plain,
+            f"K3 {tag} timing ({k3_splits[0]} splits)",
+            "flash_decode_kernel", k3, k3_plain,
             lambda s, w=width: cases.decode_case(B, W, K, G, HD, w, seed=s,
                                                  device=dev),
-            cases.decode_cost, sdpa_decode if width is None else None)
+            cases.decode_cost, sdpa_decode if width is None else None,
+            info={"splits": k3_splits[0], "tiles_per_split": k3_splits[1]})
     prefill_rows = {}
+    plan = ops.prefill_plan(1, C, W, K, G, HD)
     for width, tag in ((8, "int8"), (16, "int16"), (None, "f32")):
         a = cases.prefill_case(2, C, W, K, G, HD, width, p0=[256, 0],
                                n_valid=[100, C], seed=3, device=dev)
@@ -323,15 +360,26 @@ def phase_kernels():
         a = cases.prefill_case(1, C, W, K, G, HD, width, p0=[256],
                                n_valid=[C], window=128, seed=4, device=dev)
         errs["flash_prefill"].append(
-            check(f"K4 {tag} window=128", k4, k4_plain, a))
+            check(f"K4 {tag} window=128 (plan {plan})", k4, k4_plain, a))
+        same_bits(f"K4 {tag} window=128", k4, a)
+        a = cases.prefill_case(2, 40, 75, 2, 3, 48, width, p0=[60, 0],
+                               n_valid=[40, 23], seed=5, device=dev)
+        errs["flash_prefill"].append(
+            check(f"K4 {tag} hd=48 C=40 W=75", k4, k4_plain, a))
+    log(f"K4 (B=1, C={C}, W={W}, hd={HD}): plan (warps, splits) {plan}; "
+        f"two calls bit-identical (int8, int16, f32)")
     for width, tag in ((8, "int8"), (16, "int16"), (None, "f32")):
+        make = (lambda s, w=width: cases.prefill_case(
+            1, C, W, K, G, HD, w, p0=[256], n_valid=[C], seed=s, device=dev))
+        bounds = cases.prefill_bounds(make(0))
         prefill_rows[tag] = timed(
             f"K4 {tag} timing (B=1, C=128, p0=256, W=400)",
-            "flash_prefill_kernel", k4, k4_plain,
-            lambda s, w=width: cases.prefill_case(1, C, W, K, G, HD, w,
-                                                  p0=[256], n_valid=[C],
-                                                  seed=s, device=dev),
-            cases.prefill_cost, sdpa_prefill if width is None else None)
+            "flash_prefill_kernel", k4, k4_plain, make,
+            cases.prefill_route_cost, sdpa_prefill if width is None else None,
+            info={"plan": dict(zip(("warps", "splits"), plan)),
+                  "products": bounds["products"],
+                  "f32_bound_ms": bounds["f32_bound_ms"],
+                  "f32_bound_by": bounds["f32_bound_by"]})
     # K5 / K6: the paged run's shapes (4 slots over 8 blocks of 64 rows;
     # one 64-row chunk against a 384-row history)
     errs["flash_decode_paged"], errs["flash_prefill_paged"] = [], []
@@ -350,10 +398,11 @@ def phase_kernels():
         errs["flash_prefill_paged"].append(
             check(f"K6 {tag} B=2 p0=[384,64] nv=[64,37]", k6, k6_plain, a))
     # K5 against K3 on the same data: the pages gathered into a ring,
-    # one exponent per slot
+    # one exponent per slot; at hd = 128 and at hd = 48, a head dim that
+    # is not a multiple of 32 (both on their generic-hd path)
     k5_vs_k3 = 0.0
-    for width in (8, 16, None):
-        a = cases.decode_paged_case(B, PAGE, NBLK, K, G, HD, width,
+    for width, hd in ((8, HD), (16, HD), (None, HD), (8, 48), (None, 48)):
+        a = cases.decode_paged_case(B, PAGE, NBLK, K, G, hd, width,
                                     fill=[NBLK * PAGE, 257, 96, 0],
                                     share=False, seed=9, device=dev)
         slot_e = None
@@ -367,16 +416,17 @@ def phase_kernels():
                 e[0] = 0.0
                 a[name] = e
         idx = a["bt"].long()
-        ring = dict(a, k=a["k"][idx].reshape(B, NBLK * PAGE, K, HD)
+        ring = dict(a, k=a["k"][idx].reshape(B, NBLK * PAGE, K, hd)
                     .contiguous(),
-                    v=a["v"][idx].reshape(B, NBLK * PAGE, K, HD)
+                    v=a["v"][idx].reshape(B, NBLK * PAGE, K, hd)
                     .contiguous(), k_exp=slot_e, v_exp=slot_e)
         d = float((k5(a) - k3(ring)).abs().max())
         k5_vs_k3 = max(k5_vs_k3, d)
         if d > TOL:
-            raise SystemExit(f"K5 and K3 disagree on the same data: {d}")
-    log(f"K5 vs K3 on the same data (int8, int16, f32): max_abs_diff "
-        f"{k5_vs_k3:.3e}")
+            raise SystemExit(f"K5 and K3 disagree on the same data at "
+                             f"hd={hd}: {d}")
+    log(f"K5 vs K3 on the same data (int8, int16, f32 at hd=128; int8, "
+        f"f32 at hd=48): max_abs_diff {k5_vs_k3:.3e}")
     # K5 splits the pages and merges the splits in a fixed order: the same
     # bits from two calls; and splits that see no key (one slot and two kv
     # heads give a split per page; a window leaves the early splits empty)
@@ -395,6 +445,12 @@ def phase_kernels():
         errs["flash_decode_paged"].append(check(
             f"K5 {tag} B=2 K=2 ({ops.decode_splits(2, 2, NBLK)[0]} splits, "
             f"2 live pages)", k5, k5_plain, a))
+    for hd in (40, 48, 72):
+        a = cases.decode_paged_case(B, PAGE, NBLK, K, G, hd, 8,
+                                    fill=[NBLK * PAGE, 257, 96, 0],
+                                    window=100, seed=15, device=dev)
+        errs["flash_decode_paged"].append(
+            check(f"K5 int8 hd={hd} window=100", k5, k5_plain, a))
     log(f"K5 (B={B}, K={K}, nblocks={NBLK}): {splits[0]} splits of "
         f"{splits[1]} pages; two calls bit-identical (int8, int16, f32)")
     decode_paged_rows, prefill_paged_rows = {}, {}
@@ -947,6 +1003,13 @@ def phase_train_kernels():
             k2_check(f"{kind} widths=({wa},{wb}) 100x130x70",
                      mc.qmm_case(kind, 100, 130, 70, width_a=wa, width_b=wb,
                                  e_a=e[0], e_b=e[1], seed=3, device=dev))
+        # widths past 24 (the paper's Fig. 3 computes at 31): one operand
+        # at the step 2^(3 - w), the other clipped (step 2^-28)
+        for w in (25, 31, 32):
+            k2_check(f"{kind} widths=({w},{w}) e=({3 - w},-28) 100x130x70",
+                     mc.qmm_case(kind, 100, 130, 70, width_a=w, width_b=w,
+                                 e_a=3.0 - w, e_b=-28.0, seed=3,
+                                 device=dev))
     maxout = {"fwd nn [64,784]x[784,1200]": ("nn", 64, 1200, 784),
               "dgrad nt [64,1200]x[240,1200]^T": ("nt", 64, 240, 1200),
               "wgrad tn [64,784]^Tx[64,1200]": ("tn", 784, 1200, 64),
@@ -1048,40 +1111,49 @@ def site_launches(cfg, pol, B: int, backward: bool):
 
 
 def phase_train_parity():
-    """Smoke-size DFXP-10/12 maxout, 10 steps, on the card (K1 from 4096
-    elements, K2) against the CPU (plain versions), from the same weights
-    and calibrated exponents."""
+    """Smoke-size DFXP maxout on the card (K1 from 4096 elements, K2)
+    against the CPU (plain versions), from the same weights and
+    calibrated exponents: 10 steps of DFXP-10/12, and 5 steps computing
+    at width 31 (the paper's Fig. 3), whose K2 products run at width 31."""
+    import dataclasses
     from repro_torch.core.quant import enable_pallas_quantize
     from repro_torch.examples import quickstart as qs
     from repro_torch.models import maxout as MX
     cfg = MX.MaxoutConfig(hidden=(48,), pieces=3)
-    pol = qs.dfxp_policy(fused_matmul=True)
-    init = qs.calibrated_exps(cfg, pol, "cpu")
-    out = {}
-    enable_pallas_quantize(True, min_size=1 << 12)
-    try:
-        for dev in ("cuda", "cpu"):
-            before = train_launches()
-            r = qs.train(cfg, pol, dev, steps=10,
-                         init_exp={k: v.to(dev) for k, v in init.items()})
-            exps = {k: float(v) for k, v in r["state"].scale.exps.items()}
-            after = train_launches()
-            out[dev] = (r["losses"], exps,
-                        {k: after[k] - before[k] for k in after})
-    finally:
-        enable_pallas_quantize(False)
-    lc, lp = np.array(out["cuda"][0]), np.array(out["cpu"][0])
-    rel = np.abs(lc / lp - 1)
-    log(f"train parity card vs cpu (10 DFXP steps, hidden=(48,) x 3): max "
-        f"loss rel diff {rel.max():.3e}; exponents equal "
-        f"{out['cuda'][1] == out['cpu'][1]}; card launches {out['cuda'][2]}")
-    if not (np.isfinite(lc).all() and rel.max() <= 1e-4
-            and out["cuda"][1] == out["cpu"][1]
-            and out["cuda"][2]["dfxp_quantize"] > 0
-            and out["cuda"][2]["qmatmul"] > 0):
-        raise SystemExit("training on the card disagrees with the CPU")
-    return {"max_loss_rel_diff": float(rel.max()),
-            "card_launches": out["cuda"][2]}
+    res = {}
+    for tag, pol, steps in (
+            ("dfxp 10/12", qs.dfxp_policy(fused_matmul=True), 10),
+            ("dfxp 31/12", dataclasses.replace(
+                qs.dfxp_policy(fused_matmul=True), comp_width=31), 5)):
+        init = qs.calibrated_exps(cfg, pol, "cpu")
+        out = {}
+        enable_pallas_quantize(True, min_size=1 << 12)
+        try:
+            for dev in ("cuda", "cpu"):
+                before = train_launches()
+                r = qs.train(cfg, pol, dev, steps=steps,
+                             init_exp={k: v.to(dev) for k, v in init.items()})
+                exps = {k: float(v) for k, v in r["state"].scale.exps.items()}
+                after = train_launches()
+                out[dev] = (r["losses"], exps,
+                            {k: after[k] - before[k] for k in after})
+        finally:
+            enable_pallas_quantize(False)
+        lc, lp = np.array(out["cuda"][0]), np.array(out["cpu"][0])
+        rel = np.abs(lc / lp - 1)
+        log(f"train parity card vs cpu ({steps} {tag} steps, hidden=(48,) "
+            f"x 3): max loss rel diff {rel.max():.3e}; exponents equal "
+            f"{out['cuda'][1] == out['cpu'][1]}; card launches "
+            f"{out['cuda'][2]}")
+        if not (np.isfinite(lc).all() and rel.max() <= 1e-4
+                and out["cuda"][1] == out["cpu"][1]
+                and out["cuda"][2]["dfxp_quantize"] > 0
+                and out["cuda"][2]["qmatmul"] > 0):
+            raise SystemExit(f"training ({tag}) on the card disagrees with "
+                             f"the CPU")
+        res[tag] = {"max_loss_rel_diff": float(rel.max()),
+                    "card_launches": out["cuda"][2]}
+    return res
 
 
 def _on_grid(state, width: int) -> bool:
@@ -1292,8 +1364,23 @@ def main():
                             "gathered first, outside the timed call)",
             "cases": k["rows"],
             "whole_prompt_launches": wlaunches[name]})
+        for key in ("f32_bound_ms", "plan", "splits"):
+            if key in main_row:
+                rows[-1][key] = main_row[key]
     rows[2]["k5_vs_k3_max_abs_diff"] = \
         kern["flash_decode_paged"]["k5_vs_k3_max_abs_diff"]
+    # each attention kernel's device time per call inside the profiled
+    # serving step (one call per layer), beside its isolated rows
+    n_layers = eng.cfg.num_layers
+    for row, step, label in (
+            (rows[0], "decode_step", "flash_decode (K3)"),
+            (rows[1], "prefill_chunk", "flash_prefill (K4)"),
+            (rows[2], "paged_decode_step", "flash_decode_paged (K5)"),
+            (rows[3], "paged_prefill_chunk", "flash_prefill_paged (K6)")):
+        ms = prof[step]["device_ms_by_kind"].get(label)
+        row["in_step_ms_per_call"] = None if ms is None else ms / n_layers
+        log(f"{row['name']}: in the {step} {row['in_step_ms_per_call']} ms "
+            f"per call; isolated {row['ms']} (inputs past the L2)")
     for name, src, replaces, main_case, note in (
             ("dfxp_quantize", "src/repro_torch/kernels/dfxp/csrc/"
              "dfxp_quantize.cu", "src/repro/kernels/dfxp/dfxp_kernel.py:45",

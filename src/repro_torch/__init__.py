@@ -13,12 +13,13 @@ hand-written kernel or raises.
 Float32 products run in full float32: TF32 is switched off for both
 matmuls and cuDNN here, once, so that every product matches the
 reference's f32 accumulation contract to f32 rounding rather than to
-TF32's ten mantissa bits.  The quantized matmul kernel (K2) reaches
-float32 accuracy on the TF32 tensor cores instead: an operand rounded at
-12 bits or fewer is exact in TF32, and any other operand is split into
-two TF32 parts, ``hi = tf32(x)`` and ``lo = tf32(x - hi)``, whose cross
-products put each product term within about 2^-22·|a·b| of its float32
-value (``kernels/qmatmul/ops.py``).
+TF32's ten mantissa bits.  The quantized matmul kernel (K2) and the
+flash-prefill kernel (K4) reach float32 accuracy on the TF32 tensor cores
+instead: an operand exact in TF32 (rounded at 12 bits or fewer, or an
+int8 mantissa) goes whole, and any other operand is split into two TF32
+parts, ``hi = tf32(x)`` and ``lo = tf32(x - hi)``, whose cross products
+put each product term within about 2^-22·|a·b| of its float32 value
+(``kernels/qmatmul/ops.py``, ``kernels/attn/csrc/flash_prefill.cu``).
 """
 import torch
 

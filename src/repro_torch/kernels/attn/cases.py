@@ -218,6 +218,36 @@ def prefill_cost(a: dict):
     return nbytes, flops
 
 
+def prefill_products(width: Optional[int]):
+    """TF32 products per multiply-add of K4's route, (history, self): q is
+    split, so q·k takes 2 against int8 mantissas (exact in TF32) and 3
+    against anything split; p·v the same against V."""
+    return (2 if width is not None and width <= 8 else 3), 3
+
+
+def prefill_route_cost(a: dict):
+    """(bytes, TF32 flops, rate) of one ``flash_prefill`` call on K4's
+    tensor-core route: each unmasked (query, key) pair's 4·hd flops times
+    the products its operands take (:func:`prefill_products`)."""
+    B, C, K, G, hd = a["q"].shape
+    vh, vs = prefill_valid(a)
+    nbytes, _ = prefill_cost(a)
+    ph, ps = prefill_products(a["width"])
+    flops = 4 * hd * K * G * (ph * int(vh.sum()) + ps * int(vs.sum()))
+    return nbytes, flops, H100_TF32_FLOPS
+
+
+def prefill_bounds(a: dict) -> dict:
+    """The route's bound and the float32 (SIMT) bound of one K4 call, ms,
+    as :func:`repro_torch.kernels.qmatmul.cases.qmm_bounds` gives K2's."""
+    nbytes, flops, rate = prefill_route_cost(a)
+    tc, tc_by = bound_ms(nbytes, flops, rate)
+    f32, f32_by = bound_ms(*prefill_cost(a))
+    return {"products": prefill_products(a["width"]), "route_flops": flops,
+            "bound_ms": tc, "bound_by": tc_by, "f32_bound_ms": f32,
+            "f32_bound_by": f32_by}
+
+
 def _visible_page_bytes(a: dict, seen) -> int:
     """K/V bytes (mantissas and per-page steps) of the distinct pages
     holding at least one visible row; ``seen``: bool [B, nblocks·P]."""

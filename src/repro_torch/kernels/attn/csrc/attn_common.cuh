@@ -1,7 +1,10 @@
-// Shared pieces of the flash-decode (K3, K5 paged) and flash-prefill (K4,
-// K6 paged) kernels.
+// Shared pieces of the attention kernels: the constants and warp
+// reductions all of them use, and the first version's staging and online
+// softmax (stage_tile, stage_page_tile, RowState, tile_update, smem_floats),
+// which only K6 (paged flash-prefill) still runs: K3 and K5 run
+// decode_common.cuh's split decode, K4 its own tensor-core kernel.
 //
-// All four kernels walk the keys of one (slot, kv head) in tiles of 32,
+// The first version walks the keys of one (slot, kv head) in tiles of 32,
 // one key per lane.  A tile is staged into shared memory by the whole block,
 // dequantized on the way in (value = mantissa * step, step = 2**e of the
 // slot, or 1 for a float pool).  Each warp then owns a few query rows

@@ -13,8 +13,8 @@ would cost a device sync per call): they must name pages of the arena,
 as the engine's allocator guarantees.
 
 ``LAUNCHES`` counts calls per wrapper — incremented where a call launches
-its kernel (K5: and, after a split over the pages, the kernel that merges
-the splits) and nowhere else — so a run can show that its main path went
+its kernel (K3, K4, K5: and, after a split, the kernel that merges the
+splits) and nowhere else — so a run can show that its main path went
 through the kernels.
 """
 from __future__ import annotations
@@ -72,8 +72,17 @@ def _steps(n: int, k_exp, v_exp, width: Optional[int], device) -> Tensor:
     return torch.stack([exact_pow2(ke), exact_pow2(ve)], dim=-1).contiguous()
 
 
-def _ptr(t: Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: Optional[Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _workspace(splits: int, rows: int, hd: int, device) -> Optional[Tensor]:
+    """The f32 partials ``(acc, m, l)`` of ``splits`` splits of ``rows``
+    query rows, merged by a kernel's second launch; None for one split."""
+    if splits == 1:
+        return None
+    return torch.empty(splits * rows * (hd + 2), dtype=torch.float32,
+                       device=device)
 
 
 def _stream(device) -> ctypes.c_void_p:
@@ -91,7 +100,9 @@ def flash_decode(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, q_pos: Tensor,
     (``width=None``) · ``pos``: int32 [B, W] ring positions (-1 = empty)
     · ``q_pos``: int32 [B] · ``k_exp``/``v_exp``: f32 [B] log2-steps.
     Returns f32 [B, K, G, hd]; numerics are
-    :func:`repro_torch.kernels.attn.ref.decode_attention_ref`.
+    :func:`repro_torch.kernels.attn.ref.decode_attention_ref` (on the card
+    split over the ring as :func:`ring_splits` says, and merged as
+    :func:`repro_torch.kernels.attn.ref.decode_split_ref` does).
     """
     if q.device.type == "cpu":
         return R.decode_attention_ref(q, k, v, pos, q_pos, k_exp=k_exp,
@@ -111,15 +122,32 @@ def flash_decode(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, q_pos: Tensor,
         raise ValueError(f"flash_decode takes G <= 32 and hd <= 256, got "
                          f"G={G}, hd={hd}")
     steps = _steps(B, k_exp, v_exp, width, dev)
+    out = launch_decode(q, k, v, pos, q_pos, steps, width=width, scale=scale,
+                        window=window, causal=causal,
+                        plan=ring_splits(B, K, W))
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def launch_decode(q, k, v, pos, q_pos, steps, *, width, scale, window,
+                  causal, plan) -> Tensor:
+    """One K3 call under ``plan`` = ``(splits, tps)`` (:func:`ring_splits`'
+    form) on checked card tensors; ``steps`` [B, 2].  Counts nothing: the
+    wrapper does, and the plan sweep (``tools/attn_plan_sweep.py``) calls
+    this directly."""
+    B, K, G, hd = q.shape
+    W = k.shape[1]
+    splits, tps = plan
     out = torch.empty_like(q)
+    ws = _workspace(splits, B * K * G, hd, q.device)
     fn = build.library("flash_decode").flash_decode_launch
     rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(pos), _ptr(q_pos), _ptr(steps),
-            _ptr(out), B, W, K, G, hd, _DTYPE_CODE[sdt], float(scale),
-            int(window or 0), int(causal), _stream(dev))
+            _ptr(out), _ptr(ws), B, W, K, G, hd,
+            _DTYPE_CODE[_storage_dtype(width)], float(scale),
+            int(window or 0), int(causal), splits, tps, _stream(q.device))
     if rc != 0:
-        raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
-                           f"{rc}")
-    LAUNCHES["flash_decode"] += 1
+        raise RuntimeError(f"flash_decode kernel launch failed (plan "
+                           f"{plan}): CUDA error {rc}")
     return out
 
 
@@ -135,7 +163,9 @@ def flash_prefill(q: Tensor, k_new: Tensor, v_new: Tensor, k: Tensor,
     K/V · ``k``/``v``: [B, W, K, hd] pool history (int8/int16 mantissas
     or f32), masked to ``0 <= pos < p0`` · ``n_valid``: int32 [B] valid
     chunk rows.  Returns f32 [B, C, K, G, hd]; numerics are
-    :func:`repro_torch.kernels.attn.ref.prefill_attention_ref`.
+    :func:`repro_torch.kernels.attn.ref.prefill_attention_ref` (on the card
+    on TF32 tensor cores at f32 accuracy, split as :func:`prefill_plan`
+    says: :func:`repro_torch.kernels.attn.ref.prefill_tf32_emulated`).
     """
     if q.device.type == "cpu":
         return R.prefill_attention_ref(q, k, v, pos, k_new, v_new, p0,
@@ -155,19 +185,52 @@ def flash_prefill(q: Tensor, k_new: Tensor, v_new: Tensor, k: Tensor,
     _check("pos", pos, (B, W), torch.int32, dev)
     _check("p0", p0, (B,), torch.int32, dev)
     _check("n_valid", n_valid, (B,), torch.int32, dev)
-    if hd > 256:
-        raise ValueError(f"flash_prefill takes hd <= 256, got hd={hd}")
+    if hd > 256 or B > 65535 or K > 65535:
+        raise ValueError(f"flash_prefill takes hd <= 256 and B, K <= 65535, "
+                         f"got hd={hd}, B={B}, K={K}")
     steps = _steps(B, k_exp, v_exp, width, dev)
+    out = launch_prefill(q, k_new, v_new, k, v, pos, p0, n_valid, steps,
+                         width=width, scale=scale, window=window,
+                         causal=causal,
+                         plan=prefill_plan(B, C, W, K, G, hd))
+    LAUNCHES["flash_prefill"] += 1
+    return out
+
+
+def prefill_plan(B: int, C: int, W: int, K: int, G: int, hd: int):
+    """``(warps, splits)`` of a K4 call: blocks of ``16·warps`` query rows
+    (8 warps up to hd = 128, else 2, for shared memory), each block's list
+    of the ring's and the chunk's 32-key tiles that its rows see cut into
+    ``splits`` even parts, as many as fit in one wave of :data:`SMS`
+    blocks (a block takes most of an SM's shared memory, so a second wave
+    would run after the first), at most one per tile: S = 4, 128 blocks,
+    at B=1, C=128, W=400, K=8, G=4, hd=128."""
+    warps = 8 if hd <= 128 else 2
+    row_tiles = -(-C * G // (16 * warps))
+    n_list = -(-W // TILE) + -(-C // TILE)
+    return warps, max(1, min(n_list, SMS // (row_tiles * K * B),
+                             65535 // B))
+
+
+def launch_prefill(q, k_new, v_new, k, v, pos, p0, n_valid, steps, *,
+                   width, scale, window, causal, plan) -> Tensor:
+    """One K4 call under ``plan`` (:func:`prefill_plan`'s form) on checked
+    card tensors; ``steps`` [B, 2].  Counts nothing: the wrapper does, and
+    the plan sweep (``tools/attn_plan_sweep.py``) calls this directly."""
+    B, C, K, G, hd = q.shape
+    W = k.shape[1]
+    warps, splits = plan
     out = torch.empty_like(q)
+    ws = _workspace(splits, B * C * K * G, hd, q.device)
     fn = build.library("flash_prefill").flash_prefill_launch
     rc = fn(_ptr(q), _ptr(k_new), _ptr(v_new), _ptr(k), _ptr(v), _ptr(pos),
-            _ptr(p0), _ptr(n_valid), _ptr(steps), _ptr(out), B, C, W, K, G,
-            hd, _DTYPE_CODE[sdt], float(scale), int(window or 0),
-            int(causal), _stream(dev))
+            _ptr(p0), _ptr(n_valid), _ptr(steps), _ptr(out), _ptr(ws), B, C,
+            W, K, G, hd, _DTYPE_CODE[_storage_dtype(width)], float(scale),
+            int(window or 0), int(causal), warps, splits,
+            _stream(q.device))
     if rc != 0:
-        raise RuntimeError(f"flash_prefill kernel launch failed: CUDA error "
-                           f"{rc}")
-    LAUNCHES["flash_prefill"] += 1
+        raise RuntimeError(f"flash_prefill kernel launch failed (plan "
+                           f"{plan}): CUDA error {rc}")
     return out
 
 
@@ -188,6 +251,15 @@ def _check_paged(k: Tensor, v: Tensor, bt: Tensor, pos: Tensor, B: int,
     if hd > 256:
         raise ValueError(f"the paged kernels take hd <= 256, got hd={hd}")
     return n_pages, P, nblocks
+
+
+def ring_splits(B: int, K: int, W: int):
+    """``(splits, tps)`` of a K3 call: the ring's ``ceil(W / 32)`` tiles
+    cut into ``splits`` contiguous ranges of ``tps`` tiles (the last may be
+    shorter), so that ``K·B·splits`` blocks fill a wave of :data:`SMS`
+    where there are tiles enough (S = 5 of 3 tiles, 160 blocks, at B=4,
+    K=8, W=400)."""
+    return decode_splits(B, K, -(-W // TILE))
 
 
 def decode_splits(B: int, K: int, nblocks: int):
@@ -212,7 +284,7 @@ def flash_decode_paged(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
     block tables (0 = null page; every entry names a page of the arena)
     · ``pos``: int32 [B, nblocks·P] logical positions (-1 = empty) ·
     ``q_pos``: int32 [B] · ``k_exp``/``v_exp``: f32 [n_pages] per-PAGE
-    log2-steps.  On the card ``P`` and ``hd`` must be multiples of 32.
+    log2-steps.  On the card ``P`` must be a multiple of 32.
     Returns f32 [B, K, G, hd]; numerics are
     :func:`repro_torch.kernels.attn.ref.paged_decode_attention_ref` (on the
     card split over the pages as :func:`decode_splits` says, and merged as
@@ -230,19 +302,16 @@ def flash_decode_paged(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
     _check("q", q, (B, K, G, hd), torch.float32, dev)
     _check("q_pos", q_pos, (B,), torch.int32, dev)
     n_pages, P, nblocks = _check_paged(k, v, bt, pos, B, K, hd, width, dev)
-    if G > 32 or hd % 32:
-        raise ValueError(f"flash_decode_paged takes G <= 32 and hd a "
-                         f"multiple of 32, got G={G}, hd={hd}")
+    if G > 32:
+        raise ValueError(f"flash_decode_paged takes G <= 32, got G={G}")
     steps = _steps(n_pages, k_exp, v_exp, width, dev)
     _check("steps", steps, (n_pages, 2), torch.float32, dev)
     out = torch.empty_like(q)
     splits, pps = decode_splits(B, K, nblocks)
-    ws = torch.empty(splits * B * K * G * (hd + 2), dtype=torch.float32,
-                     device=dev) if splits > 1 else None
+    ws = _workspace(splits, B * K * G, hd, dev)
     fn = build.library("flash_decode_paged").flash_decode_paged_launch
     rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bt), _ptr(pos), _ptr(q_pos),
-            _ptr(steps), _ptr(out),
-            ctypes.c_void_p(None if ws is None else ws.data_ptr()), B,
+            _ptr(steps), _ptr(out), _ptr(ws), B,
             nblocks, P, K, G, hd, _DTYPE_CODE[_storage_dtype(width)],
             float(scale), int(window or 0), int(causal), splits, pps,
             _stream(dev))

@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quant import exact_pow2
+from repro_torch.kernels.qmatmul.ref import LO_SCALE, split_tf32
 
 Tensor = torch.Tensor
 
@@ -162,6 +163,30 @@ def paged_decode_attention_ref(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
                   window=window, causal=causal)
 
 
+def _split_partials(qf: Tensor, kf: Tensor, vf: Tensor, valid: Tensor,
+                    ranges, scale: float):
+    """The flash partials ``(m, l, acc)`` of single-query attention over
+    each ``(w0, w1)`` key range: ``m = -inf`` where a range sees no key."""
+    parts = []
+    for w0, w1 in ranges:
+        v4 = valid[:, None, None, w0:w1]
+        s = torch.einsum("bkgh,bwkh->bkgw", qf, kf[:, w0:w1]) * scale
+        s = torch.where(v4, s, _NEG)
+        m = torch.where(v4.any(dim=-1), torch.amax(s, dim=-1), -torch.inf)
+        p = torch.where(v4, torch.exp(s - m[..., None]), 0.0)
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("bkgw,bwkh->bkgh", p, vf[:, w0:w1])))
+    return parts
+
+
+def _cut(n: int, splits: int, unit: int, end: int):
+    """``n`` units of ``unit`` keys cut into contiguous ranges of
+    ``ceil(n / splits)`` units, as key ranges ``(w0, w1)`` clipped at
+    ``end``."""
+    per = -(-n // splits)
+    return [(u * unit, min((u + per) * unit, end)) for u in range(0, n, per)]
+
+
 def paged_decode_split_ref(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
                            pos: Tensor, q_pos: Tensor, *, splits: int,
                            k_exp=None, v_exp=None,
@@ -175,21 +200,29 @@ def paged_decode_split_ref(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
     :func:`paged_decode_attention_ref` up to f32 summation order."""
     kf = gather_pages(k, k_exp, bt, width)
     vf = gather_pages(v, v_exp, bt, width)
-    qf = q.to(torch.float32)
     nblocks, P = bt.shape[1], k.shape[1]
-    pps = -(-nblocks // splits)
     valid = valid_mask(pos, q_pos, window=window, causal=causal)
-    parts = []
-    for b0 in range(0, nblocks, pps):
-        r = slice(b0 * P, min(b0 + pps, nblocks) * P)
-        v4 = valid[:, None, None, r]
-        s = torch.einsum("bkgh,bwkh->bkgw", qf, kf[:, r]) * scale
-        s = torch.where(v4, s, _NEG)
-        m = torch.where(v4.any(dim=-1), torch.amax(s, dim=-1), -torch.inf)
-        p = torch.where(v4, torch.exp(s - m[..., None]), 0.0)
-        parts.append((m, p.sum(dim=-1),
-                      torch.einsum("bkgw,bwkh->bkgh", p, vf[:, r])))
-    return merge_splits(parts)
+    return merge_splits(_split_partials(
+        q.to(torch.float32), kf, vf, valid,
+        _cut(nblocks, splits, P, nblocks * P), scale))
+
+
+def decode_split_ref(q: Tensor, k: Tensor, v: Tensor, pos: Tensor,
+                     q_pos: Tensor, *, splits: int, k_exp=None, v_exp=None,
+                     width: Optional[int] = None, scale: float,
+                     window: Optional[int] = None,
+                     causal: bool = True) -> Tensor:
+    """K3's split over the ring on the CPU (used by tests only): the
+    ring's ``ceil(W / 32)`` tiles cut into contiguous ranges of
+    ``ceil(n_tiles / splits)`` tiles (the last clipped at W), the flash
+    partial of each range, then :func:`merge_splits`.  Equal to
+    :func:`decode_attention_ref` up to f32 summation order."""
+    kf, vf = _wide(k, v, k_exp, v_exp, width)
+    W = k.shape[1]
+    valid = valid_mask(pos, q_pos, window=window, causal=causal)
+    return merge_splits(_split_partials(
+        q.to(torch.float32), kf, vf, valid, _cut(-(-W // 32), splits, 32, W),
+        scale))
 
 
 def merge_splits(parts) -> Tensor:
@@ -255,3 +288,99 @@ def prefill_attention_ref(q: Tensor, k: Tensor, v: Tensor, pos: Tensor,
                         k_new.to(torch.float32), v_new.to(torch.float32),
                         p0, n_valid, scale=scale, window=window,
                         causal=causal)
+
+
+def _tf32_parts(x: Tensor, exact: bool):
+    """``(hi, lo)`` TF32 parts of ``x`` (lo times 2^12), or ``(x, None)``
+    for an operand that is exact in TF32."""
+    return (x, None) if exact else split_tf32(x)
+
+
+def _tf32_einsum(eq: str, a, b) -> Tensor:
+    """``hi·hi + (lo·hi + hi·lo)·2^-12`` over the parts that exist: the
+    card's products, each an f32 einsum of TF32 values."""
+    (ah, al), (bh, bl) = a, b
+    out = torch.einsum(eq, ah, bh)
+    lo = None
+    if al is not None:
+        lo = torch.einsum(eq, al, bh)
+    if bl is not None:
+        t = torch.einsum(eq, ah, bl)
+        lo = t if lo is None else lo + t
+    return out if lo is None else out + lo / LO_SCALE
+
+
+def prefill_tf32_emulated(q: Tensor, k: Tensor, v: Tensor, pos: Tensor,
+                          k_new: Tensor, v_new: Tensor, p0: Tensor,
+                          n_valid: Tensor, *, k_exp=None, v_exp=None,
+                          width: Optional[int] = None, scale: float,
+                          window: Optional[int] = None, causal: bool = True,
+                          splits: int = 1) -> Tensor:
+    """K4's route on the CPU (used by tests only): q·k and p·v on TF32
+    parts — q, p, int16 mantissas and every f32 K/V split into hi + lo,
+    int8 mantissas whole, the slot's steps applied to the score and to
+    the product — and the list of the ring's ``ceil(W / 32)`` tiles then
+    the chunk's ``ceil(C / 32)``, kept where some (row, key) pair of the
+    tile is unmasked, cut into ``splits`` even parts as a kernel block
+    cuts its own list, each a flash partial, merged by
+    :func:`merge_splits`.  The masks are :func:`chunk_attend`'s."""
+    B, C, K, G, hd = q.shape
+    W = k.shape[1]
+    exact = width is not None and width <= 8
+    one = torch.ones(B, dtype=torch.float32, device=q.device)
+    ks = one if width is None else exact_pow2(k_exp)
+    vs = one if width is None else exact_pow2(v_exp)
+    qp = _tf32_parts(q.to(torch.float32), False)
+    kh = _tf32_parts(k.to(torch.float32), exact)
+    vh = _tf32_parts(v.to(torch.float32), exact)
+    kn = _tf32_parts(k_new.to(torch.float32), False)
+    vn = _tf32_parts(v_new.to(torch.float32), False)
+    sh = _tf32_einsum("bckgh,bwkh->bkgcw", qp, kh) \
+        * (ks * scale)[:, None, None, None, None]
+    ss = _tf32_einsum("bckgh,bjkh->bkgcj", qp, kn) * scale
+    s = torch.cat([sh, ss], dim=-1)                          # [B,K,G,C,W+C]
+
+    cpos = torch.arange(C, dtype=torch.int32, device=q.device)
+    qpos = p0[:, None] + cpos[None, :]
+    row_ok = cpos[None, :] < n_valid[:, None]
+    kpos = torch.cat([pos, qpos], dim=-1)                    # [B, W+C]
+    kok = torch.cat([(pos >= 0) & (pos < p0[:, None]), row_ok], dim=-1)
+    d = qpos[:, :, None] - kpos[:, None, :]
+    valid = row_ok[:, :, None] & kok[:, None, :]
+    if causal:
+        valid = valid & (d >= 0)
+    if window:
+        valid = valid & (d < window)
+    valid = valid[:, None, None]                              # [B,1,1,C,W+C]
+
+    nh, ns = -(-W // 32), -(-C // 32)
+    cols = [(t * 32, min(t * 32 + 32, W)) for t in range(nh)] \
+        + [(W + j * 32, W + min(j * 32 + 32, C)) for j in range(ns)]
+    cols = [(a, b) for a, b in cols if bool(valid[..., a:b].any())]
+    parts = []
+    for i in range(splits):
+        part = cols[len(cols) * i // splits:len(cols) * (i + 1) // splits]
+        if not part:
+            continue
+        sel = torch.cat([torch.arange(a, b, device=q.device)
+                         for a, b in part])
+        v4 = valid[..., sel]
+        x = torch.where(v4, s[..., sel], _NEG)
+        m = torch.where(v4.any(dim=-1), torch.amax(x, dim=-1), -torch.inf)
+        p = torch.where(v4, torch.exp(x - m[..., None]), 0.0)
+        pp = _tf32_parts(p, False)
+        hist, own = sel[sel < W], sel[sel >= W] - W
+        acc = _tf32_einsum("bkgcw,bwkh->bkgch",
+                           (pp[0][..., :hist.numel()],
+                            pp[1][..., :hist.numel()]),
+                           (vh[0][:, hist], None if vh[1] is None
+                            else vh[1][:, hist])) \
+            * vs[:, None, None, None, None]
+        acc = acc + _tf32_einsum("bkgcj,bjkh->bkgch",
+                                 (pp[0][..., hist.numel():],
+                                  pp[1][..., hist.numel():]),
+                                 (vn[0][:, own], vn[1][:, own]))
+        parts.append((m, p.sum(dim=-1), acc))
+    if not parts:                                             # no key seen
+        return torch.zeros_like(q, dtype=torch.float32)
+    return merge_splits(parts).permute(0, 3, 1, 2, 4)         # [B,C,K,G,hd]

@@ -30,9 +30,9 @@ _L = ctypes.c_longlong
 # family directory, entry point and argument types of each kernel library
 SIGNATURES = {
     "flash_decode": ("attn", "flash_decode_launch",
-                     [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
+                     [_P] * 8 + [_I] * 6 + [_F] + [_I] * 4 + [_P]),
     "flash_prefill": ("attn", "flash_prefill_launch",
-                      [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P]),
+                      [_P] * 11 + [_I] * 7 + [_F] + [_I] * 4 + [_P]),
     "flash_decode_paged": ("attn", "flash_decode_paged_launch",
                            [_P] * 9 + [_I] * 7 + [_F] + [_I] * 4 + [_P]),
     "flash_prefill_paged": ("attn", "flash_prefill_paged_launch",

@@ -40,7 +40,7 @@
 //   * TF32 tensor cores at f32 accuracy (mma.sync m16n8k8, f32
 //     accumulation).  An operand rounded at width <= 12 is m * 2^e with
 //     |m| <= 2^11: at most 11 significant bits, exact in TF32.  Any other
-//     operand (raw, or a width of 13..24) is split into hi = tf32(x) and
+//     operand (raw, or a width of 13..32) is split into hi = tf32(x) and
 //     lo = tf32((x - hi) * 2^12); the products hi*hi plus the cross terms
 //     lo*hi and hi*lo (lo terms in their own accumulator, scaled back by
 //     2^-12 at the end) reproduce the f32 product to about 2^-22 relative
@@ -231,6 +231,9 @@ qmm_kernel(const float* __restrict__ a, const float* __restrict__ b,
   ga.inv = steps[1];
   gb.step = steps[2];
   gb.inv = steps[3];
+  // the bounds as the reference forms them (qrange, rounded to f32): from
+  // width 25 on, 2^(w-1) - 1 rounds to 2^(w-1), as in K1; 1u << 31 is
+  // still defined at width 32
   ga.qmax = ga.on ? (float)((1u << (width_a - 1)) - 1u) : 0.f;
   ga.qmin = ga.on ? -(float)(1u << (width_a - 1)) : 0.f;
   gb.qmax = gb.on ? (float)((1u << (width_b - 1)) - 1u) : 0.f;
@@ -471,7 +474,7 @@ bool aligned16(const void* p) {
 
 // a, b, c: contiguous f32; kind 0 = nn (a[R,D], b[D,C]), 1 = nt (a[R,D],
 // b[C,D]), 2 = tn (a[D,R], b[D,C]); c[R,C].  steps: f32 [4] = [step_a,
-// 1/step_a, step_b, 1/step_b]; width 0 = raw operand, else 2..24.  The
+// 1/step_a, step_b, 1/step_b]; width 0 = raw operand, else 2..32.  The
 // plan (ops.plan): output tiles 64 x bn (bn 32 or 64), `splits` ranges of
 // `per` 32-deep slices of the reduction; with splits > 1, ws is an f32
 // workspace [splits, R, C] and a second kernel sums it into c.  Returns
@@ -483,7 +486,7 @@ extern "C" int qmatmul_launch(const float* a, const float* b,
                               cudaStream_t stream) {
   if (R <= 0 || C <= 0) return 0;
   const int n_slices = (D + BK - 1) / BK;
-  if (width_a < 0 || width_a > 24 || width_b < 0 || width_b > 24 ||
+  if (width_a < 0 || width_a > 32 || width_b < 0 || width_b > 32 ||
       width_a == 1 || width_b == 1 || (bn != 32 && bn != 64) ||
       splits < 1 || splits > 65535 || per < 1 ||
       (long)(splits - 1) * per >= (long)(n_slices > 0 ? n_slices : 1) ||

@@ -13,7 +13,7 @@ fallback from one to the other.
 
 Arithmetic on the card: TF32 tensor cores with float32 accumulation.  An
 operand rounded at a width of at most 12 bits is exact in TF32
-(``ref.EXACT_WIDTH``); any other operand (raw, or a width of 13..24) goes
+(``ref.EXACT_WIDTH``); any other operand (raw, or a width of 13..32) goes
 as the sum of two TF32 parts, ``hi = tf32(x)`` and ``lo = tf32(x - hi)``
 (kept times 2^12, clear of f32's subnormals), and the product as
 ``hi·hi`` plus the cross terms (:func:`products` of them).
@@ -128,8 +128,8 @@ def qmm(a: Tensor, b: Tensor, e_a, e_b, *, kind: str,
         if not t.is_contiguous():
             raise ValueError(f"qmm needs contiguous operands; {name} is not")
     for w in (width_a, width_b):
-        if w is not None and not 2 <= w <= 24:
-            raise ValueError(f"qmm takes widths in [2, 24] or None, got {w}")
+        if w is not None and not 2 <= w <= 32:
+            raise ValueError(f"qmm takes widths in [2, 32] or None, got {w}")
     dev = a.device
     steps = torch.stack([*_steps(e_a, width_a, dev), *_steps(e_b, width_b, dev)])
     c = torch.empty((R_, C_), dtype=torch.float32, device=dev)

@@ -121,6 +121,66 @@ def test_flash_prefill_window_and_ragged_w(cuda):
     torch.testing.assert_close(_prefill(a), _prefill_plain(a), **TOL)
 
 
+@pytest.mark.parametrize("width", WIDTHS, ids=WIDTH_IDS)
+def test_flash_decode_splits_and_same_bits(cuda, width):
+    """The serving shape splits the ring (S = 5 of 3 tiles); a 40-key
+    window at the slots' last position leaves the early splits with no
+    key (m = -inf), and an empty slot gives 0; two calls give the same
+    bits."""
+    assert ops.ring_splits(B, K, W) == (5, 3)
+    for window in (None, 40):
+        a = cases.decode_case(B, W, K, G, HD, width, window=window,
+                              fill=[W, 3 * W // 2, 37, 0], seed=16,
+                              device=cuda)
+        first, second = _decode(a), _decode(a)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        torch.testing.assert_close(first, _decode_plain(a), **TOL)
+        assert torch.isfinite(first).all() and torch.all(first[3] == 0)
+
+
+@pytest.mark.parametrize("width", WIDTHS, ids=WIDTH_IDS)
+@pytest.mark.parametrize("hd", [40, 48, 72, 256])
+def test_flash_decode_any_head_dim(cuda, hd, width):
+    """Off-instance head dims and the largest, a ragged W, split."""
+    a = cases.decode_case(3, 333, 2, 4, hd, width, window=200,
+                          fill=[333, 400, 0], seed=17, device=cuda)
+    assert ops.ring_splits(3, 2, 333)[0] > 1
+    out = _decode(a)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, _decode_plain(a), **TOL)
+    assert torch.all(out[2] == 0)
+
+
+@pytest.mark.parametrize("width", WIDTHS, ids=WIDTH_IDS)
+def test_flash_prefill_splits_and_same_bits(cuda, width):
+    """The table's chunk (B=1, C=128, p0=256) runs split over its tile
+    list (prefill_plan); with a 64-key window the early history splits
+    see nothing; two calls give the same bits."""
+    assert ops.prefill_plan(1, C, W, K, G, HD)[1] > 1
+    for window in (None, 64):
+        a = cases.prefill_case(1, C, W, K, G, HD, width, p0=[256],
+                               n_valid=[C], window=window, seed=18,
+                               device=cuda)
+        first, second = _prefill(a), _prefill(a)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        torch.testing.assert_close(first, _prefill_plain(a), **TOL)
+
+
+@pytest.mark.parametrize("width", WIDTHS, ids=WIDTH_IDS)
+@pytest.mark.parametrize("hd", [40, 48, 72, 256])
+def test_flash_prefill_any_head_dim(cuda, hd, width):
+    """Off-instance head dims and the largest (2-warp blocks), ragged W,
+    a ragged chunk and a chunk at p0 = 0."""
+    a = cases.prefill_case(2, 40, 75, 2, 3, hd, width, p0=[60, 0],
+                           n_valid=[40, 23], seed=19, device=cuda)
+    out = _prefill(a)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, _prefill_plain(a), **TOL)
+    assert torch.all(out[1, 23:] == 0)
+
+
 def test_wrappers_check_their_inputs(cuda):
     a = cases.decode_case(1, 40, 2, 2, 32, 8, seed=5, device=cuda)
     with pytest.raises(TypeError):
@@ -295,10 +355,27 @@ def test_flash_decode_paged_other_head_dims(cuda, hd):
 
 
 def test_flash_decode_paged_takes_head_dims_of_32s(cuda):
+    """hd = 48 is not a multiple of 32: it runs on the hd = 64 instance
+    with dims 48..63 zero, and matches plain."""
     a = cases.decode_paged_case(1, 32, 2, 2, 2, 48, 8, fill=[40], seed=10,
                                 device=cuda)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        _decode_paged(a)
+    torch.testing.assert_close(_decode_paged(a), _decode_paged_plain(a),
+                               **TOL)
+
+
+@pytest.mark.parametrize("width", WIDTHS, ids=WIDTH_IDS)
+@pytest.mark.parametrize("hd", [40, 48, 72])
+def test_flash_decode_paged_any_head_dim(cuda, hd, width):
+    """Head dims off the 32·DPL instances (rows of 40, 48, 72 values:
+    16-byte, 4-byte and value-at-a-time copies for int8), over split
+    pages with a window that masks whole splits."""
+    a = cases.decode_paged_case(B, P, NBLK, K, G, hd, width,
+                                fill=[NBLK * P, 257, 96, 0], window=100,
+                                seed=15, device=cuda)
+    out = _decode_paged(a)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, _decode_paged_plain(a), **TOL)
+    assert torch.all(out[3] == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -439,6 +516,19 @@ def test_k2_wide_and_raw_operands_match_plain(cuda, kind, width):
                               device=cuda))
 
 
+@pytest.mark.parametrize("kind", ["nn", "nt", "tn"])
+@pytest.mark.parametrize("width", [25, 31, 32])
+def test_k2_widths_past_24_match_plain(cuda, kind, width):
+    """Widths 25..32 (the paper's Fig. 3 computes at 31) go as hi + lo
+    like any width past 12; from 25 on qmax = 2^(w-1) - 1 rounds to
+    2^(w-1) in f32, as the reference's qrange does.  One operand at the
+    step 2^(3 - w), one clipped (step 2^-28 at unit scale saturates the
+    width-25 grid's 2^24 steps)."""
+    _k2_close(mcases.qmm_case(kind, 100, 130, 70, width_a=width,
+                              width_b=width, e_a=3.0 - width, e_b=-28.0,
+                              seed=20, device=cuda))
+
+
 def _k2_close_scaled(a, scale):
     """K2 against plain with the tolerance scaled to the product's size."""
     out = k2.qmm(a["a"], a["b"], a["e_a"], a["e_b"], kind=a["kind"],
@@ -510,5 +600,6 @@ def test_k2_wrapper_checks_its_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         k2.qmm(a, torch.zeros(6, 5, device=cuda).t(), 0.0, 0.0, kind="nn",
                width_a=10, width_b=10)
-    with pytest.raises(ValueError):
-        k2.qmm(a, a, 0.0, 0.0, kind="nn", width_a=30, width_b=10)
+    with pytest.raises(ValueError, match="widths"):
+        k2.qmm(a, torch.zeros(5, 6, device=cuda), 0.0, 0.0, kind="nn",
+               width_a=33, width_b=10)
