@@ -16,11 +16,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    and hd=48 over a ragged ring; K4: C=128 with ragged n_valid and p0 > 0,
    a window, and hd=48; K5: B=4 slots over 64-row pages, 8 blocks, null
    pages, a shared page, an empty slot, splits that see no key, and
-   hd=40, 48, 72; K6: C=64 at p0=384 and a ragged chunk), hold K5 against
-   K3 on the same data laid out as a ring (hd=128 and 48), check that two
-   calls of K3, K4 and K5 give the same bits, and time kernel (every
-   launch of a call: the split pass and the merge of K3, K4 and K5),
-   plain version and a library yardstick;
+   hd=40, 48, 72; K6: C=64 at p0=384, a ragged chunk, a window, hd=48
+   over 32-row pages, every split count up to its plan's, timed), hold K5
+   against K3 and K6 against K4 on the same data laid out as a ring
+   (K6 = K4 bit for bit), check that two calls of K3, K4, K5 and K6 give
+   the same bits, and time kernel (every launch of a call: the split pass
+   and the merge of K3, K4, K5 and K6), plain version and a library
+   yardstick;
 4. smoke-size parity: the port's model on the card (kernels) against the
    same model on the CPU (plain versions), slot-major and paged (engine
    logits with prefix sharing, and a tight arena that preempts);
@@ -38,12 +40,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 9. K1 bit-exact and K2 within ``rtol=1e-5, atol=1e-5·sqrt(D)`` against
    their plain versions (maxout sites and shapes, every K2 layout and
    width pairing, widths past TF32's 11 bits up to 32, ragged sizes,
-   f16/bf16,
+   f16/bf16, views at element offsets 1-3 (K1's scalar path),
    NaN/±inf, exponents ±30, the llama3-8B ``w_up`` weight and chunk
    product), K2 bit-exact on an on-grid product and the same bits in two
-   calls of a split-K plan, timed (K2: its split pass and its reduction)
-   beside ``torch.fake_quantize_per_tensor_affine`` / eager
-   ``fixed_round`` and ``torch.matmul``;
+   calls of a split-K plan, timed (K1: the kernel alone, and the whole
+   call with the number of device operations it puts on the stream; K2:
+   its split pass and its reduction) beside
+   ``torch.fake_quantize_per_tensor_affine`` / eager ``fixed_round`` and
+   ``torch.matmul``;
 10. training parity at smoke size: DFXP-10/12 maxout on the card (K1,
     K2) against the CPU (plain versions), 10 steps, and 5 steps computing
     at width 31 (K2 at width 31);
@@ -74,6 +78,7 @@ import numpy as np
 import torch
 
 TOL = 1e-4                      # kernel vs plain, outputs of size O(1..16)
+K6_TOL = 1e-5                   # K6 on K4's TF32 route vs plain (atol, rtol)
 SERVE_ARGS = ["--arch", "llama3_8b", "--num-requests", "6", "--slots", "4",
               "--prompt-len", "96,200,384", "--max-new", "16",
               "--cache-bits", "8", "--fused-decode", "--prefill-chunk",
@@ -162,10 +167,6 @@ def phase_build():
         log(f"built {name} in {r['seconds']:.1f}s")
         for ln in info:
             log("  ", ln)
-    # dynamic shared memory a block asks for (K6, attn_common.cuh
-    # smem_floats: a padded K tile, a V tile and the block's query rows)
-    log(f"  flash_prefill_paged: {(32 * 129 + 32 * 128 + 32 * 128) * 4} "
-        f"bytes of dynamic shared memory per block at hd=128")
     # K3 and K5 (decode_common.cuh smem_bytes): a ring of raw K and V
     # tiles, 32 rows of hd values padded by 16 bytes (3 stages, f32: 2),
     # the query rows and a vote and an index per tile of the block's range
@@ -180,14 +181,15 @@ def phase_build():
         log(f"  flash_decode_paged {tag}: {ring + pps * (PAGE // 32) * 8} "
             f"bytes of dynamic shared memory per block at hd=128, G=4, "
             f"P={PAGE} ({splits} splits of {pps} pages)")
-    # K4 (flash_prefill.cu PGeo): a 2-stage ring of K and V tiles at f32's
-    # padded rows (528 bytes at hd=128), the block's query rows as TF32 hi
-    # and lo planes (132 floats a row), a list entry and a vote per tile
+    # K4 and K6 (prefill_common.cuh PGeo)
     warps, p_splits = attn_ops.prefill_plan(1, 128, 400, 8, 4, 128)
-    n = 2 * 2 * 32 * 528 + 2 * 16 * warps * 132 * 4 + (13 + 4) * 8 + 16
-    log(f"  flash_prefill: {n} bytes of dynamic shared memory per block at "
-        f"hd=128, W=400, C=128 ({16 * warps}-row blocks, {p_splits} splits "
-        f"at B=1)")
+    log(f"  flash_prefill: {prefill_smem(128, 400, 128)} bytes of dynamic "
+        f"shared memory per block at hd=128, W=400, C=128 ({16 * warps}-row "
+        f"blocks, {p_splits} splits at B=1)")
+    warps, p_splits = attn_ops.prefill_paged_plan(1, PAGE, 8, PAGE, 8, 4, 128)
+    log(f"  flash_prefill_paged: {prefill_smem(128, 8 * PAGE, PAGE)} bytes "
+        f"of dynamic shared memory per block at hd=128, P={PAGE}, 8 blocks, "
+        f"C={PAGE} ({16 * warps}-row blocks, {p_splits} splits at B=1)")
     # K2 (qmatmul.cu Smem): 3 stages of a 64x32 A tile and a 32 x bn B tile,
     # rows padded by 4 (k contiguous) or 8 floats, and two lo planes of
     # each split operand; the main path's widths (raw x 10 bits; the wgrad
@@ -206,6 +208,19 @@ def phase_build():
     # arrays
     log(f"  dfxp_quantize: {2 * 8 * 4} bytes of static shared memory per "
         f"block")
+
+
+def prefill_smem(hd: int, W: int, C: int) -> int:
+    """Dynamic shared memory of a K4 / K6 block (prefill_common.cuh PGeo):
+    a 2-stage ring of K and V tiles at f32's padded rows, the block's
+    query rows as TF32 hi and lo planes (HD + 4 floats a row), a list
+    entry and a vote per tile of the history and the chunk."""
+    warps = 8 if hd <= 128 else 2
+    HD = 32 * -(-hd // 32)
+    row = 4 * (HD + (4 - HD % 32 + 32) % 32)
+    n_list = -(-W // 32) + -(-C // 32)
+    return (2 * 2 * 32 * row + 2 * 16 * warps * (HD + 4) * 4 + n_list * 8
+            + 16)
 
 
 def phase_kernels():
@@ -295,11 +310,11 @@ def phase_kernels():
 
     results = {}
 
-    def check(name, fn, plain, a):
+    def check(name, fn, plain, a, tol=TOL):
         out, want = fn(a), plain(a)
         torch.cuda.synchronize()
         err = float((out - want).abs().max())
-        bad = not torch.allclose(out, want, atol=TOL, rtol=TOL)
+        bad = not torch.allclose(out, want, atol=tol, rtol=tol)
         log(f"{name}: max_abs_err {err:.3e}" + ("  FAIL" if bad else ""))
         if bad:
             raise SystemExit(f"{name} disagrees with its plain version")
@@ -392,11 +407,44 @@ def phase_kernels():
                 check(f"K5 {tag} window={window}", k5, k5_plain, a))
             if not torch.all(k5(a)[3] == 0):
                 raise SystemExit("K5: a slot with no pages is not 0")
+        # K6 on K4's route: held to 1e-5 (K6_TOL), as K4's route is on
+        # the CPU (tests/test_torch_paged_split.py)
         a = cases.prefill_paged_case(2, PAGE, PAGE, NBLK, K, G, HD, width,
                                      p0=[384, 64], n_valid=[PAGE, 37],
                                      seed=7, device=dev)
         errs["flash_prefill_paged"].append(
-            check(f"K6 {tag} B=2 p0=[384,64] nv=[64,37]", k6, k6_plain, a))
+            check(f"K6 {tag} B=2 p0=[384,64] nv=[64,37]", k6, k6_plain, a,
+                  K6_TOL))
+        a = cases.prefill_paged_case(1, PAGE, PAGE, NBLK, K, G, HD, width,
+                                     p0=[384], n_valid=[PAGE], window=128,
+                                     seed=8, device=dev)
+        errs["flash_prefill_paged"].append(check(
+            f"K6 {tag} window=128 (plan "
+            f"{ops.prefill_paged_plan(1, PAGE, NBLK, PAGE, K, G, HD)})", k6,
+            k6_plain, a, K6_TOL))
+        same_bits(f"K6 {tag} window=128", k6, a)
+        a = cases.prefill_paged_case(2, 40, 32, 5, 2, 3, 48, width,
+                                     p0=[100, 0], n_valid=[40, 23],
+                                     seed=10, device=dev)
+        errs["flash_prefill_paged"].append(check(
+            f"K6 {tag} hd=48 C=40 P=32", k6, k6_plain, a, K6_TOL))
+        # K6 against K4 on the same data: each slot's ring one page (P = W
+        # = 384) with the slot's steps; one code, one plan: the same bits
+        a = cases.prefill_case(2, PAGE, 384, K, G, HD, width, p0=[256, 100],
+                               n_valid=[PAGE, 37], seed=13, device=dev)
+        zero, e0 = torch.zeros_like(a["k"][:1]), torch.zeros(1, device=dev)
+        paged = dict(a, k=torch.cat([zero, a["k"]]),
+                     v=torch.cat([zero, a["v"]]),
+                     bt=torch.tensor([[1], [2]], dtype=torch.int32,
+                                     device=dev),
+                     k_exp=None if width is None
+                     else torch.cat([e0, a["k_exp"]]),
+                     v_exp=None if width is None
+                     else torch.cat([e0, a["v_exp"]]))
+        if not torch.equal(k6(paged), k4(a)):
+            raise SystemExit(f"K6 and K4 differ on the same data ({tag})")
+    log("K6 vs K4 on the same data (int8, int16, f32; one page per slot): "
+        "bit-identical")
     # K5 against K3 on the same data: the pages gathered into a ring,
     # one exponent per slot; at hd = 128 and at hd = 48, a head dim that
     # is not a multiple of 32 (both on their generic-hd path)
@@ -465,15 +513,26 @@ def phase_kernels():
             cases.decode_paged_cost,
             (lambda a: sdpa_decode(gathered(a))) if width is None else None)
         decode_paged_rows[tag]["splits"] = splits[0]
+    k6_plan = ops.prefill_paged_plan(1, PAGE, NBLK, PAGE, K, G, HD)
+    sweep = k6_sweep(k6_plain, dev, NBLK, K, G, HD)
+    log(f"K6 (B=1, C={PAGE}, P={PAGE}, nblocks={NBLK}, hd={HD}): plan "
+        f"(warps, splits) {k6_plan}; fastest in this run's sweep: "
+        f"{sweep['fastest']} splits ({json.dumps(sweep['us'])} us, int8)")
     for width, tag in ((8, "int8"), (16, "int16"), (None, "f32")):
+        make = (lambda s, w=width: cases.prefill_paged_case(
+            1, PAGE, PAGE, NBLK, K, G, HD, w, p0=[384], n_valid=[PAGE],
+            seed=s, device=dev))
+        bounds = cases.prefill_paged_bounds(make(0))
         prefill_paged_rows[tag] = timed(
             f"K6 {tag} timing (B=1, C=64, p0=384, P=64, nblocks=8)",
-            "flash_prefill_paged_kernel", k6, k6_plain,
-            lambda s, w=width: cases.prefill_paged_case(
-                1, PAGE, PAGE, NBLK, K, G, HD, w, p0=[384], n_valid=[PAGE],
-                seed=s, device=dev),
-            cases.prefill_paged_cost,
-            (lambda a: sdpa_prefill(gathered(a))) if width is None else None)
+            "flash_prefill_paged_kernel", k6, k6_plain, make,
+            cases.prefill_paged_route_cost,
+            (lambda a: sdpa_prefill(gathered(a))) if width is None else None,
+            info={"plan": dict(zip(("warps", "splits"), k6_plan)),
+                  "products": bounds["products"],
+                  "f32_bound_ms": bounds["f32_bound_ms"],
+                  "f32_bound_by": bounds["f32_bound_by"]})
+    prefill_paged_rows["int8"]["sweep"] = sweep
     results["flash_decode"] = dict(rows=decode_rows,
                                    max_abs_err=max(errs["flash_decode"]))
     results["flash_prefill"] = dict(rows=prefill_rows,
@@ -485,6 +544,37 @@ def phase_kernels():
         rows=prefill_paged_rows,
         max_abs_err=max(errs["flash_prefill_paged"]))
     return results
+
+
+def k6_sweep(plain, dev, nblocks, K, G, hd) -> dict:
+    """K6 int8 at the paged run's chunk (B=1, C=P=64, p0=384) under every
+    split count up to its plan's, each checked against the plain version
+    (K6_TOL) and for the same bits twice, and timed (device µs per call,
+    both launches, on 24 inputs past the L2)."""
+    from repro_torch.kernels.attn import cases, ops
+    copies = [cases.prefill_paged_case(1, PAGE, PAGE, nblocks, K, G, hd, 8,
+                                       p0=[384], n_valid=[PAGE], seed=s,
+                                       device=dev) for s in range(24)]
+    for a in copies:
+        a["steps"] = ops._steps(a["k"].shape[0], a["k_exp"], a["v_exp"], 8,
+                                dev)
+    warps, top = ops.prefill_paged_plan(1, PAGE, nblocks, PAGE, K, G, hd)
+    us = {}
+    for s in range(1, top + 1):
+        def run(a, s=s):
+            return ops.launch_prefill_paged(
+                a["q"], a["k_new"], a["v_new"], a["k"], a["v"], a["bt"],
+                a["pos"], a["p0"], a["n_valid"], a["steps"], width=8,
+                scale=a["scale"], window=None, causal=True, plan=(warps, s))
+        out = run(copies[0])
+        if not (torch.allclose(out, plain(copies[0]), atol=K6_TOL,
+                               rtol=K6_TOL)
+                and torch.equal(out, run(copies[0]))):
+            raise SystemExit(f"K6 with {s} splits disagrees with its plain "
+                             f"version or with itself")
+        us[s] = device_ms(rotating(run, copies),
+                          "flash_prefill_paged_kernel")[0] * 1e3
+    return {"us": us, "fastest": min(us, key=us.get), "plan": top}
 
 
 def phase_parity():
@@ -872,12 +962,34 @@ def reset_all_launches() -> None:
         m.reset_launches()
 
 
+def device_ops(fn) -> int:
+    """Device operations (kernels, copies, memsets) that one call of
+    ``fn`` puts on the stream, from ``torch.profiler``, after a warm-up
+    call; a session that records no device activity is taken again, up
+    to three times (0 if none records any)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    n = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages() if _on_device(e))
+        if n > 0:
+            break
+    return n
+
+
 def time_row(name, kernel, fn, plain, copies, cost, library=None,
              extra=None, info=None):
     """A timing row on ``copies`` (a ring of inputs larger than the 50 MB
     L2, or one input larger than it).  ``ms`` / ``plain_ms`` /
     ``library_ms`` (and ``extra``'s keys): device time per call from the
-    profiler (or CUDA events where ``timers`` says so); ``*_call_ms``:
+    profiler (or CUDA events where ``timers`` says so), of the kernel
+    named ``kernel`` for ``ms`` and of every device operation of the call
+    for the others; ``*_call_ms``:
     CUDA-event time per call in a loop, host gaps included; ``bound_ms``
     from this case's bytes and operations (at ``cost``'s third item, a
     rate in flop/s, where it gives one; else float32's); ``info``: more
@@ -945,11 +1057,21 @@ def phase_train_kernels():
         "32x130 e=+30": dict(shape=(32, 130), e=30.0, scale=2.0 ** 38),
         "4096x14336 f32 (llama3-8B w_up)": dict(shape=(4096, 14336), e=-12.0,
                                                 scale=0.02),
+        "1000003 f32 view at offset 1": dict(shape=(1000004,), offset=1),
+        "4099 f32 view at offset 2": dict(shape=(4101,), offset=2),
+        "8197 f32 view at offset 3": dict(shape=(8200,), offset=3),
+        "76805 f16 (8 a vector, tail 5)": dict(shape=(76805,),
+                                               dtype=torch.float16, e=-3.0,
+                                               scale=10.0),
+        "76805 bf16 view at offset 3": dict(shape=(76808,), offset=3,
+                                            dtype=torch.bfloat16, e=-3.0,
+                                            scale=10.0),
     }
     k1_bad = 0
     for i, (tag, kw) in enumerate(k1_cases.items()):
-        shape = kw.pop("shape")
+        shape, off = kw.pop("shape"), kw.pop("offset", 0)
         a = qc.quantize_case(shape, seed=i, device=dev, **kw)
+        a["x"] = a["x"][off:]
         y, st = k1_call(a)
         yr, sr = k1_plain(a)
         torch.cuda.synchronize()
@@ -972,7 +1094,17 @@ def phase_train_kernels():
         k1_rows[tag] = time_row(
             f"K1 {tag} {shape} timing", "dfxp_quantize_kernel", k1_call,
             k1_plain, copies, qc.quantize_cost, k1_library,
-            extra={"eager_fixed_round_ms": k1_eager})
+            extra={"eager_fixed_round_ms": k1_eager,
+                   "call_device_ms": k1_call},
+            info={"device_ops_per_call": device_ops(
+                lambda: k1_call(copies[0]))})
+        n_ops = k1_rows[tag]["device_ops_per_call"]
+        if n_ops > 2:
+            raise SystemExit(f"K1 {tag}: one call put {n_ops} operations "
+                             f"on the device")
+        if n_ops == 0:
+            k1_rows[tag]["device_ops_per_call"] = \
+                "not measured (no device activity in the trace)"
         del copies
 
     errs = []
@@ -1401,8 +1533,9 @@ def main():
             "bound_by": main_row["bound_by"],
             "library_ms": main_row.get("library_ms"), "library_note": note,
             "main_case": main_case, "cases": k["rows"]})
-        if "f32_bound_ms" in main_row:
-            rows[-1]["f32_bound_ms"] = main_row["f32_bound_ms"]
+        for key in ("f32_bound_ms", "call_device_ms", "device_ops_per_call"):
+            if key in main_row:
+                rows[-1][key] = main_row[key]
     summary = {"peak_memory_bytes": peak, "tok_per_s": st["tok_per_s"],
                "ttft_mean_s": st["ttft_mean_s"], "decode_steps":
                st["decode_steps"], "prefill_chunks": st["prefill_chunks"],

@@ -99,12 +99,15 @@ def fixed_round(x: Tensor, width: int, e, *,
         raise NotImplementedError(
             "stochastic rounding needs the threefry PRNG port "
             "(ROADMAP module item 14)")
-    e = torch.as_tensor(e, dtype=torch.float32, device=x.device)
-    if (_PALLAS["enabled"] and e.ndim == 0
-            and x.numel() >= _PALLAS["min_size"]):
+    if (_PALLAS["enabled"] and x.numel() >= _PALLAS["min_size"]
+            and (e.ndim == 0 if isinstance(e, Tensor)
+                 else isinstance(e, (int, float)))):
+        # K1 takes a number by value and a tensor where it lies, so a
+        # number is not first copied to the card
         from repro_torch.kernels.dfxp.ops import dfxp_quantize
         y, stats = dfxp_quantize(x.contiguous(), e, width=width)
         return y, (stats[0], stats[1])
+    e = torch.as_tensor(e, dtype=torch.float32, device=x.device)
     step = exact_pow2(e)
     qmax = float(2 ** (width - 1) - 1)
     qmin = -float(2 ** (width - 1))

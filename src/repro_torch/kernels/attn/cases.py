@@ -225,27 +225,38 @@ def prefill_products(width: Optional[int]):
     return (2 if width is not None and width <= 8 else 3), 3
 
 
-def prefill_route_cost(a: dict):
-    """(bytes, TF32 flops, rate) of one ``flash_prefill`` call on K4's
-    tensor-core route: each unmasked (query, key) pair's 4·hd flops times
-    the products its operands take (:func:`prefill_products`)."""
+def _route(a: dict, cost):
+    """(bytes, TF32 flops, rate) of one call on K4's and K6's tensor-core
+    route, its bytes from ``cost``: each unmasked (query, key) pair's
+    4·hd flops times the products its operands take
+    (:func:`prefill_products`)."""
     B, C, K, G, hd = a["q"].shape
     vh, vs = prefill_valid(a)
-    nbytes, _ = prefill_cost(a)
+    nbytes, _ = cost(a)
     ph, ps = prefill_products(a["width"])
     flops = 4 * hd * K * G * (ph * int(vh.sum()) + ps * int(vs.sum()))
     return nbytes, flops, H100_TF32_FLOPS
 
 
-def prefill_bounds(a: dict) -> dict:
-    """The route's bound and the float32 (SIMT) bound of one K4 call, ms,
-    as :func:`repro_torch.kernels.qmatmul.cases.qmm_bounds` gives K2's."""
-    nbytes, flops, rate = prefill_route_cost(a)
+def _bounds(a: dict, cost) -> dict:
+    nbytes, flops, rate = _route(a, cost)
     tc, tc_by = bound_ms(nbytes, flops, rate)
-    f32, f32_by = bound_ms(*prefill_cost(a))
+    f32, f32_by = bound_ms(*cost(a))
     return {"products": prefill_products(a["width"]), "route_flops": flops,
             "bound_ms": tc, "bound_by": tc_by, "f32_bound_ms": f32,
             "f32_bound_by": f32_by}
+
+
+def prefill_route_cost(a: dict):
+    """(bytes, TF32 flops, rate) of one ``flash_prefill`` call on K4's
+    tensor-core route."""
+    return _route(a, prefill_cost)
+
+
+def prefill_bounds(a: dict) -> dict:
+    """The route's bound and the float32 (SIMT) bound of one K4 call, ms,
+    as :func:`repro_torch.kernels.qmatmul.cases.qmm_bounds` gives K2's."""
+    return _bounds(a, prefill_cost)
 
 
 def _visible_page_bytes(a: dict, seen) -> int:
@@ -280,6 +291,17 @@ def prefill_paged_cost(a: dict):
                   a["p0"], a["n_valid"]) + a["q"].numel() * 4
     flops = 4 * hd * K * G * int(vh.sum() + vs.sum())
     return nbytes, flops
+
+
+def prefill_paged_route_cost(a: dict):
+    """(bytes, TF32 flops, rate) of one ``flash_prefill_paged`` call on
+    K6's route, which is K4's over the visible pages."""
+    return _route(a, prefill_paged_cost)
+
+
+def prefill_paged_bounds(a: dict) -> dict:
+    """The route's bound and the float32 (SIMT) bound of one K6 call, ms."""
+    return _bounds(a, prefill_paged_cost)
 
 
 def bound_ms(nbytes: int, flops: int, flops_per_s: float = H100_F32_FLOPS):

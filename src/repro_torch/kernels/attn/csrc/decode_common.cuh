@@ -2,7 +2,8 @@
 // K5 (paged arena, flash_decode_paged.cu) share, for Hopper (sm_90a): one
 // implementation of the split design, which the two sources instantiate
 // with their own way of finding a tile's rows and steps (a `Src`, below).
-// K4 (flash_prefill.cu) uses its staging pieces (cp.async, stage_rows).
+// K4 and K6 (prefill_common.cuh) use its staging pieces (cp.async,
+// stage_rows).
 //
 // The design, per block of grid (K, B, S): one warp per query row of a kv
 // head's group, one lane per key of a 32-key tile, a contiguous range of

@@ -337,7 +337,10 @@ def flash_prefill_paged(q: Tensor, k_new: Tensor, v_new: Tensor, k: Tensor,
     · ``k_exp``/``v_exp``: f32 [n_pages] per-PAGE log2-steps.  On the
     card ``P`` must be a multiple of 32.  Returns f32 [B, C, K, G, hd];
     numerics are
-    :func:`repro_torch.kernels.attn.ref.paged_prefill_attention_ref`.
+    :func:`repro_torch.kernels.attn.ref.paged_prefill_attention_ref` (on
+    the card K4's TF32 route over the pages, split as
+    :func:`prefill_paged_plan` says:
+    :func:`repro_torch.kernels.attn.ref.paged_prefill_tf32_emulated`).
     """
     if q.device.type == "cpu":
         return R.paged_prefill_attention_ref(
@@ -355,16 +358,46 @@ def flash_prefill_paged(q: Tensor, k_new: Tensor, v_new: Tensor, k: Tensor,
     _check("p0", p0, (B,), torch.int32, dev)
     _check("n_valid", n_valid, (B,), torch.int32, dev)
     n_pages, P, nblocks = _check_paged(k, v, bt, pos, B, K, hd, width, dev)
+    if B > 65535 or K > 65535:
+        raise ValueError(f"flash_prefill_paged takes B, K <= 65535, got "
+                         f"B={B}, K={K}")
     steps = _steps(n_pages, k_exp, v_exp, width, dev)
     _check("steps", steps, (n_pages, 2), torch.float32, dev)
+    out = launch_prefill_paged(
+        q, k_new, v_new, k, v, bt, pos, p0, n_valid, steps, width=width,
+        scale=scale, window=window, causal=causal,
+        plan=prefill_paged_plan(B, C, nblocks, P, K, G, hd))
+    LAUNCHES["flash_prefill_paged"] += 1
+    return out
+
+
+def prefill_paged_plan(B: int, C: int, nblocks: int, P: int, K: int, G: int,
+                       hd: int):
+    """``(warps, splits)`` of a K6 call: K4's plan (:func:`prefill_plan`)
+    over the ``nblocks·P`` logical rows of a block-table row."""
+    return prefill_plan(B, C, nblocks * P, K, G, hd)
+
+
+def launch_prefill_paged(q, k_new, v_new, k, v, bt, pos, p0, n_valid, steps,
+                         *, width, scale, window, causal, plan) -> Tensor:
+    """One K6 call under ``plan`` (:func:`prefill_paged_plan`'s form) on
+    checked card tensors; ``steps`` [n_pages, 2].  Counts nothing: the
+    wrapper does, and the plan sweep (``tools/attn_plan_sweep.py``) calls
+    this directly."""
+    B, C, K, G, hd = q.shape
+    P = k.shape[1]
+    nblocks = bt.shape[1]
+    warps, splits = plan
     out = torch.empty_like(q)
+    ws = _workspace(splits, B * C * K * G, hd, q.device)
     fn = build.library("flash_prefill_paged").flash_prefill_paged_launch
     rc = fn(_ptr(q), _ptr(k_new), _ptr(v_new), _ptr(k), _ptr(v), _ptr(bt),
-            _ptr(pos), _ptr(p0), _ptr(n_valid), _ptr(steps), _ptr(out), B, C,
-            nblocks, P, K, G, hd, _DTYPE_CODE[_storage_dtype(width)],
-            float(scale), int(window or 0), int(causal), _stream(dev))
+            _ptr(pos), _ptr(p0), _ptr(n_valid), _ptr(steps), _ptr(out),
+            _ptr(ws), B, C, nblocks, P, K, G, hd,
+            _DTYPE_CODE[_storage_dtype(width)], float(scale),
+            int(window or 0), int(causal), warps, splits,
+            _stream(q.device))
     if rc != 0:
-        raise RuntimeError(f"flash_prefill_paged kernel launch failed: CUDA "
-                           f"error {rc}")
-    LAUNCHES["flash_prefill_paged"] += 1
+        raise RuntimeError(f"flash_prefill_paged kernel launch failed (plan "
+                           f"{plan}): CUDA error {rc}")
     return out

@@ -324,19 +324,48 @@ def prefill_tf32_emulated(q: Tensor, k: Tensor, v: Tensor, pos: Tensor,
     tile is unmasked, cut into ``splits`` even parts as a kernel block
     cuts its own list, each a flash partial, merged by
     :func:`merge_splits`.  The masks are :func:`chunk_attend`'s."""
+    kf, vf = _wide(k, v, k_exp, v_exp, width)
+    return _prefill_route(q, kf, vf, width, pos, k_new, v_new, p0, n_valid,
+                          scale=scale, window=window, causal=causal,
+                          splits=splits)
+
+
+def paged_prefill_tf32_emulated(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
+                                pos: Tensor, k_new: Tensor, v_new: Tensor,
+                                p0: Tensor, n_valid: Tensor, *, k_exp=None,
+                                v_exp=None, width: Optional[int] = None,
+                                scale: float, window: Optional[int] = None,
+                                causal: bool = True,
+                                splits: int = 1) -> Tensor:
+    """K6's route on the CPU (used by tests only): K4's route
+    (:func:`prefill_tf32_emulated`) over the slot's ``nblocks·P`` logical
+    rows through its block table, each history tile taking its own page's
+    steps (with ``P`` a multiple of 32 a tile lies in one page)."""
+    kf = gather_pages(k, k_exp, bt, width)
+    vf = gather_pages(v, v_exp, bt, width)
+    return _prefill_route(q, kf, vf, width, pos, k_new, v_new, p0, n_valid,
+                          scale=scale, window=window, causal=causal,
+                          splits=splits)
+
+
+def _prefill_route(q: Tensor, kf: Tensor, vf: Tensor, width: Optional[int],
+                   pos: Tensor, k_new: Tensor, v_new: Tensor, p0: Tensor,
+                   n_valid: Tensor, *, scale: float, window: Optional[int],
+                   causal: bool, splits: int) -> Tensor:
+    """The TF32 route of K4 and K6 on dequantized history ``kf``/``vf``
+    [B, W, K, hd].  A mantissa times its step (a power of two) splits into
+    the mantissa's TF32 parts times the step, so applying the step before
+    the products, as here, or after them, as the kernels do, gives the
+    same values; int8 mantissas (``width <= 8``) are exact in TF32."""
     B, C, K, G, hd = q.shape
-    W = k.shape[1]
+    W = kf.shape[1]
     exact = width is not None and width <= 8
-    one = torch.ones(B, dtype=torch.float32, device=q.device)
-    ks = one if width is None else exact_pow2(k_exp)
-    vs = one if width is None else exact_pow2(v_exp)
     qp = _tf32_parts(q.to(torch.float32), False)
-    kh = _tf32_parts(k.to(torch.float32), exact)
-    vh = _tf32_parts(v.to(torch.float32), exact)
+    kh = _tf32_parts(kf, exact)
+    vh = _tf32_parts(vf, exact)
     kn = _tf32_parts(k_new.to(torch.float32), False)
     vn = _tf32_parts(v_new.to(torch.float32), False)
-    sh = _tf32_einsum("bckgh,bwkh->bkgcw", qp, kh) \
-        * (ks * scale)[:, None, None, None, None]
+    sh = _tf32_einsum("bckgh,bwkh->bkgcw", qp, kh) * scale
     ss = _tf32_einsum("bckgh,bjkh->bkgcj", qp, kn) * scale
     s = torch.cat([sh, ss], dim=-1)                          # [B,K,G,C,W+C]
 
@@ -374,8 +403,7 @@ def prefill_tf32_emulated(q: Tensor, k: Tensor, v: Tensor, pos: Tensor,
                            (pp[0][..., :hist.numel()],
                             pp[1][..., :hist.numel()]),
                            (vh[0][:, hist], None if vh[1] is None
-                            else vh[1][:, hist])) \
-            * vs[:, None, None, None, None]
+                            else vh[1][:, hist]))
         acc = acc + _tf32_einsum("bkgcj,bjkh->bkgch",
                                  (pp[0][..., hist.numel():],
                                   pp[1][..., hist.numel():]),

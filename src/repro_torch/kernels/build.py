@@ -36,9 +36,9 @@ SIGNATURES = {
     "flash_decode_paged": ("attn", "flash_decode_paged_launch",
                            [_P] * 9 + [_I] * 7 + [_F] + [_I] * 4 + [_P]),
     "flash_prefill_paged": ("attn", "flash_prefill_paged_launch",
-                            [_P] * 11 + [_I] * 8 + [_F, _I, _I, _P]),
+                            [_P] * 12 + [_I] * 8 + [_F] + [_I] * 4 + [_P]),
     "dfxp_quantize": ("dfxp", "dfxp_quantize_launch",
-                      [_P] * 4 + [_L, _I, _I, _P]),
+                      [_P] * 3 + [_F, _P, _P, _L, _I, _I, _P]),
     "qmatmul": ("qmatmul", "qmatmul_launch",
                 [_P] * 5 + [_I] * 9 + [_P]),
 }

@@ -260,6 +260,86 @@ def test_flash_prefill_paged_window_and_small_heads(cuda):
                                **TOL)
 
 
+@pytest.mark.parametrize("page", [32, 64])
+@pytest.mark.parametrize("hd", [48, 128, 256])
+@pytest.mark.parametrize("width", WIDTHS, ids=WIDTH_IDS)
+def test_flash_prefill_paged_head_dims_and_page_sizes(cuda, width, hd, page):
+    """B = 2 with ragged n_valid over 512 logical rows: a prefix page
+    shared by the two slots, null pages past slot 1's frontier, pages in
+    random order; a 160-key window; hd 48 runs on the 64 instance, 256 on
+    2-warp blocks."""
+    a = cases.prefill_paged_case(2, CP, page, 512 // page, K, G, hd, width,
+                                 p0=[384, 100], n_valid=[CP, 37],
+                                 window=160, seed=31, device=cuda)
+    assert int(a["bt"][0, 0]) == int(a["bt"][1, 0]) and (a["bt"][1] == 0).any()
+    out = _prefill_paged(a)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, _prefill_paged_plain(a), **TOL)
+    assert torch.all(out[1, 37:] == 0)
+
+
+@pytest.mark.parametrize("width", WIDTHS, ids=WIDTH_IDS)
+def test_flash_prefill_paged_every_split_count(cuda, width):
+    """The paged run's chunk (C = 64 at p0 = 384 over 8 pages) under every
+    split count from 1 to the plan's: each holds the plain version, and
+    each gives the same bits in two calls."""
+    a = cases.prefill_paged_case(1, CP, P, NBLK, K, G, HD, width, p0=[384],
+                                 n_valid=[CP], seed=32, device=cuda)
+    warps, splits = ops.prefill_paged_plan(1, CP, NBLK, P, K, G, HD)
+    assert splits > 1
+    steps = ops._steps(a["k"].shape[0], a["k_exp"], a["v_exp"], width, cuda)
+    want = _prefill_paged_plain(a)
+    for s in range(1, splits + 1):
+        def call():
+            return ops.launch_prefill_paged(
+                a["q"], a["k_new"], a["v_new"], a["k"], a["v"], a["bt"],
+                a["pos"], a["p0"], a["n_valid"], steps, width=width,
+                scale=a["scale"], window=None, causal=True,
+                plan=(warps, s))
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), s
+        torch.testing.assert_close(first, want, **TOL)
+
+
+@pytest.mark.parametrize("width", WIDTHS, ids=WIDTH_IDS)
+def test_flash_prefill_paged_is_bit_identical_from_run_to_run(cuda, width):
+    """Through the wrapper, with and without a window that drops the
+    early pages from every block's list: two calls give the same bits."""
+    for window in (None, 64):
+        a = cases.prefill_paged_case(2, CP, P, NBLK, K, G, HD, width,
+                                     p0=[384, 64], n_valid=[CP, 37],
+                                     window=window, seed=33, device=cuda)
+        n = ops.LAUNCHES["flash_prefill_paged"]
+        first, second = _prefill_paged(a), _prefill_paged(a)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_prefill_paged"] == n + 2
+        assert torch.equal(first, second)
+        torch.testing.assert_close(first, _prefill_paged_plain(a), **TOL)
+
+
+@pytest.mark.parametrize("width", WIDTHS, ids=WIDTH_IDS)
+def test_flash_prefill_paged_equals_k4_on_the_same_data(cuda, width):
+    """A slot-major ring laid out as pages, one page per slot (P = W =
+    384) with the slot's steps: K6 and K4 run one code with one plan on
+    the same tiles, so they give the same bits."""
+    W_ = 384
+    a = cases.prefill_case(2, CP, W_, K, G, HD, width, p0=[256, 100],
+                           n_valid=[CP, 37], seed=34, device=cuda)
+    out4 = _prefill(a)
+    zero = torch.zeros_like(a["k"][:1])
+    e0 = torch.zeros(1, device=cuda)
+    paged = dict(a, k=torch.cat([zero, a["k"]]), v=torch.cat([zero, a["v"]]),
+                 bt=torch.tensor([[1], [2]], dtype=torch.int32, device=cuda),
+                 k_exp=None if width is None else torch.cat([e0, a["k_exp"]]),
+                 v_exp=None if width is None else torch.cat([e0, a["v_exp"]]))
+    assert ops.prefill_paged_plan(2, CP, 1, W_, K, G, HD) == \
+        ops.prefill_plan(2, CP, W_, K, G, HD)
+    out6 = _prefill_paged(paged)
+    torch.cuda.synchronize()
+    assert torch.equal(out6, out4)
+
+
 @pytest.mark.parametrize("width", WIDTHS, ids=WIDTH_IDS)
 def test_flash_decode_paged_matches_k3_on_the_same_data(cuda, width):
     """The block tables' pages gathered into a ring, with one exponent
@@ -427,6 +507,82 @@ def test_k1_nan_inf_and_ties_bit_exact(cuda):
     st = _k1_exact(a)
     y, _ = k1.dfxp_quantize(a["x"], a["e"], width=a["width"])
     assert int(torch.isnan(y).sum()) == 1 and st[0] >= 3
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [1000003, 4099, 8197])
+def test_k1_misaligned_views_bit_exact(cuda, offset, n):
+    """A contiguous view at an element offset that leaves x off 16-byte
+    alignment (the scalar path over all of it), at lengths that are not a
+    multiple of 4 or 8."""
+    base = qcases.quantize_case((n + offset,), e=-6.0, width=10,
+                                seed=offset, device=cuda)
+    a = dict(base, x=base["x"][offset:])
+    assert a["x"].is_contiguous() and a["x"].data_ptr() % 16 != 0
+    st = _k1_exact(a)
+    assert st[1] > 0
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16],
+                         ids=["f16", "bf16"])
+def test_k1_half_types_vectors_tails_and_views(cuda, dtype, offset):
+    """f16 / bf16 with 8 values a vector: at offset 0 the vector path
+    and a ragged tail of 5 (76,805 = 8 * 9,600 + 5), else the scalar
+    path over a misaligned view."""
+    base = qcases.quantize_case((76805 + offset,), dtype=dtype, e=-3.0,
+                                scale=10.0, seed=4, device=cuda)
+    _k1_exact(dict(base, x=base["x"][offset:]))
+
+
+def _device_ops(fn) -> int:
+    """Device operations (kernels, copies, memsets) of one call of fn,
+    from torch.profiler, after a warm-up call; a session that records no
+    device activity is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    n = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        if n > 0:
+            break
+    return n
+
+
+def test_k1_one_call_is_at_most_two_device_operations(cuda):
+    """One call puts K1 on the stream and nothing else around it: the
+    exponent as a number (by value) or as a tensor on the card (read
+    there)."""
+    a = qcases.quantize_case((784, 1200), e=-11.0, scale=0.05, device=cuda)
+    for e in (a["e"], torch.tensor(a["e"], device=cuda)):
+        n = _device_ops(lambda: k1.dfxp_quantize(a["x"], e, width=10))
+        assert 1 <= n <= 2, n
+
+
+def test_k1_calls_on_two_streams_keep_their_own_counts(cuda):
+    """Each stream has its own count words: calls queued on two streams
+    at once, many times over, each give their own exact counts."""
+    cases_ = [qcases.quantize_case((784, 1200), e=e, width=10, seed=i,
+                                   device=cuda)
+              for i, e in enumerate((-6.0, -9.0))]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(8):
+        for i, (a, s) in enumerate(zip(cases_, streams)):
+            with torch.cuda.stream(s):
+                outs[i].append(k1.dfxp_quantize(a["x"], a["e"], width=10))
+    torch.cuda.synchronize()
+    for a, got in zip(cases_, outs):
+        yr, sr = dfxp_quantize_ref(a["x"], a["e"], width=10)
+        for y, st in got:
+            assert torch.equal(y, yr) and torch.equal(st, sr)
 
 
 def test_fixed_round_routes_to_k1_on_the_card(cuda):

@@ -1,13 +1,15 @@
-"""Device time of the attention kernels K3 (flash-decode) and K4
-(flash-prefill) under other plans than ``attn.ops.ring_splits`` and
-``attn.ops.prefill_plan`` pick, on one NVIDIA card.
+"""Device time of the attention kernels K3 (flash-decode), K4
+(flash-prefill) and K6 (paged flash-prefill) under other plans than
+``attn.ops.ring_splits``, ``attn.ops.prefill_plan`` and
+``attn.ops.prefill_paged_plan`` pick, on one NVIDIA card.
 
     PYTHONPATH=src python tools/attn_plan_sweep.py
 
-At the serving slice's shapes (K3: B=4 slots, W=400, K=8, G=4, hd=128;
-K4: B=1, C=128 at p0=256, W=400), int8 and f32 pools, each plan is
-launched through the wrappers' launchers (``launch_decode``,
-``launch_prefill``) on a ring of seeded inputs larger than the L2,
+At the serving slices' shapes (K3: B=4 slots, W=400, K=8, G=4, hd=128;
+K4: B=1, C=128 at p0=256, W=400; K6: B=1, C=64 at p0=384 over 8 pages of
+64 rows), int8 and f32 pools, each plan is launched through the
+wrappers' launchers (``launch_decode``, ``launch_prefill``,
+``launch_prefill_paged``) on a ring of seeded inputs larger than the L2,
 checked against the plain version (atol = rtol = 1e-4), and timed with
 ``torch.profiler``: the split pass (``main``) and the merge of the splits
 (``combine``), device time per call over 20 calls.  The plan the wrapper
@@ -26,6 +28,10 @@ DECODE_PLANS = [(1, 13), (2, 7), (3, 5), (4, 4), (5, 3), (7, 2), (13, 1)]
 # (warps, splits): each block's visible tiles (8 ring, 1-4 own) in S even
 # parts; 8 warps (128-row blocks) is the instance hd = 128 has
 PREFILL_PLANS = [(8, 1), (8, 2), (8, 3), (8, 4), (8, 6), (8, 8)]
+# K6: 16 blocks a split; each block's list holds 12 history tiles (p0 =
+# 384) and the chunk's 2
+PAGE, NBLK, CP = 64, 8, 64
+PAGED_PLANS = [(8, s) for s in range(1, 9)]
 
 
 def device_us(fn, kernel: str, n_iter: int = 20) -> dict:
@@ -107,6 +113,26 @@ def main():
                   a["p0"], a["n_valid"], k_exp=a["k_exp"], v_exp=a["v_exp"],
                   width=a["width"], scale=a["scale"], window=a["window"]),
               copies, PREFILL_PLANS, ops.prefill_plan(1, C, W, K, G, HD))
+        del copies
+        copies = [cases.prefill_paged_case(1, CP, PAGE, NBLK, K, G, HD,
+                                           width, p0=[384], n_valid=[CP],
+                                           seed=s, device=dev)
+                  for s in range(24)]
+        for a in copies:
+            a["steps"] = steps(a, a["k"].shape[0])
+        sweep(f"K6 {tag}", "flash_prefill_paged_kernel",
+              lambda a, plan: ops.launch_prefill_paged(
+                  a["q"], a["k_new"], a["v_new"], a["k"], a["v"], a["bt"],
+                  a["pos"], a["p0"], a["n_valid"], a["steps"],
+                  width=a["width"], scale=a["scale"], window=a["window"],
+                  causal=True, plan=plan),
+              lambda a: ref.paged_prefill_attention_ref(
+                  a["q"], a["k"], a["v"], a["bt"], a["pos"], a["k_new"],
+                  a["v_new"], a["p0"], a["n_valid"], k_exp=a["k_exp"],
+                  v_exp=a["v_exp"], width=a["width"], scale=a["scale"],
+                  window=a["window"]),
+              copies, PAGED_PLANS,
+              ops.prefill_paged_plan(1, CP, NBLK, PAGE, K, G, HD))
         del copies
 
 

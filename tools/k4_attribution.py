@@ -1,6 +1,6 @@
 """Where the flash-prefill kernel K4 spends its time, on one NVIDIA card:
-device time of variants of ``flash_prefill.cu`` with parts of the work cut
-out, at the serving slice's int8 shape (B=1, C=128, p0=256, W=400, K=8,
+device time of variants of its body (``prefill_common.cuh``, which K6
+shares) with parts of the work cut out, at the serving slice's int8 shape (B=1, C=128, p0=256, W=400, K=8,
 G=4, hd=128), one split (S=1) and the wrapper's four.
 
     PYTHONPATH=src python tools/k4_attribution.py
@@ -9,8 +9,8 @@ Variants (their results are wrong by design and are not checked):
 ``full`` the kernel as it is; ``no_pv`` without the p·v products;
 ``no_qk`` without the q·k products; ``no_mma`` without both;
 ``no_tiles`` without the tile loop (staging of the query rows, votes,
-the first tile's copy and the output only).  Each variant is the source
-with one loop bound edited, built with ``nvcc`` into ``build/k4_variants/``
+the first tile's copy and the output only).  Each variant is the header
+with one loop bound edited, beside ``flash_prefill.cu`` as it is, built with ``nvcc`` into ``build/k4_variants/``
 and timed through ``attn.ops.launch_prefill`` with ``torch.profiler``
 (the split pass only, device time per call over 20 calls, on a ring of
 24 inputs past the L2).  Imports no JAX.
@@ -26,6 +26,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.attn import cases, ops
 
 SRC = build.csrc("flash_prefill")
+BODY = "prefill_common.cuh"
 OUT = build.BUILD_DIR.parent / "k4_variants"
 QK = "#pragma unroll 1\n  for (int d0 = 0; d0 < HD; d0 += 32) {"
 PV = "#pragma unroll\n  for (int jg = 0; jg < DPL; ++jg) {"
@@ -33,7 +34,7 @@ LOOP = "  for (int i = 0; i < n_tiles; ++i) {"
 
 
 def variants() -> dict:
-    base = (SRC / "flash_prefill.cu").read_text()
+    base = (SRC / BODY).read_text()
     for anchor in (QK, PV, LOOP):
         assert base.count(anchor) == 1, anchor
     no_qk = QK.replace("d0 < HD", "d0 < 0")
@@ -70,7 +71,9 @@ def main():
         d.mkdir(parents=True, exist_ok=True)
         for h in SRC.glob("*.cuh"):
             (d / h.name).write_text(h.read_text())
-        (d / "flash_prefill.cu").write_text(text)
+        (d / BODY).write_text(text)
+        (d / "flash_prefill.cu").write_text(
+            (SRC / "flash_prefill.cu").read_text())
         procs[name] = subprocess.Popen(
             [build._nvcc(), *build.ARCH_FLAGS, "-std=c++17", "-O3",
              "-shared", "-Xcompiler", "-fPIC", "-o", str(d / "lib.so"),
