@@ -4,9 +4,9 @@ The serve-side KV pool keeps K/V as int8/int16 mantissas plus a
 power-of-two step, and packed training storage keeps parameters and
 momentum so; :func:`pack` and :func:`pack_rows` quantize into those
 containers, :func:`unpack` reads them back, and :func:`_overflow_counts`
-gives the §5 controller its pair of statistics.  Deterministic rounding
-only; stochastic rounding waits for the threefry PRNG port (ROADMAP
-module item 14).
+gives the §5 controller its pair of statistics.  Rounding is to nearest
+even, or stochastic (``floor(m + u)``) with ``u`` drawn from threefry keys
+(:mod:`repro_torch.core.prng`) as the reference draws it.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from . import prng
 from .quant import exact_pow2
 
 Tensor = torch.Tensor
@@ -63,15 +64,17 @@ def _overflow_counts(m: Tensor, width: int, axes=None, mask=None):
             overh.sum(dim=axes).to(torch.float32))
 
 
-def pack(x: Tensor, width: int, e, *, stochastic: bool = False) -> PackedArray:
-    """Round-half-even ``x / 2**e``, clipped into a ``width``-bit container."""
-    if stochastic:
-        raise NotImplementedError(
-            "stochastic packing needs the threefry PRNG port "
-            "(ROADMAP module item 14)")
+def pack(x: Tensor, width: int, e, *, stochastic_key=None) -> PackedArray:
+    """``x / 2**e`` rounded half-even, or stochastically with
+    ``stochastic_key``, clipped into a ``width``-bit container."""
     e = torch.as_tensor(e, dtype=torch.float32, device=x.device)
     qmax, qmin = qrange(width)
-    m = torch.round(x.to(torch.float32) / exact_pow2(e))
+    m = x.to(torch.float32) / exact_pow2(e)
+    if stochastic_key is not None:
+        key = prng.as_key(stochastic_key, x.device)
+        m = torch.floor(m + prng.uniform(key, tuple(m.shape)))
+    else:
+        m = torch.round(m)
     m = m.clamp_(qmin, qmax)
     return PackedArray(m.to(container_dtype(width)), e, width)
 
@@ -81,17 +84,24 @@ def unpack(p: PackedArray, dtype=torch.float32) -> Tensor:
     return (p.mantissa.to(torch.float32) * exact_pow2(p.exp)).to(dtype)
 
 
-def pack_rows(x: Tensor, width: int, e: Tensor):
+def pack_rows(x: Tensor, width: int, e: Tensor, *, stochastic_keys=None):
     """Per-row pack with per-row overflow statistics.
 
-    ``x``: [B, ...]; ``e``: [B] log2-steps.  Returns ``(mantissa
-    int[B, ...], stats f32[B, 3])`` with the ``(n_overflow,
-    n_overflow_at_half_scale, n_total)`` triple per row.
+    ``x``: [B, ...]; ``e``: [B] log2-steps; ``stochastic_keys``: optional
+    [B, 2] keys giving every row its own rounding stream (the reference's
+    ``vmap`` of ``uniform`` over them).  Returns ``(mantissa int[B, ...],
+    stats f32[B, 3])`` with the ``(n_overflow, n_overflow_at_half_scale,
+    n_total)`` triple per row.
     """
     qmax, qmin = qrange(width)
     e = torch.as_tensor(e, dtype=torch.float32, device=x.device)
     step = exact_pow2(e).reshape(e.shape + (1,) * (x.ndim - 1))
-    m = torch.round(x.to(torch.float32) / step)
+    m = x.to(torch.float32) / step
+    if stochastic_keys is not None:
+        keys = prng.as_key(stochastic_keys, x.device)
+        m = torch.floor(m + prng.uniform(keys, tuple(m.shape[1:])))
+    else:
+        m = torch.round(m)
     axes = tuple(range(1, x.ndim))
     ovf, ovfh = _overflow_counts(m, width, axes=axes)
     total = torch.full(ovf.shape, float(math.prod(x.shape[1:])),

@@ -45,8 +45,7 @@ class PrecisionPolicy:
     fixed_int_bits: int = 5          # paper Fig.1: radix after 5th MSB
     max_overflow_rate: float = 1e-4  # paper: 0.01%
     update_interval: int = 100       # controller cadence, in steps
-    stochastic_rounding: bool = False   # beyond-paper (param updates only);
-    #   raises until the threefry PRNG port (ROADMAP module item 14)
+    stochastic_rounding: bool = False   # beyond-paper (param updates only)
     quantize_momentum: bool = True
     storage: str = "sim"             # sim|packed
     compute_dtype: str = "float32"   # container dtype for activations/compute
@@ -63,10 +62,6 @@ class PrecisionPolicy:
     #   defaulting to P (CLI --page-size)
 
     def __post_init__(self):
-        if self.stochastic_rounding:
-            raise NotImplementedError(
-                "stochastic rounding needs the threefry PRNG port "
-                "(ROADMAP module item 14)")
         if self.prefill_chunk < 0:
             raise ValueError("prefill_chunk must be >= 0")
         if self.page_size < 0:

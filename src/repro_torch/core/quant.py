@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import prng
 from .formats import DynamicFixedPoint, FixedPoint, FloatFormat, Format, Observe
 
 Tensor = torch.Tensor
@@ -85,21 +86,22 @@ def enable_pallas_quantize(enable: bool = True, *,
     _PALLAS.update(enabled=bool(enable), min_size=int(min_size))
 
 
-def fixed_round(x: Tensor, width: int, e, *,
-                stochastic: bool = False) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
+def fixed_round(x: Tensor, width: int, e, *, stochastic: bool = False,
+                key: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
     """Round ``x`` onto the grid ``k * 2**e``, ``k`` two's-complement ``width``-bit.
 
-    Deterministic round-half-to-even.  Returns ``(y, (n_overflow,
-    n_overflow_half))``: ``n_overflow`` counts pre-clip values outside the
-    representable range, ``n_overflow_half`` those that would overflow at
-    ``e - 1`` — the two statistics of the paper's controller (§5), as
-    float32 scalars.
+    Round-half-to-even, or with ``stochastic=True`` ``floor(x / 2**e + u)``
+    with ``u`` uniform from the threefry ``key`` (the reference's draw,
+    bit for bit).  Returns ``(y, (n_overflow, n_overflow_half))``:
+    ``n_overflow`` counts pre-clip values outside the representable range,
+    ``n_overflow_half`` those that would overflow at ``e - 1`` — the two
+    statistics of the paper's controller (§5), as float32 scalars.
+    Stochastic rounding never takes K1, as the reference's never takes its
+    kernel.
     """
-    if stochastic:
-        raise NotImplementedError(
-            "stochastic rounding needs the threefry PRNG port "
-            "(ROADMAP module item 14)")
-    if (_PALLAS["enabled"] and x.numel() >= _PALLAS["min_size"]
+    if (_PALLAS["enabled"] and not stochastic
+            and x.numel() >= _PALLAS["min_size"]
             and (e.ndim == 0 if isinstance(e, Tensor)
                  else isinstance(e, (int, float)))):
         # K1 takes a number by value and a tensor where it lies, so a
@@ -111,7 +113,14 @@ def fixed_round(x: Tensor, width: int, e, *,
     step = exact_pow2(e)
     qmax = float(2 ** (width - 1) - 1)
     qmin = -float(2 ** (width - 1))
-    m = torch.round(x.to(torch.float32) / step)     # round-half-to-even
+    m = x.to(torch.float32) / step
+    if stochastic:
+        if key is None:
+            raise ValueError("stochastic rounding requires a PRNG key")
+        m = torch.floor(m + prng.uniform(prng.as_key(key, x.device),
+                                         tuple(m.shape)))
+    else:
+        m = torch.round(m)                          # round-half-to-even
     ovf = _count((m > qmax) | (m < qmin))
     ovf_half = _count((m > qmax / 2) | (m < qmin / 2))
     y = m.clamp_(qmin, qmax).mul_(step)

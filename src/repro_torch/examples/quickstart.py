@@ -1,8 +1,10 @@
 """Quickstart on the port: the paper in one file — train the same maxout
 network under fp32 / fp16 / fixed-20 / DFXP-10/12 and watch low precision
 match fp32.  The counterpart of ``examples/quickstart.py`` and of
-``benchmarks/paper_tables.py::table3_formats``, with dropout off (the
-reference's ``rng=None`` path; dropout waits for the PRNG port).
+``benchmarks/paper_tables.py::table3_formats``, on the reference's recipe:
+weights from ``PRNGKey(7)`` (calibration from ``PRNGKey(0)``), dropout on
+with the loss's ``rng=PRNGKey(1)``, and step ``i`` keyed ``PRNGKey(i)``
+(which only stochastic storage rounding reads).
 
     python -m repro_torch.examples.quickstart                # the card
     python -m repro_torch.examples.quickstart --device cpu --smoke
@@ -26,6 +28,7 @@ import time
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import prng
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.quant import enable_pallas_quantize
 from repro_torch.data import SyntheticImages
@@ -47,6 +50,7 @@ CONV = MX.MaxoutConfig(name="maxout_conv", conv=True)
 # (plain SGD, no max-norm, as the reference's) diverge from lr 0.01; at
 # 0.005 both stay finite.
 CONV_OPT = dataclasses.replace(OPT, lr=0.005)
+DROPOUT_SEED = 1          # the loss's rng=PRNGKey(1), fixed at every step
 
 
 def dfxp_policy(fused_matmul: bool = False) -> PrecisionPolicy:
@@ -70,27 +74,36 @@ def launch_counts() -> dict:
             "qmatmul": k2.launches()}
 
 
+def loss_fn(cfg: MX.MaxoutConfig, policy: PrecisionPolicy, device):
+    """The recipe's training loss: dropout keyed by ``PRNGKey(1)`` at
+    every step, as the reference's quickstart and harness key it."""
+    rng = prng.PRNGKey(DROPOUT_SEED, device)
+
+    def fn(p, b, s, exps):
+        return MX.loss_fn(cfg, policy, p, b, exps, s, rng=rng)
+
+    return fn
+
+
 def calibrated_exps(cfg: MX.MaxoutConfig, policy: PrecisionPolicy, device, *,
                     data=None, steps: int = 8, seed: int = 0,
-                    opt: OptConfig = OPT) -> dict:
-    """Initial DFXP exponents from ``steps`` observe-steps (paper §9.3)."""
+                    opt: OptConfig = OPT, n_batches=None) -> dict:
+    """Initial DFXP exponents from ``steps`` observe-steps (paper §9.3)
+    from the weights of ``PRNGKey(seed)``, dropout on."""
     data = data or data_for(cfg)
-    obs = dataclasses.replace(policy, arithmetic="observe")
-
-    def obs_loss(p, b, s, exps):
-        return MX.loss_fn(cfg, obs, p, b, exps, s)
-
+    obs = dataclasses.replace(policy, arithmetic="observe", storage="sim")
     params0 = MX.init_params(cfg, seed, device)
     gs = MX.group_shapes(cfg)
-    return calibrate(obs_loss, params0, gs, policy, opt,
-                     batches(data, steps + 2, device), steps=steps)
+    return calibrate(loss_fn(cfg, obs, device), params0, gs, policy, opt,
+                     batches(data, n_batches or steps + 2, device),
+                     steps=steps)
 
 
 def train(cfg: MX.MaxoutConfig, policy: PrecisionPolicy, device, *,
           init_exp=-8.0, steps: int = STEPS, batch: int = BATCH, data=None,
           seed: int = 7, eval_n: int = 1024, opt: OptConfig = OPT) -> dict:
-    """Train ``steps`` SGD steps from seeded weights; evaluate on
-    ``data.eval_set(eval_n)``.  Returns the final loss, every step's
+    """Train ``steps`` SGD steps from the weights of ``PRNGKey(seed)``
+    with dropout on; evaluate on ``data.eval_set(eval_n)``.  Returns the final loss, every step's
     loss, the eval accuracy, the final state, the seconds the loop took
     and the K1/K2 launches of the training loop alone."""
     data = data or data_for(cfg)
@@ -98,16 +111,12 @@ def train(cfg: MX.MaxoutConfig, policy: PrecisionPolicy, device, *,
     params = MX.init_params(cfg, seed, device)
     state = init_train_state(params, sgd_init(params), gs, policy,
                              init_exp=init_exp)
-
-    def loss_fn(p, b, s, exps):
-        return MX.loss_fn(cfg, policy, p, b, exps, s)
-
-    step = make_train_step(loss_fn, gs, policy, opt)
+    step = make_train_step(loss_fn(cfg, policy, device), gs, policy, opt)
     before = launch_counts()
     losses = []
     t0 = time.perf_counter()
-    for b in batches(data, steps, device, batch):
-        state, m = step(state, b)
+    for i, b in enumerate(batches(data, steps, device, batch)):
+        state, m = step(state, b, prng.PRNGKey(i, device))
         losses.append(m["loss"])
     losses = torch.stack(losses).tolist()          # one sync for the run
     seconds = time.perf_counter() - t0

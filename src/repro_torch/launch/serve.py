@@ -1,10 +1,12 @@
 """Serving CLI over the ``repro_torch.serve`` continuous-batching engine.
 
-Mixed-length prompts, per-request budgets, greedy sampling, an optionally
-DFXP-packed KV pool (``--cache-bits 8|16``), the hand-written
-flash-decode/flash-prefill kernels (``--fused-decode``), chunked prefill
-(``--prefill-chunk C``) and the paged pool with prefix sharing
-(``--page-size P``), on the card by default:
+Mixed-length prompts, per-request budgets, greedy, temperature or top-k
+sampling (``--sampler``, ``--temperature``, ``--top-k``: per-request
+threefry streams keyed by ``--seed``), an optionally DFXP-packed KV pool
+(``--cache-bits 8|16``), the hand-written flash-decode/flash-prefill
+kernels (``--fused-decode``), chunked prefill (``--prefill-chunk C``)
+and the paged pool with prefix sharing (``--page-size P``), on the card
+by default:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \\
       --num-requests 6 --slots 4 --prompt-len 96,200,384 --max-new 16 \\

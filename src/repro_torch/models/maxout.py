@@ -14,10 +14,11 @@ applied in the optimizer (:func:`repro_torch.optim.apply_max_norm`).
 Layouts are the reference's: dense weights ``[d_in, pieces*h]``, conv
 weights OIHW with ``O = pieces*channels``, activations NCHW; a maxout
 unit's pieces are the *leading* split (``(B, pieces, h)``, max over axis
-1).  Dropout draws from ``jax.random`` in the reference and waits for the
-PRNG port (ROADMAP item 14): a dropout rate with a generator given raises
-rather than training without it; ``rng=None`` is the reference's own
-dropout-off path.
+1).  Randomness is the reference's, drawn from threefry keys
+(:mod:`repro_torch.core.prng`): :func:`init_params` draws the same
+normals from the same key, and dropout (input, then each hidden layer,
+keys split off ``rng`` in the reference's order) the same masks;
+``rng=None`` is the dropout-off path, as in the reference.
 """
 from __future__ import annotations
 
@@ -25,9 +26,12 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
+from repro_torch.core import prng
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.tape import QTape
 
@@ -51,46 +55,48 @@ class MaxoutConfig:
     max_col_norm: float = 1.9365     # pylearn2 default used by the paper
 
 
-def _normal(gen: torch.Generator, shape, fan_in: int, device) -> Tensor:
-    w = torch.randn(shape, generator=gen, dtype=torch.float32)
-    return (w / math.sqrt(fan_in)).to(device)
+def _normal(key: Tensor, shape, fan_in: int) -> Tensor:
+    return prng.normal(key, shape) / math.sqrt(fan_in)
 
 
-def init_params(cfg: MaxoutConfig, generator, device="cuda") -> dict:
-    """Random weights (normal / sqrt(fan_in), zero biases), drawn on the
-    CPU from ``generator`` (a ``torch.Generator`` or an int seed) and
-    moved to ``device``, so every device starts from the same numbers."""
-    gen = generator
-    if not isinstance(gen, torch.Generator):
-        gen = torch.Generator().manual_seed(int(generator))
+def init_params(cfg: MaxoutConfig, key, device="cuda") -> dict:
+    """The reference's initial weights: threefry normals / sqrt(fan_in),
+    zero biases, one key split off ``key`` per layer in the reference's
+    order.  ``key`` is a threefry key or an int seed (``PRNGKey(seed)``);
+    the numbers are drawn on ``device`` and are the same on every
+    device."""
+    key = prng.as_key(key, resolve_device(device))
+    device = key.device
     params = {}
+
+    def layer(key, shape, fan_in):
+        key, k = prng.split(key)
+        return key, _normal(k, shape, fan_in)
+
     if cfg.conv:
         C = cfg.image_shape[0]
         k = cfg.conv_kernel
         for i, ch in enumerate(cfg.conv_channels):
-            fan_in = C * k ** 2
+            key, w = layer(key, (cfg.pieces * ch, C, k, k), C * k ** 2)
             params[f"conv{i}"] = {
-                "w": _normal(gen, (cfg.pieces * ch, C, k, k), fan_in, device),
+                "w": w,
                 "b": torch.zeros((cfg.pieces * ch,), device=device),
             }
             C = ch
         feat = conv_out_dim(cfg)
-        params["out"] = {
-            "w": _normal(gen, (feat, cfg.num_classes), feat, device),
-            "b": torch.zeros((cfg.num_classes,), device=device),
-        }
+        key, w = layer(key, (feat, cfg.num_classes), feat)
     else:
         d = cfg.input_dim
         for i, h in enumerate(cfg.hidden):
+            key, w = layer(key, (d, cfg.pieces * h), d)
             params[f"fc{i}"] = {
-                "w": _normal(gen, (d, cfg.pieces * h), d, device),
+                "w": w,
                 "b": torch.zeros((cfg.pieces * h,), device=device),
             }
             d = h
-        params["out"] = {
-            "w": _normal(gen, (d, cfg.num_classes), d, device),
-            "b": torch.zeros((cfg.num_classes,), device=device),
-        }
+        key, w = layer(key, (d, cfg.num_classes), d)
+    params["out"] = {"w": w,
+                     "b": torch.zeros((cfg.num_classes,), device=device)}
     return params
 
 
@@ -113,12 +119,16 @@ def group_shapes(cfg: MaxoutConfig) -> dict:
     return groups
 
 
-def _check_dropout(cfg: MaxoutConfig, rng) -> None:
-    if rng is not None and (cfg.dropout_input or cfg.dropout_hidden):
-        raise NotImplementedError(
-            "dropout draws from jax.random in the reference and needs the "
-            "threefry PRNG port (ROADMAP module item 14); pass rng=None to "
-            "train without dropout, as the reference's rng=None path does")
+def _dropout(x: Tensor, rate: float, key: Tensor) -> Tensor:
+    """Inverted dropout: keep with probability ``1 - rate`` (threefry
+    ``bernoulli``), kept values times ``1 / (1 - rate)`` — the reference's
+    ``x / (1 - rate)`` as its compiled step computes it, a product with
+    the float32 reciprocal."""
+    if rate == 0.0:
+        return x
+    keep = prng.bernoulli(key, 1.0 - rate, tuple(x.shape))
+    inv = float(np.float32(1.0) / np.float32(1.0 - rate))
+    return torch.where(keep, x * inv, 0.0)
 
 
 def _conv_same(x: Tensor, w: Tensor) -> Tensor:
@@ -132,11 +142,17 @@ def _conv_same(x: Tensor, w: Tensor) -> Tensor:
 
 
 def forward(cfg: MaxoutConfig, policy: PrecisionPolicy, params, x: Tensor,
-            scales, sinks, *, rng: Optional[torch.Generator] = None):
-    """``x``: [B, input_dim] (PI) or [B, C, H, W] (conv).  Returns
+            scales, sinks, *, rng: Optional[Tensor] = None):
+    """``x``: [B, input_dim] (PI) or [B, C, H, W] (conv).  ``rng``: a
+    threefry key for dropout, ``None`` for none (eval).  Returns
     ``(logits [B, num_classes], forward stats)``."""
-    _check_dropout(cfg, rng)
     tape = QTape(policy, scales, sinks)
+    if rng is not None:
+        if isinstance(rng, torch.Generator):
+            raise TypeError("dropout draws from a threefry key "
+                            "(repro_torch.core.prng), not a torch.Generator")
+        rng, k = prng.split(prng.as_key(rng, x.device))
+        x = _dropout(x, cfg.dropout_input, k)
     if cfg.conv:
         for i, ch in enumerate(cfg.conv_channels):
             p = params[f"conv{i}"]
@@ -147,6 +163,9 @@ def forward(cfg: MaxoutConfig, policy: PrecisionPolicy, params, x: Tensor,
             z = z.reshape(B, cfg.pieces, ch, H, W).amax(dim=1)   # maxout
             z = F.max_pool2d(z, cfg.pool)
             z = tape.act(f"conv{i}/act", z)
+            if rng is not None:
+                rng, k = prng.split(rng)
+                z = _dropout(z, cfg.dropout_hidden, k)
             x = z
         x = x.reshape(x.shape[0], -1)
     else:
@@ -156,6 +175,9 @@ def forward(cfg: MaxoutConfig, policy: PrecisionPolicy, params, x: Tensor,
             z = tape.act(f"fc{i}/pre", z)
             z = z.reshape(z.shape[0], cfg.pieces, h).amax(dim=1)  # maxout
             z = tape.act(f"fc{i}/act", z)
+            if rng is not None:
+                rng, k = prng.split(rng)
+                z = _dropout(z, cfg.dropout_hidden, k)
             x = z
     p = params["out"]
     logits = tape.dot("out/w", x, p["w"]) + p["b"]

@@ -38,6 +38,14 @@ Every device step has fixed shapes:
   request preempted more than ``max_preempts`` times, or a requester with
   no sibling to evict, resolves ``FAILED``.
 
+Sampling draws from per-request threefry streams keyed ``(seed, uid,
+absolute position)`` (:mod:`repro_torch.serve.sampler`), and a
+stochastic packed pool (``CacheQuantConfig(stochastic=True)``) seeds
+each slot's rounding chains from the same request key, so a request's
+tokens do not depend on what else is batched with it.  A paged pool
+under stochastic rounding shares no prefix pages: a shared page cannot
+replay two requests' rounding streams.
+
 Each step makes one device-to-host transfer: the sampled tokens with
 their NaN/Inf flags (``sampler.guard_logits``).  A flagged slot resolves
 ``FAILED`` with its clean prefix; ``run()`` out of step budget resolves
@@ -98,8 +106,9 @@ class EngineOptions:
 
     ``cache_bits`` 0 → float32 KV pool, 8/16 → DFXP-packed mantissas;
     ``cache_cfg`` overrides the packed pool's controller settings;
-    ``sampler_cfg`` is greedy; ``seed`` is the engine seed that keys the
-    per-request sampling streams once those are ported; ``init_exp`` is
+    ``sampler_cfg`` is greedy, temperature or top-k; ``seed`` is the
+    engine seed that keys every request's sampling and cache-rounding
+    streams (with the request's uid); ``init_exp`` is
     every scale group's log2-step; ``prefill_chunk`` is the chunk size
     ``C`` (``None`` takes ``policy.prefill_chunk``, 0 is whole-prompt).
     ``page_size`` ``P > 0`` (``None`` takes ``policy.page_size``) switches
@@ -164,15 +173,18 @@ class ServeEngine:
         self._packed = kvp.packed
         self._paged = kvp.paged
         self._pool = kvp.pool
+        self._stochastic = bool(self._packed and self.cache_cfg.stochastic)
         if self._paged:
-            # prefix sharing is always on: the reference turns it off only
-            # under stochastic rounding, which the port does not have yet
             self._alloc = paged.PageAllocator(kvp.total_pages,
                                               self.page_size, kvp.nblocks)
+            # a shared page cannot replay two requests' stochastic PRNG
+            # chains: sharing off, copy-on-write and paging still on
+            self._share_prefix = not self._stochastic
 
         B = max_slots
         self._tok = np.zeros(B, np.int32)
         self._pos = np.zeros(B, np.int32)
+        self._keys = np.zeros((B, 2), np.int64)   # request keys per slot
         self._active = np.zeros(B, bool)
         self._reqs: List[Optional[Request]] = [None] * B
         self._gen: List[List[int]] = [[] for _ in range(B)]
@@ -200,24 +212,46 @@ class ServeEngine:
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
 
-    def _sample(self, logits):
-        """Shared tail: sentinel → sample, fetched as one host transfer."""
+    def _request_key(self, uid: int) -> np.ndarray:
+        """The root key of request ``uid``'s streams, computed on the
+        host once a request."""
+        return sampler.request_key(self.seed, uid).numpy()
+
+    def _draw(self, keys: np.ndarray, pos) -> dict:
+        """:meth:`_sample`'s keyword for rows with request keys ``keys``
+        [B, 2] drawing their tokens at absolute positions ``pos`` [B]:
+        none for greedy, which draws nothing."""
+        if self.sampler_cfg.kind == "greedy":
+            return {}
+        return {"draw": (keys, pos)}
+
+    def _sample(self, logits, draw=None):
+        """Shared tail: sentinel → sample, fetched as one host transfer.
+        ``draw`` (from :meth:`_draw`) keys a sampled row's token on its
+        request and position."""
         safe, bad = sampler.guard_logits(logits)
-        tok = sampler.sample(safe, self.sampler_cfg)
+        pkeys = None
+        if draw is not None:
+            pkeys = sampler.position_keys(self._dev(draw[0]),
+                                          self._dev(draw[1]))
+        tok = sampler.sample(safe, pkeys, self.sampler_cfg)
         out = torch.stack([tok, bad.to(torch.int32)]).cpu().numpy()
         return out[0], out[1].astype(bool)
 
     @torch.no_grad()
-    def _prefill_impl(self, tokens):
+    def _prefill_impl(self, tokens, keys):
         logits, _, cache = T.prefill(self.cfg, self.policy, self.params,
                                      {"tokens": tokens}, self.exps,
                                      max_cache_len=self.max_len)
-        first, bad = self._sample(logits)
+        # the first generated token sits at absolute position L
+        L = np.full(tokens.shape[0], tokens.shape[1], np.int32)
+        first, bad = self._sample(logits, **self._draw(keys, L))
         return first, bad, cache
 
     @torch.no_grad()
-    def _insert_impl(self, entry, slots):
-        kv_pool.insert(self._pool, entry, slots, self.codec)
+    def _insert_impl(self, entry, slots, keys):
+        kv_pool.insert(self._pool, entry, slots, self.codec,
+                       self._dev(keys) if self._stochastic else None)
 
     @torch.no_grad()
     def _decode_impl(self, mask=None):
@@ -225,7 +259,7 @@ class ServeEngine:
             self.cfg, self.policy, self.params, self._pool,
             self._dev(self._tok), self._dev(self._pos), self.exps,
             kv_codec=self.codec, append_mask=mask)
-        return self._sample(logits)
+        return self._sample(logits, **self._draw(self._keys, self._pos + 1))
 
     @torch.no_grad()
     def _chunk_impl(self, tokens, slot: int, p0: int, n_valid: int):
@@ -241,7 +275,10 @@ class ServeEngine:
             self._dev([n_valid]).to(torch.int32), self.exps,
             kv_codec=self.codec)
         paged.merge_slot(self._pool, sub, slot)
-        return self._sample(logits)
+        # the chunk's token sits at absolute position p0 + n_valid (the
+        # prompt length on the final chunk), as whole-prompt prefill's
+        return self._sample(logits, **self._draw(
+            self._keys[slot:slot + 1], np.array([p0 + n_valid], np.int32)))
 
     # -- request lifecycle ---------------------------------------------------
     def submit(self, prompt, max_new: int = 16,
@@ -419,12 +456,14 @@ class ServeEngine:
                 group.append(self._queue.popleft())
             slots = [int(free.pop(0)) for _ in group]
             tokens = self._dev(np.stack([r.tokens for r in group]))
-            first, bad, entry = self._prefill_impl(tokens)
-            self._insert_impl(entry, self._dev(slots))
-            for r, s, tok, b in zip(group, slots, first, bad):
+            keys = np.stack([self._request_key(r.uid) for r in group])
+            first, bad, entry = self._prefill_impl(tokens, keys)
+            self._insert_impl(entry, self._dev(slots), keys)
+            for r, s, tok, b, key in zip(group, slots, first, bad, keys):
                 self._mark_admitted(s, r)
                 self._reqs[s], self._gen[s] = r, []
                 self._tok[s], self._pos[s] = tok, plen
+                self._keys[s] = key
                 self._active[s] = True
                 if b:   # NaN/Inf prefill logits: quarantine at admission
                     self._finish(s, RequestStatus.FAILED)
@@ -448,6 +487,11 @@ class ServeEngine:
             self._pos[s] = 0
             self._gen[s] = []
             self._active[s] = False
+            self._keys[s] = self._request_key(r.uid)
+            if self._stochastic:
+                # seed the slot's cache PRNG chains before its first chunk
+                kv_pool.seed_slot_keys(self._pool, s,
+                                       self._dev(self._keys[s]))
             self._prefilling.append(s)
             self._mark_admitted(s, r)
 
@@ -462,7 +506,8 @@ class ServeEngine:
             # registered prefix pages (refcounted, read-only until a write
             # forks them).  FIFO chunk order means an earlier request
             # registers its prefix before a later one's first chunk looks.
-            pages, shared = self._alloc.match_prefix(r.tokens)
+            pages, shared = (self._alloc.match_prefix(r.tokens)
+                             if self._share_prefix else ([], 0))
             row = self._alloc.new_slot(s, pages)
             paged.reset_slot(self._pool, s, shared, row, float(shared))
             self._pfill[s] = shared   # shared rows are already written
@@ -480,7 +525,7 @@ class ServeEngine:
         self.metrics.on_prefill_chunk(r.uid)
         if f + n == r.tokens.size:    # final chunk: first token sampled
             self._prefilling.popleft()
-            if self._paged:
+            if self._paged and self._share_prefix:
                 self._alloc.register_prefix(s, r.tokens)
             self._active[s] = True
             if bad[0]:

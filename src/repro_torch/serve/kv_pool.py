@@ -14,8 +14,12 @@ attention kernels' tile loads.  Scale management is the core controller:
   ×2/÷2 rule per slot; stored mantissas are rescaled in place when an
   exponent moves.
 
-Rounding is deterministic; stochastic appends wait for the threefry PRNG
-port (ROADMAP module item 14).  The reference skips the mantissa re-grid
+Rounding is to nearest even, or, with ``CacheQuantConfig(stochastic=True)``,
+stochastic on every append: each slot carries a threefry key chain per
+layer (``key``), seeded from its request's key and split into three at
+every append (K draw, V draw, next key), as the reference's.  The
+admission chunk and :meth:`PackedKVCodec.pack_entry` round to nearest,
+as there.  The reference skips the mantissa re-grid
 with a ``lax.cond`` when no exponent moved; here the re-grid always runs
 (``round(m * 2**0) == m`` exactly), which costs one pass over a layer's
 slots and saves a device-to-host sync per layer per step.
@@ -29,6 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import prng
 from repro_torch.core.packed import (_overflow_counts, container_dtype, pack,
                                      pack_rows, qrange)
 from repro_torch.core.quant import exact_pow2
@@ -48,7 +53,7 @@ class CacheQuantConfig:
     update_interval: int = 16        # appends between controller applications
     max_overflow_rate: float = 1e-4  # paper §5 threshold
     margin_bits: int = 1             # calibration headroom on admit
-    stochastic: bool = False         # stochastic-rounded appends (not ported)
+    stochastic: bool = False         # stochastic-rounded appends
 
     def __post_init__(self):
         if not 2 <= self.width <= 16:
@@ -64,16 +69,26 @@ def _rescale(m: Tensor, de: Tensor, width: int) -> Tensor:
     return mf.clamp_(qmin, qmax).to(m.dtype)
 
 
-def _pack_chunk(x: Tensor, width: int, e: Tensor, keep: Tensor):
+def _pack_chunk(x: Tensor, width: int, e: Tensor, keep: Tensor, key=None,
+                det=None):
     """Quantize a chunk ``[B, C, ...]`` against per-row exponents ``e[B]``.
 
     ``keep`` [B, C] marks the rows that will be written; overflow
-    statistics count those rows only.  Returns ``(mantissa int[B, C, ...],
-    stats f32[B, 3])``.
+    statistics count those rows only.  ``key`` [B, 2] rounds
+    stochastically with one draw stream per slot; ``det`` [B] rounds a
+    row's slot to nearest instead (the admission chunk, as
+    ``pack_entry``).  Returns ``(mantissa int[B, C, ...], stats
+    f32[B, 3])``.
     """
     qmax, qmin = qrange(width)
     step = exact_pow2(e).reshape(e.shape + (1,) * (x.ndim - 1))
-    m = torch.round(x.to(torch.float32) / step)
+    m = x.to(torch.float32) / step
+    if key is not None:
+        u = prng.uniform(key, tuple(m.shape[1:]))
+        m = torch.where(det.reshape((-1,) + (1,) * (x.ndim - 1)),
+                        torch.round(m), torch.floor(m + u))
+    else:
+        m = torch.round(m)
     kexp = keep.reshape(keep.shape + (1,) * (x.ndim - 2))
     ovf, ovfh = _overflow_counts(m, width, axes=tuple(range(1, x.ndim)),
                                  mask=kexp)
@@ -81,6 +96,26 @@ def _pack_chunk(x: Tensor, width: int, e: Tensor, keep: Tensor):
     total = keep.sum(dim=1).to(torch.float32) * row_sz
     stats = torch.stack([ovf, ovfh, total], dim=-1)
     return m.clamp_(qmin, qmax).to(container_dtype(width)), stats
+
+
+def append_keys(keys: Tensor, mask: Optional[Tensor] = None):
+    """One append's draw keys of every slot's chain ``keys`` [B, 2]:
+    ``(key_k, key_v, next)`` from ``split(key, 3)``; a masked-off row
+    (``mask`` False) keeps its key."""
+    ks = prng.split(keys, 3)
+    nxt = ks[:, 2] if mask is None else torch.where(mask[:, None], ks[:, 2],
+                                                    keys)
+    return ks[:, 0], ks[:, 1], nxt
+
+
+def _layer_keys(slot_keys: Tensor, n: int) -> Tensor:
+    """The cache chains ``[n, g, 2]`` of requests keyed ``slot_keys``
+    [g, 2]: a domain-tagged root ``fold_in(key, 2**31 - 1)`` (the sampler
+    folds the same request key by position, which never reaches it)
+    folded by layer index."""
+    roots = prng.fold_in(slot_keys, 2 ** 31 - 1)
+    layer = torch.arange(n, device=roots.device)
+    return prng.fold_in(roots[None], layer[:, None])
 
 
 class PackedKVCodec:
@@ -94,6 +129,7 @@ class PackedKVCodec:
         acc_k/v  : f32 [n, B, 3]                 controller window stats
         tot_k/v  : f32 [n, B, 3]                 cumulative stats (metrics)
         n_app    : f32 [n, B]                    appends since admit
+        key      : int64 [n, B, 2]               (stochastic mode only)
 
     ``fused_decode`` selects the attention path, as on
     :class:`repro_torch.models.layers.RawKVCodec`: the flash kernels read
@@ -102,10 +138,6 @@ class PackedKVCodec:
     """
 
     def __init__(self, config: CacheQuantConfig, fused_decode: bool = False):
-        if config.stochastic:
-            raise NotImplementedError(
-                "stochastic KV appends need the threefry PRNG port "
-                "(ROADMAP module item 14)")
         self.cfg = config
         self.fused_decode = bool(fused_decode)
 
@@ -156,14 +188,19 @@ class PackedKVCodec:
 
         ``mask`` (bool [B]) suppresses the append for masked-off rows
         completely — no write, no statistics, no counter advance, no
-        controller application.
+        controller application, no move of the slot's key chain.
         """
         cfg = self.cfg
         W = entry["k_m"].shape[1]
         slot = pos % W
-        k_m, st_k = pack_rows(k_new, cfg.width, entry["k_e"])
-        v_m, st_v = pack_rows(v_new, cfg.width, entry["v_e"])
         out = dict(entry)
+        key_k = key_v = None
+        if cfg.stochastic:
+            key_k, key_v, out["key"] = append_keys(entry["key"], mask)
+        k_m, st_k = pack_rows(k_new, cfg.width, entry["k_e"],
+                              stochastic_keys=key_k)
+        v_m, st_v = pack_rows(v_new, cfg.width, entry["v_e"],
+                              stochastic_keys=key_v)
         if mask is None:
             napp = 1.0
         else:
@@ -212,9 +249,12 @@ class PackedKVCodec:
 
         k_e = torch.where(first, _cal(k_new), entry["k_e"])
         v_e = torch.where(first, _cal(v_new), entry["v_e"])
-        k_m, st_k = _pack_chunk(k_new, cfg.width, k_e, keep)
-        v_m, st_v = _pack_chunk(v_new, cfg.width, v_e, keep)
         out = dict(entry)
+        key_k = key_v = None
+        if cfg.stochastic:
+            key_k, key_v, out["key"] = append_keys(entry["key"])
+        k_m, st_k = _pack_chunk(k_new, cfg.width, k_e, keep, key_k, first)
+        v_m, st_v = _pack_chunk(v_new, cfg.width, v_e, keep, key_v, first)
         k_buf = L.scatter_drop(entry["k_m"], slot, k_m)
         v_buf = L.scatter_drop(entry["v_m"], slot, v_m)
         pos_buf = torch.where(first[:, None], -1, entry["pos"])
@@ -242,7 +282,7 @@ class PackedKVCodec:
         dev = raw["pos"].device
         idtype = container_dtype(self.cfg.width)
         f32 = dict(dtype=torch.float32, device=dev)
-        return {
+        entry = {
             "k_m": torch.zeros(raw["k"].shape, dtype=idtype, device=dev),
             "v_m": torch.zeros(raw["v"].shape, dtype=idtype, device=dev),
             "k_e": torch.zeros((n, B), **f32),
@@ -254,13 +294,19 @@ class PackedKVCodec:
             "tot_v": torch.zeros((n, B, 3), **f32),
             "n_app": torch.zeros((n, B), **f32),
         }
+        if self.cfg.stochastic:
+            entry["key"] = torch.zeros((n, B, 2), dtype=torch.int64,
+                                       device=dev)
+        return entry
 
-    def pack_entry(self, raw: dict) -> dict:
+    def pack_entry(self, raw: dict, slot_keys: Optional[Tensor] = None
+                   ) -> dict:
         """Quantize a fresh prefill entry ``[n, g, ...]`` for pool insertion.
 
         Exponents are calibrated per layer/slot from the prompt K/V
         max-magnitude (empty ring slots, ``pos < 0``, excluded);
-        accumulators start at zero.
+        accumulators start at zero.  ``slot_keys`` [g, 2] (the requests'
+        keys) seed the slots' key chains in stochastic mode.
         """
         cfg = self.cfg
         n, g, W = raw["pos"].shape
@@ -273,7 +319,7 @@ class PackedKVCodec:
         k_e, v_e = _cal(raw["k"]), _cal(raw["v"])
         exp = (..., None, None, None)
         f32 = dict(dtype=torch.float32, device=raw["pos"].device)
-        return {
+        entry = {
             "k_m": pack(raw["k"], cfg.width, k_e[exp]).mantissa,
             "v_m": pack(raw["v"], cfg.width, v_e[exp]).mantissa,
             "k_e": k_e,
@@ -285,6 +331,12 @@ class PackedKVCodec:
             "tot_v": torch.zeros((n, g, 3), **f32),
             "n_app": torch.zeros((n, g), **f32),
         }
+        if cfg.stochastic:
+            if slot_keys is None:
+                raise ValueError("a stochastic cache needs per-slot keys")
+            entry["key"] = _layer_keys(prng.as_key(slot_keys,
+                                                   raw["pos"].device), n)
+        return entry
 
 
 def make_pool(cfg: T.ModelConfig, max_slots: int, max_len: int,
@@ -367,18 +419,35 @@ def make_kv_pool(cfg: T.ModelConfig, policy, *, max_slots: int,
 
 
 def insert(pool: dict, raw_entry: dict, slots: Tensor,
-           codec: Optional[PackedKVCodec] = None) -> dict:
+           codec: Optional[PackedKVCodec] = None,
+           slot_keys: Optional[Tensor] = None) -> dict:
     """Write a fresh prefill cache (group size g) into pool rows ``slots``,
     in place.  In packed mode each entry is quantized via
-    ``codec.pack_entry`` first.  Returns ``pool``."""
+    ``codec.pack_entry`` first (``slot_keys`` [g, 2] seeding a stochastic
+    pool's chains).  Returns ``pool``."""
     slots = slots.long()
     for sname, sc in pool.items():
         for bkey, pe in sc.items():
             src = raw_entry[sname][bkey]
             if codec is not None and "k_m" in pe:
-                src = codec.pack_entry(src)
+                src = codec.pack_entry(src, slot_keys)
             for name, dst in pe.items():
                 dst[:, slots] = src[name].to(dst.dtype)
+    return pool
+
+
+def seed_slot_keys(pool: dict, slot: int, key: Tensor) -> dict:
+    """Seed one slot's stochastic-rounding chains before chunked
+    admission, in place: :meth:`PackedKVCodec.pack_entry`'s derivation
+    (the domain-tagged root of the request's ``key`` folded by layer), so
+    a request's cache stream is the same whichever admission path seeds
+    it.  Entries without a ``key`` field (deterministic pools) are left
+    as they are.  Returns ``pool``."""
+    for sc in pool.values():
+        for e in sc.values():
+            if isinstance(e, dict) and "key" in e:
+                k = prng.as_key(key, e["key"].device)[None]
+                e["key"][:, slot] = _layer_keys(k, e["key"].shape[0])[:, 0]
     return pool
 
 

@@ -48,6 +48,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.packed import _overflow_counts, container_dtype, \
     pack_rows, qrange
 from repro_torch.core.quant import exact_pow2
@@ -56,13 +57,13 @@ from repro_torch.kernels.attn import ops as attn_ops
 from repro_torch.kernels.attn import ref as AR
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.serve.kv_pool import _rescale
+from repro_torch.serve.kv_pool import _rescale, append_keys
 
 Tensor = torch.Tensor
 
 # entry leaves indexed by slot on axis 1 (full [n, B, ...] shapes); the
 # page-storage leaves are indexed by page
-_SLOT_KEYS = ("bt", "pos", "n_app")
+_SLOT_KEYS = ("bt", "pos", "n_app", "key")
 PAGE_KEYS = ("k_m", "v_m", "k_e", "v_e", "acc_k", "acc_v", "tot_k", "tot_v")
 
 
@@ -86,17 +87,26 @@ def _put(buf: Tensor, index, vals) -> Tensor:
     return out
 
 
-def _pack_paged_rows(x: Tensor, width: int, e_rows: Tensor, keep: Tensor):
+def _pack_paged_rows(x: Tensor, width: int, e_rows: Tensor, keep: Tensor,
+                     key=None, det=None):
     """Quantize chunk rows ``[B, C, ...]`` against per-row exponents.
 
     ``e_rows`` is ``[B, C]``: each row quantizes against its destination
-    page's exponent.  Returns ``(mantissa int[B, C, ...], stats
-    f32[B, C, 3])`` with per-row statistics of the kept rows, which the
-    caller scatter-adds per page.
+    page's exponent.  ``key`` [B, 2] rounds stochastically, one stream a
+    slot, except where ``det`` [B] (an admission chunk) rounds to
+    nearest.  Returns ``(mantissa int[B, C, ...], stats f32[B, C, 3])``
+    with per-row statistics of the kept rows, which the caller
+    scatter-adds per page.
     """
     qmax, qmin = qrange(width)
     step = exact_pow2(e_rows).reshape(e_rows.shape + (1,) * (x.ndim - 2))
-    m = torch.round(x.to(torch.float32) / step)
+    m = x.to(torch.float32) / step
+    if key is not None:
+        u = prng.uniform(key, tuple(m.shape[1:]))
+        m = torch.where(det.reshape((-1,) + (1,) * (x.ndim - 1)),
+                        torch.round(m), torch.floor(m + u))
+    else:
+        m = torch.round(m)
     kexp = keep.reshape(keep.shape + (1,) * (x.ndim - 2))
     ovf, ovfh = _overflow_counts(m, width, axes=tuple(range(2, x.ndim)),
                                  mask=kexp)
@@ -119,6 +129,7 @@ class PagedKVCodec:
         acc_k/v  : f32 [n, n_pages + 1, 3] controller window stats
         tot_k/v  : f32 [n, n_pages + 1, 3] cumulative stats (metrics)
         n_app    : f32 [n, B]              absolute stored-token count
+        key      : int64 [n, B, 2]         (stochastic mode only)
 
     Every layer's block-table row is identical.  Logical row ``r`` of a
     request lives at page ``bt[b, r // P]``, offset ``r % P``; ``pos`` is
@@ -133,10 +144,6 @@ class PagedKVCodec:
                  fused_decode: bool = False):
         if page_size < 1:
             raise ValueError(f"page_size {page_size} < 1")
-        if config is not None and config.stochastic:
-            raise NotImplementedError(
-                "stochastic KV appends need the threefry PRNG port "
-                "(ROADMAP module item 14)")
         self.page_size = page_size
         self.cfg = config
         self.fused_decode = bool(fused_decode)
@@ -195,7 +202,8 @@ class PagedKVCodec:
         (a fresh private page at a block boundary, a copy-on-write fork of
         a shared tail).  A row whose page starts here (``pos % P == 0``)
         calibrates the page exponent and resets the page's statistics;
-        ``mask`` (bool [B]) drops writes, statistics and counter advances.
+        ``mask`` (bool [B]) drops writes, statistics, counter advances and
+        key-chain moves.
         """
         P = entry["k_m"].shape[1]
         drop = entry["k_m"].shape[0] - 1                  # the scratch page
@@ -221,6 +229,9 @@ class PagedKVCodec:
             return out
 
         cfg = self.cfg
+        key_k = key_v = None
+        if cfg.stochastic:
+            key_k, key_v, out["key"] = append_keys(entry["key"], mask)
         fresh = (off == 0) & mask
         wfresh = torch.where(fresh, pages, drop)
 
@@ -230,8 +241,10 @@ class PagedKVCodec:
 
         k_e = _put(entry["k_e"], (wfresh,), _cal(k_new))
         v_e = _put(entry["v_e"], (wfresh,), _cal(v_new))
-        k_m, st_k = pack_rows(k_new, cfg.width, k_e[pages])
-        v_m, st_v = pack_rows(v_new, cfg.width, v_e[pages])
+        k_m, st_k = pack_rows(k_new, cfg.width, k_e[pages],
+                              stochastic_keys=key_k)
+        v_m, st_v = pack_rows(v_new, cfg.width, v_e[pages],
+                              stochastic_keys=key_v)
         mf = mask.to(torch.float32)[:, None]
         st_k, st_v = st_k * mf, st_v * mf
         k_buf = _put(entry["k_m"], (wpg, off), k_m)
@@ -293,6 +306,10 @@ class PagedKVCodec:
             return out
 
         cfg = self.cfg
+        key_k = key_v = None
+        if cfg.stochastic:
+            key_k, key_v, out["key"] = append_keys(entry["key"])
+        det = p0 == 0          # admission chunks round to nearest
         fresh_row = keep & (blk * P >= p0[:, None])
         wfr = torch.where(fresh_row, pages, drop).reshape(-1)
         fresh_pg = torch.zeros((drop + 1,), dtype=torch.bool, device=dev)
@@ -309,8 +326,10 @@ class PagedKVCodec:
 
         k_e = _cal(k_new, entry["k_e"])
         v_e = _cal(v_new, entry["v_e"])
-        k_m, rst_k = _pack_paged_rows(k_new, cfg.width, k_e[pages], keep)
-        v_m, rst_v = _pack_paged_rows(v_new, cfg.width, v_e[pages], keep)
+        k_m, rst_k = _pack_paged_rows(k_new, cfg.width, k_e[pages], keep,
+                                      key_k, det)
+        v_m, rst_v = _pack_paged_rows(v_new, cfg.width, v_e[pages], keep,
+                                      key_v, det)
         k_buf = _put(entry["k_m"], (wpg, off), k_m)
         v_buf = _put(entry["v_m"], (wpg, off), v_m)
 
@@ -367,6 +386,9 @@ class PagedKVCodec:
                 "tot_v": torch.zeros((n, arena, 3), **f32),
                 "n_app": torch.zeros((n, B), **f32),
             })
+            if self.cfg.stochastic:
+                entry["key"] = torch.zeros((n, B, 2), dtype=torch.int64,
+                                           device=dev)
         return entry
 
 

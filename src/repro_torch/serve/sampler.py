@@ -1,15 +1,20 @@
-"""Token sampling of the port: the numeric guard and greedy decoding.
+"""Token samplers with per-request PRNG streams — ``repro.serve.sampler``.
 
-The reference draws temperature/top-k tokens from per-request
-``jax.random`` streams keyed ``(seed, uid, position)``; those need the
-threefry PRNG port (ROADMAP module item 14), so here they raise and
-greedy decoding is the one sampler.
+Each request owns an independent key chain derived from ``(engine seed,
+request uid)``; the key for a sampled token is ``fold_in(request_key,
+absolute_position)``.  A request therefore draws the same stream whether
+it runs alone, batched, or admitted mid-decode into a freed slot.  Keys
+and draws are the reference's threefry ones (:mod:`repro_torch.core.prng`).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
+
+from repro_torch.core import prng
 
 Tensor = torch.Tensor
 
@@ -25,11 +30,18 @@ class SamplerConfig:
     def __post_init__(self):
         if self.kind not in KINDS:
             raise ValueError(f"unknown sampler {self.kind!r} (of {KINDS})")
-        if self.kind != "greedy":
-            raise NotImplementedError(
-                f"the {self.kind!r} sampler draws from per-request threefry "
-                f"streams; it waits for the PRNG port (ROADMAP module item "
-                f"14)")
+        if self.kind == "top_k" and self.top_k <= 0:
+            raise ValueError("top_k sampler needs top_k > 0")
+
+
+def request_key(seed: int, uid: int, device=None) -> Tensor:
+    """The root of one request's PRNG stream."""
+    return prng.fold_in(prng.PRNGKey(seed, device), uid)
+
+
+def position_keys(req_keys: Tensor, pos: Tensor) -> Tensor:
+    """Per-request keys [B, 2] for the tokens generated at ``pos`` [B]."""
+    return prng.fold_in(req_keys, pos)
 
 
 def guard_logits(logits: Tensor):
@@ -44,8 +56,19 @@ def guard_logits(logits: Tensor):
     return safe, bad
 
 
-def sample(logits: Tensor, cfg: SamplerConfig) -> Tensor:
-    """One token per row of ``logits`` [B, V]: the first maximum (greedy)."""
-    if cfg.kind != "greedy":
-        raise NotImplementedError("only greedy sampling is ported")
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def sample(logits: Tensor, keys: Optional[Tensor],
+           cfg: SamplerConfig) -> Tensor:
+    """One token per row of ``logits`` [B, V]; ``keys`` [B, 2] (unused,
+    and may be ``None``, for greedy).  Greedy takes the first maximum;
+    temperature and top-k draw ``categorical`` from the scaled logits,
+    top-k with every logit below the k-th largest set to ``-1e30``.  The
+    scaling is the reference's ``logits / temperature`` as its compiled
+    step computes it: a product with the float32 reciprocal."""
+    if cfg.kind == "greedy":
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    inv = float(np.float32(1.0) / np.float32(max(cfg.temperature, 1e-6)))
+    scaled = logits.to(torch.float32) * inv
+    if cfg.kind == "top_k":
+        kth = torch.topk(scaled, cfg.top_k, dim=-1).values[:, -1:]
+        scaled = torch.where(scaled < kth, -1e30, scaled)
+    return prng.categorical(keys, scaled).to(torch.int32)

@@ -25,9 +25,15 @@ the controller's cadence stay on the device, and nothing reads a value
 back to the host.  In ``packed`` storage parameters and momentum live as
 ``PackedArray``s; step 4 unpacks them and step 6 packs them again.
 
+Under ``policy.stochastic_rounding`` step 6 rounds stochastically, each
+leaf from ``fold_in(rng, hash(name) % 2**31)`` as the reference keys it
+(``step.py:261``).  Python salts ``hash`` of a string per process, so
+those streams repeat across processes only under a fixed
+``PYTHONHASHSEED``; the port and the reference agree within a process.
+
 Not ported here (ROADMAP): ``supervise``/``runaway_ovf`` (item 20),
-``numerics_tap`` (item 19), ``grad_transform``/``ef_transform`` (item
-22), and stochastic rounding (item 14); each raises if asked for.
+``numerics_tap`` (item 19) and ``grad_transform``/``ef_transform`` (item
+22); each raises if asked for.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.packed import pack
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.quant import exact_pow2, float_round
@@ -49,15 +56,20 @@ from .state import (TrainState, _bexp, _path_str, leaves_with_path,
 Tensor = torch.Tensor
 
 
-def quantize_param(x: Tensor, width: int, e):
-    """Quantize a parameter/gradient leaf (deterministic rounding); per-layer
-    stats if ``e`` is [L].  Returns ``(y, stats)`` with stats shaped
-    ``e.shape + (3,)``."""
+def quantize_param(x: Tensor, width: int, e, *, stochastic_key=None):
+    """Quantize a parameter/gradient leaf, to nearest even or, with
+    ``stochastic_key``, stochastically; per-layer stats if ``e`` is [L].
+    Returns ``(y, stats)`` with stats shaped ``e.shape + (3,)``."""
     e = torch.as_tensor(e, dtype=torch.float32, device=x.device)
     step = exact_pow2(_bexp(e, x))
     qmax = float(2 ** (width - 1) - 1)
     qmin = -float(2 ** (width - 1))
-    m = torch.round(x.to(torch.float32) / step)
+    m = x.to(torch.float32) / step
+    if stochastic_key is not None:
+        key = prng.as_key(stochastic_key, x.device)
+        m = torch.floor(m + prng.uniform(key, tuple(m.shape)))
+    else:
+        m = torch.round(m)
     over = (m > qmax) | (m < qmin)
     over_h = (m > qmax / 2) | (m < qmin / 2)
     if e.ndim:
@@ -131,11 +143,13 @@ def make_train_step(
     supervise: bool = False,
     runaway_ovf: Optional[float] = None,
 ):
-    """Build ``step(state, batch) -> (state, metrics)``.
+    """Build ``step(state, batch, rng=None) -> (state, metrics)``.
 
     ``metrics`` holds device tensors: ``loss`` (mean over microbatches),
-    ``grad_norm`` (before clipping) and ``step``.  The reference's ``rng``
-    argument keys stochastic rounding only, which is not ported yet."""
+    ``grad_norm`` (before clipping) and ``step``.  ``rng`` (a threefry
+    key, :mod:`repro_torch.core.prng`) keys the stochastic storage
+    rounding of ``policy.stochastic_rounding`` only, as in the reference;
+    the loss function draws its own dropout keys."""
     for flag, item, what in ((supervise or runaway_ovf is not None, 20,
                               "supervise/runaway_ovf"),
                              (numerics_tap, 19, "numerics_tap"),
@@ -148,8 +162,14 @@ def make_train_step(
     dyn = policy.dynamic
     quant_params = policy.enabled and policy.arithmetic in ("fixed", "dfxp")
 
-    def step(state: TrainState, batch):
+    stochastic = policy.stochastic_rounding and quant_params
+
+    def step(state: TrainState, batch, rng=None):
+        if stochastic and rng is None:
+            raise ValueError("stochastic rounding requires a PRNG key")
         dev = state.step.device
+        if stochastic:
+            rng = prng.as_key(rng, dev)
         sinks = {n: torch.zeros(s + (3,), dtype=torch.float32, device=dev,
                                 requires_grad=True)
                  for n, s in group_shapes.items() if n.startswith("g:")}
@@ -226,7 +246,11 @@ def make_train_step(
 
             # ---- 6. parameter/momentum storage rounding (p:/pm:) ---------
             def q_store(x, e, name):
-                return quantize_param(x, policy.update_width, e)
+                sk = None
+                if stochastic:
+                    sk = prng.fold_in(rng, hash(name) % (2 ** 31))
+                return quantize_param(x, policy.update_width, e,
+                                      stochastic_key=sk)
 
             def pk(x, e, name):
                 y, st = q_store(x, e, name)

@@ -135,12 +135,24 @@ def test_make_kv_pool_refuses_what_is_not_ported():
                                      cfg.num_kv_heads, cfg.head_dim)
     assert tuple(e["bt"].shape) == (cfg.num_layers, 2, 3)
     assert tuple(e["k_e"].shape) == (cfg.num_layers, 8)
-    with pytest.raises(NotImplementedError):
-        tkv.PackedKVCodec(tkv.CacheQuantConfig(stochastic=True))
-    with pytest.raises(NotImplementedError):
-        tkv.make_kv_pool(cfg, PrecisionPolicy(), max_slots=2, max_len=10,
-                         cache_bits=8, page_size=4, device="cpu",
-                         cache_cfg=tkv.CacheQuantConfig(stochastic=True))
+    # stochastic pools are ported: every packed entry carries the
+    # reference's per-slot key chains, laid out as its pools lay them
+    from repro.core.policy import PrecisionPolicy as JPolicy
+    from repro import configs as jconfigs
+    for page in (0, 4):
+        jkvp = jkv.make_kv_pool(jconfigs.get_smoke("llama3_8b"), JPolicy(),
+                                max_slots=2, max_len=10, cache_bits=8,
+                                page_size=page,
+                                cache_cfg=jkv.CacheQuantConfig(stochastic=True))
+        tkvp = tkv.make_kv_pool(cfg, PrecisionPolicy(), max_slots=2,
+                                max_len=10, cache_bits=8, page_size=page,
+                                device="cpu",
+                                cache_cfg=tkv.CacheQuantConfig(stochastic=True))
+        je, te = jkvp.pool["dec"]["0:attn"], tkvp.pool["dec"]["0:attn"]
+        assert set(je) == set(te) and "key" in te
+        np.testing.assert_array_equal(np.asarray(je["key"]),
+                                      te["key"].numpy())
+        assert te["key"].dtype == torch.int64
     kvp = tkv.make_kv_pool(cfg, PrecisionPolicy(fused_decode=True),
                            max_slots=2, max_len=8, cache_bits=16,
                            device="cpu")

@@ -162,15 +162,31 @@ def test_maxout_forward_matches_reference(kw, arith):
 
 
 def test_maxout_dropout_with_a_generator_raises():
-    cfg = TMX.MaxoutConfig(**PI)
-    p = TMX.init_params(cfg, 0, device="cpu")
-    x = torch.zeros(2, 784)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TMX.forward(cfg, TPolicy("float32"), p, x, {}, {},
+    """Dropout draws from threefry keys, as the reference's: a
+    ``torch.Generator`` is refused, and a key gives the reference's
+    compiled training forward (its masks, its ``x * (1 / (1 - rate))``)."""
+    jcfg = JMX.MaxoutConfig(**PI)
+    cfg = _tcfg(jcfg)
+    jp = JMX.init_params(jcfg, jax.random.PRNGKey(0))
+    p = maxout_params_from_jax(cfg, jax.tree.map(np.asarray, jp),
+                               device="cpu")
+    x = tdata.SyntheticImages().batch(0, 8)["x"]
+    with pytest.raises(TypeError, match="Generator"):
+        TMX.forward(cfg, TPolicy("float32"), p, torch.from_numpy(x), {}, {},
                     rng=torch.Generator())
-    TMX.forward(dataclasses.replace(cfg, dropout_input=0.0,
-                                    dropout_hidden=0.0),
-                TPolicy("float32"), p, x, {}, {}, rng=torch.Generator())
+    key = jax.random.PRNGKey(1)
+    for c in (jcfg, dataclasses.replace(jcfg, dropout_input=0.0,
+                                        dropout_hidden=0.0)):
+        jl, _ = jax.jit(lambda q, xx: JMX.forward(
+            c, JPolicy("float32"), q, xx, {}, {}, rng=key))(jp, x)
+        tl, _ = TMX.forward(_tcfg(c), TPolicy("float32"), p,
+                            torch.from_numpy(x), {}, {},
+                            rng=torch.from_numpy(np.asarray(key).astype(
+                                np.int64)))
+        # atol 1e-5 against logits of size ~5: f32 products summed in
+        # another order, over inputs the masks scale by 1.25 and 2
+        np.testing.assert_allclose(tl.detach().numpy(), np.asarray(jl),
+                                   rtol=1e-5, atol=1e-5)
 
 
 def test_maxout_params_from_jax_checks_shapes():
@@ -319,8 +335,16 @@ def test_train_step_raises_on_what_is_not_ported():
                dict(grad_transform=lambda g: g), dict(ef_transform=print)):
         with pytest.raises(NotImplementedError, match="item"):
             t_make_step(lambda *a: None, {}, pol, cfg, **kw)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TPolicy("dfxp", stochastic_rounding=True)
+    # stochastic rounding is ported (the PRNG): the policy builds as the
+    # reference's does, and its step rounds from the step's key
+    spol = TPolicy("dfxp", stochastic_rounding=True)
+    assert dataclasses.asdict(spol) == {
+        k: v for k, v in dataclasses.asdict(
+            JPolicy("dfxp", stochastic_rounding=True)).items()
+        if k in dataclasses.asdict(spol)}
+    step = t_make_step(lambda *a: None, {}, spol, cfg)
+    with pytest.raises(ValueError, match="key"):
+        step(None, {})
 
 
 def test_microbatched_step_matches_reference():
