@@ -15,8 +15,7 @@ import math
 
 import torch
 
-from . import prng
-from .quant import exact_pow2
+from .quant import exact_pow2, round_mantissa
 
 Tensor = torch.Tensor
 
@@ -69,12 +68,7 @@ def pack(x: Tensor, width: int, e, *, stochastic_key=None) -> PackedArray:
     ``stochastic_key``, clipped into a ``width``-bit container."""
     e = torch.as_tensor(e, dtype=torch.float32, device=x.device)
     qmax, qmin = qrange(width)
-    m = x.to(torch.float32) / exact_pow2(e)
-    if stochastic_key is not None:
-        key = prng.as_key(stochastic_key, x.device)
-        m = torch.floor(m + prng.uniform(key, tuple(m.shape)))
-    else:
-        m = torch.round(m)
+    m = round_mantissa(x.to(torch.float32) / exact_pow2(e), stochastic_key)
     m = m.clamp_(qmin, qmax)
     return PackedArray(m.to(container_dtype(width)), e, width)
 
@@ -96,12 +90,7 @@ def pack_rows(x: Tensor, width: int, e: Tensor, *, stochastic_keys=None):
     qmax, qmin = qrange(width)
     e = torch.as_tensor(e, dtype=torch.float32, device=x.device)
     step = exact_pow2(e).reshape(e.shape + (1,) * (x.ndim - 1))
-    m = x.to(torch.float32) / step
-    if stochastic_keys is not None:
-        keys = prng.as_key(stochastic_keys, x.device)
-        m = torch.floor(m + prng.uniform(keys, tuple(m.shape[1:])))
-    else:
-        m = torch.round(m)
+    m = round_mantissa(x.to(torch.float32) / step, stochastic_keys)
     axes = tuple(range(1, x.ndim))
     ovf, ovfh = _overflow_counts(m, width, axes=axes)
     total = torch.full(ovf.shape, float(math.prod(x.shape[1:])),

@@ -86,6 +86,23 @@ def enable_pallas_quantize(enable: bool = True, *,
     _PALLAS.update(enabled=bool(enable), min_size=int(min_size))
 
 
+def round_mantissa(m: Tensor, key=None, det: Optional[Tensor] = None
+                   ) -> Tensor:
+    """``m`` rounded to integers: half-to-even, or with ``key`` stochastically,
+    ``floor(m + u)`` with ``u`` uniform from threefry (the reference's draw,
+    bit for bit).  One key draws over all of ``m``; a batch ``[B, 2]`` draws
+    one stream per row of ``m`` [B, ...] (the reference's ``vmap``), and
+    ``det`` [B] then rounds its rows to nearest instead."""
+    if key is None:
+        return torch.round(m)
+    key = prng.as_key(key, m.device)
+    s = torch.floor(m + prng.uniform(key, tuple(m.shape[key.ndim - 1:])))
+    if det is None:
+        return s
+    return torch.where(det.reshape((-1,) + (1,) * (m.ndim - 1)),
+                       torch.round(m), s)
+
+
 def fixed_round(x: Tensor, width: int, e, *, stochastic: bool = False,
                 key: Optional[Tensor] = None
                 ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
@@ -113,14 +130,10 @@ def fixed_round(x: Tensor, width: int, e, *, stochastic: bool = False,
     step = exact_pow2(e)
     qmax = float(2 ** (width - 1) - 1)
     qmin = -float(2 ** (width - 1))
-    m = x.to(torch.float32) / step
-    if stochastic:
-        if key is None:
-            raise ValueError("stochastic rounding requires a PRNG key")
-        m = torch.floor(m + prng.uniform(prng.as_key(key, x.device),
-                                         tuple(m.shape)))
-    else:
-        m = torch.round(m)                          # round-half-to-even
+    if stochastic and key is None:
+        raise ValueError("stochastic rounding requires a PRNG key")
+    m = round_mantissa(x.to(torch.float32) / step,
+                       key if stochastic else None)
     ovf = _count((m > qmax) | (m < qmin))
     ovf_half = _count((m > qmax / 2) | (m < qmin / 2))
     y = m.clamp_(qmin, qmax).mul_(step)

@@ -51,6 +51,9 @@ CONV = MX.MaxoutConfig(name="maxout_conv", conv=True)
 # 0.005 both stay finite.
 CONV_OPT = dataclasses.replace(OPT, lr=0.005)
 DROPOUT_SEED = 1          # the loss's rng=PRNGKey(1), fixed at every step
+# (init seed, dropout seed) pairs for a row's spread over seeds: the
+# recipe's own first (``tests/test_torch_table3_seeds.py``, ``chip_smoke.py``)
+SEED_PAIRS = tuple((7 + k, DROPOUT_SEED + k) for k in range(8))
 
 
 def dfxp_policy(fused_matmul: bool = False) -> PrecisionPolicy:
@@ -74,10 +77,11 @@ def launch_counts() -> dict:
             "qmatmul": k2.launches()}
 
 
-def loss_fn(cfg: MX.MaxoutConfig, policy: PrecisionPolicy, device):
+def loss_fn(cfg: MX.MaxoutConfig, policy: PrecisionPolicy, device,
+            dropout_seed: int = DROPOUT_SEED):
     """The recipe's training loss: dropout keyed by ``PRNGKey(1)`` at
     every step, as the reference's quickstart and harness key it."""
-    rng = prng.PRNGKey(DROPOUT_SEED, device)
+    rng = prng.PRNGKey(dropout_seed, device)
 
     def fn(p, b, s, exps):
         return MX.loss_fn(cfg, policy, p, b, exps, s, rng=rng)
@@ -101,21 +105,27 @@ def calibrated_exps(cfg: MX.MaxoutConfig, policy: PrecisionPolicy, device, *,
 
 def train(cfg: MX.MaxoutConfig, policy: PrecisionPolicy, device, *,
           init_exp=-8.0, steps: int = STEPS, batch: int = BATCH, data=None,
-          seed: int = 7, eval_n: int = 1024, opt: OptConfig = OPT) -> dict:
+          seed: int = 7, eval_n: int = 1024, opt: OptConfig = OPT,
+          dropout_seed: int = DROPOUT_SEED) -> dict:
     """Train ``steps`` SGD steps from the weights of ``PRNGKey(seed)``
-    with dropout on; evaluate on ``data.eval_set(eval_n)``.  Returns the final loss, every step's
-    loss, the eval accuracy, the final state, the seconds the loop took
-    and the K1/K2 launches of the training loop alone."""
+    with dropout keyed by ``PRNGKey(dropout_seed)``; evaluate on
+    ``data.eval_set(eval_n)``.  Returns the final loss, every step's
+    loss, the eval accuracy, the final state, the exponents its last step
+    stored the parameters with (the §5 controller may move them after
+    that rounding), the seconds the loop took and the K1/K2 launches of
+    the training loop alone."""
     data = data or data_for(cfg)
     gs = MX.group_shapes(cfg)
     params = MX.init_params(cfg, seed, device)
     state = init_train_state(params, sgd_init(params), gs, policy,
                              init_exp=init_exp)
-    step = make_train_step(loss_fn(cfg, policy, device), gs, policy, opt)
+    step = make_train_step(loss_fn(cfg, policy, device, dropout_seed), gs,
+                           policy, opt)
     before = launch_counts()
     losses = []
     t0 = time.perf_counter()
     for i, b in enumerate(batches(data, steps, device, batch)):
+        store_exps = dict(state.scale.exps)    # what step i rounds with
         state, m = step(state, b, prng.PRNGKey(i, device))
         losses.append(m["loss"])
     losses = torch.stack(losses).tolist()          # one sync for the run
@@ -129,7 +139,7 @@ def train(cfg: MX.MaxoutConfig, policy: PrecisionPolicy, device, *,
                        "y": torch.from_numpy(ev["y"]).to(device)},
                       state.scale.exps, {})
     return {"loss": losses[-1], "losses": losses, "acc": float(acc),
-            "state": state, "seconds": seconds,
+            "state": state, "store_exps": store_exps, "seconds": seconds,
             "launches": {k: after[k] - before[k] for k in after}}
 
 

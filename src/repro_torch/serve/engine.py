@@ -214,7 +214,10 @@ class ServeEngine:
 
     def _request_key(self, uid: int) -> np.ndarray:
         """The root key of request ``uid``'s streams, computed on the
-        host once a request."""
+        host once a request; zeros where nothing draws from it (a greedy
+        sampler over a deterministic pool)."""
+        if not self._stochastic and self.sampler_cfg.kind == "greedy":
+            return np.zeros(2, np.int64)
         return sampler.request_key(self.seed, uid).numpy()
 
     def _draw(self, keys: np.ndarray, pos) -> dict:

@@ -36,7 +36,7 @@ from repro_torch import resolve_device
 from repro_torch.core import prng
 from repro_torch.core.packed import (_overflow_counts, container_dtype, pack,
                                      pack_rows, qrange)
-from repro_torch.core.quant import exact_pow2
+from repro_torch.core.quant import exact_pow2, round_mantissa
 from repro_torch.core.scale import ScaleState, calibrate_exp, controller_step
 from repro_torch.kernels.attn import ops as attn_ops
 from repro_torch.models import layers as L
@@ -82,13 +82,7 @@ def _pack_chunk(x: Tensor, width: int, e: Tensor, keep: Tensor, key=None,
     """
     qmax, qmin = qrange(width)
     step = exact_pow2(e).reshape(e.shape + (1,) * (x.ndim - 1))
-    m = x.to(torch.float32) / step
-    if key is not None:
-        u = prng.uniform(key, tuple(m.shape[1:]))
-        m = torch.where(det.reshape((-1,) + (1,) * (x.ndim - 1)),
-                        torch.round(m), torch.floor(m + u))
-    else:
-        m = torch.round(m)
+    m = round_mantissa(x.to(torch.float32) / step, key, det)
     kexp = keep.reshape(keep.shape + (1,) * (x.ndim - 2))
     ovf, ovfh = _overflow_counts(m, width, axes=tuple(range(1, x.ndim)),
                                  mask=kexp)

@@ -51,7 +51,7 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.packed import _overflow_counts, container_dtype, \
     pack_rows, qrange
-from repro_torch.core.quant import exact_pow2
+from repro_torch.core.quant import exact_pow2, round_mantissa
 from repro_torch.core.scale import ScaleState, calibrate_exp, controller_step
 from repro_torch.kernels.attn import ops as attn_ops
 from repro_torch.kernels.attn import ref as AR
@@ -100,13 +100,7 @@ def _pack_paged_rows(x: Tensor, width: int, e_rows: Tensor, keep: Tensor,
     """
     qmax, qmin = qrange(width)
     step = exact_pow2(e_rows).reshape(e_rows.shape + (1,) * (x.ndim - 2))
-    m = x.to(torch.float32) / step
-    if key is not None:
-        u = prng.uniform(key, tuple(m.shape[1:]))
-        m = torch.where(det.reshape((-1,) + (1,) * (x.ndim - 1)),
-                        torch.round(m), torch.floor(m + u))
-    else:
-        m = torch.round(m)
+    m = round_mantissa(x.to(torch.float32) / step, key, det)
     kexp = keep.reshape(keep.shape + (1,) * (x.ndim - 2))
     ovf, ovfh = _overflow_counts(m, width, axes=tuple(range(2, x.ndim)),
                                  mask=kexp)

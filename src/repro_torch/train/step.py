@@ -44,7 +44,7 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.packed import pack
 from repro_torch.core.policy import PrecisionPolicy
-from repro_torch.core.quant import exact_pow2, float_round
+from repro_torch.core.quant import exact_pow2, float_round, round_mantissa
 from repro_torch.core.scale import accumulate, controller_step
 from repro_torch.optim.opt import (OptConfig, adamw_update, apply_max_norm,
                                    clip_by_global_norm, global_norm,
@@ -64,12 +64,7 @@ def quantize_param(x: Tensor, width: int, e, *, stochastic_key=None):
     step = exact_pow2(_bexp(e, x))
     qmax = float(2 ** (width - 1) - 1)
     qmin = -float(2 ** (width - 1))
-    m = x.to(torch.float32) / step
-    if stochastic_key is not None:
-        key = prng.as_key(stochastic_key, x.device)
-        m = torch.floor(m + prng.uniform(key, tuple(m.shape)))
-    else:
-        m = torch.round(m)
+    m = round_mantissa(x.to(torch.float32) / step, stochastic_key)
     over = (m > qmax) | (m < qmin)
     over_h = (m > qmax / 2) | (m < qmin / 2)
     if e.ndim:

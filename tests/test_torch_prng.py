@@ -6,9 +6,8 @@ and through the port (torch on the CPU):
 * keys, ``split``, ``fold_in``, raw bits, ``uniform`` and ``bernoulli``:
   bit for bit, for single keys and batches of keys (the reference's
   ``vmap`` over them);
-* ``normal`` within ``prng.NORMAL_ULP`` ulps and ``gumbel`` within
-  ``prng.GUMBEL_ULP`` ulps (each evaluates XLA's float32 approximations;
-  nearly every draw is bit-equal, which the tests also pin);
+* ``normal`` and ``gumbel`` (each evaluates XLA's float32
+  approximations): bit for bit;
 * ``categorical``: the same indices.
 
 The port implements jax's partitionable threefry scheme only; the first
@@ -130,12 +129,27 @@ def test_normal_within_tolerance():
     jn = np.asarray(jax.random.normal(key, shape))
     tn = prng.normal(_t(key), shape).numpy()
     d = _ulps(jn, tn)
-    assert d.max() <= prng.NORMAL_ULP, d.max()
-    assert (d == 0).mean() >= 0.999
+    assert d.max() == 0, (d.max(), int((d > 0).sum()))
     # the reference's maxout init: normal / sqrt(fan_in) on a weight shape
     jw = np.asarray(jax.random.normal(key, (784, 1200)) / math.sqrt(784))
     tw = (prng.normal(_t(key), (784, 1200)) / math.sqrt(784)).numpy()
-    assert _ulps(jw, tw).max() <= prng.NORMAL_ULP
+    np.testing.assert_array_equal(jw, tw)
+
+
+def test_sqrt_rounds_correctly_whatever_root_it_starts_from(monkeypatch):
+    """``erfinv``'s square root is the correctly rounded float32 one
+    (numpy's), also when the library root it refines is off by 3e-4."""
+    w = np.linspace(0.0, 60.0, 300_001, dtype=np.float32)
+    w = np.concatenate([w, np.float32([1e-30, 1.17e-38, np.inf])])
+    want = np.sqrt(w)
+    np.testing.assert_array_equal(prng._sqrt(torch.from_numpy(w)).numpy(),
+                                  want)
+    true_sqrt = torch.sqrt
+    monkeypatch.setattr(torch, "sqrt",
+                        lambda x: true_sqrt(x) * (1.0 + 3e-4 * torch.sign(
+                            torch.sin(1e3 * x))))
+    np.testing.assert_array_equal(prng._sqrt(torch.from_numpy(w)).numpy(),
+                                  want)
 
 
 def test_gumbel_within_tolerance_and_categorical_equal():
@@ -143,8 +157,7 @@ def test_gumbel_within_tolerance_and_categorical_equal():
     shape = (200_000,)
     jg = np.asarray(jax.random.gumbel(key, shape))
     tg = prng.gumbel(_t(key), shape).numpy()
-    d = _ulps(jg, tg)
-    assert d.max() <= prng.GUMBEL_ULP and (d == 0).mean() >= 0.999
+    np.testing.assert_array_equal(jg, tg)
     rng = np.random.default_rng(0)
     logits = (3.0 * rng.standard_normal((8, 1000))).astype(np.float32)
     keys = jax.random.split(key, 8)
