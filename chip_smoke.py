@@ -78,7 +78,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     (P = 64): every request OK with 16 tokens, K3-K6 launched as in the
     greedy runs, request 0 alone drawing what it drew in the batch, no
     prefix pages shared; and the device operations the PRNG adds to one
-    decode step.
+    decode step;
+16. the trainer's main path: ``repro_torch.launch.train`` on the
+    reference example's LM_100M at full width and depth (batch 16 x 128,
+    DFXP 10/12 through K2 and K1, adamw, 2 calibration steps), 60 steps
+    in this process and a float32 row of 20: every step ok, 62 groups,
+    step 1 within ``LM_STEP1_TOL`` and step 20 within ``LM_STEP20_TOL``
+    of the reference's losses (``REF_LM``), DFXP above float32, K1 and
+    K2 launches = the sites' arithmetic; the same argv killed at cursor
+    30 (137) and resumed in subprocesses, ending with the solo run's
+    final loss and checkpoint bit for bit; a chaos run at full width
+    (exit 0, a rollback, a tear, a bit flip); one profiled step, a
+    checkpoint and a restore timed; before it, three supervised steps of
+    a tiny tied LM on the card against the CPU (exponents equal, losses
+    within 1e-4).
 
 The ``kernels`` JSON gives each attention kernel's device time per call
 inside the profiled serving step (``in_step_ms_per_call``) beside its
@@ -856,17 +869,41 @@ def _check_served(eng, n_layers, max_new, decode_kernel, prefill_kernel):
 
 
 def phase_serve():
+    """The serving main path; the weight init inside it (threefry draws in
+    row blocks at llama3-8B width) timed with its own peak memory."""
     from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    inner, init = T.init_params, {}
+
+    def timed_init(*a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        params = inner(*a, **kw)
+        torch.cuda.synchronize()
+        init.update(s=time.perf_counter() - t,
+                    params_bytes=torch.cuda.memory_allocated() - base,
+                    peak_bytes=torch.cuda.max_memory_allocated() - base)
+        return params
+
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
-    t0 = time.perf_counter()
-    eng = serve.main(SERVE_ARGS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    T.init_params = timed_init
+    try:
+        t0 = time.perf_counter()
+        eng = serve.main(SERVE_ARGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        T.init_params = inner
     st, launches = _check_served(eng, eng.cfg.num_layers, 16,
                                  "flash_decode", "flash_prefill")
+    st["weight_init"] = init
     peak = torch.cuda.max_memory_allocated()
-    log(f"main path: {wall:.1f}s including weight init; peak memory "
+    log(f"main path: {wall:.1f}s including weight init ({init['s']:.1f}s: "
+        f"{init['params_bytes'] / 1e9:.2f} GB of weights, a peak of "
+        f"{init['peak_bytes'] / 1e9:.2f} GB during the draw); peak memory "
         f"{peak / 1e9:.2f} GB (max_memory_allocated)")
     return eng, st, launches, peak
 
@@ -1199,6 +1236,8 @@ def phase_train_kernels():
         "76805 bf16 view at offset 3": dict(shape=(76808,), offset=3,
                                             dtype=torch.bfloat16, e=-3.0,
                                             scale=10.0),
+        "2048x32768 f32 (LM_100M head/logits site)": dict(
+            shape=(2048, 32768), e=-3.0, scale=4.0),
     }
     k1_bad = 0
     for i, (tag, kw) in enumerate(k1_cases.items()):
@@ -1221,7 +1260,8 @@ def phase_train_kernels():
     for tag, shape, kw, n in (
             ("maxout_w_fc0", (784, 1200), dict(e=-11.0, scale=0.05), 24),
             ("maxout_pre", (64, 1200), dict(), 24),
-            ("llama3_8b_w_up", (4096, 14336), dict(e=-12.0, scale=0.02), 2)):
+            ("llama3_8b_w_up", (4096, 14336), dict(e=-12.0, scale=0.02), 2),
+            ("lm_head_logits", (2048, 32768), dict(e=-3.0), 2)):
         copies = [qc.quantize_case(shape, seed=s, device=dev, **kw)
                   for s in range(n)]
         k1_rows[tag] = time_row(
@@ -1285,6 +1325,13 @@ def phase_train_kernels():
                                   device=dev))
     k2_check("llama3-8B chunk nn [128,4096]x[4096,14336]",
              mc.qmm_case("nn", 128, 14336, 4096, seed=5, device=dev))
+    # the LM trainer's products (LM_100M at 2048 tokens): the tied head
+    # forward (nt), its dgrad (nn over the vocabulary) and wgrad (tn over
+    # the tokens), a layer's split-K forward and wgrad; backward operands
+    # raw, as the fused path passes them
+    for tag, (kind, R, C, D, wb) in LM_K2.items():
+        k2_check(f"LM {tag}", mc.qmm_case(kind, R, C, D, width_b=wb, seed=8,
+                                          device=dev))
     # the rounded operands are the plain version's, bit for bit: a width-8
     # product of on-grid values is exact in any order
     a = mc.qmm_case("nn", 96, 80, 64, width_a=8, width_b=8, seed=6,
@@ -1333,7 +1380,9 @@ def phase_train_kernels():
             ("maxout_fwd_nn", ("nn", 64, 1200, 784), 24),
             ("maxout_dgrad_nt", ("nt", 64, 240, 1200), 24),
             ("maxout_wgrad_tn", ("tn", 784, 1200, 64), 24),
-            ("llama3_8b_chunk_nn", ("nn", 128, 14336, 4096), 2)):
+            ("llama3_8b_chunk_nn", ("nn", 128, 14336, 4096), 2),
+            *((f"lm_{k}", v[:4], 2) for k, v in LM_K2.items()
+              if k.startswith("head"))):
         wb = None if kind == "tn" else 10
         copies = [mc.qmm_case(kind, R, C, D, width_b=wb, seed=s, device=dev)
                   for s in range(n)]
@@ -1349,6 +1398,14 @@ def phase_train_kernels():
         del copies
     return {"dfxp_quantize": dict(rows=k1_rows, max_abs_err=0.0),
             "qmatmul": dict(rows=k2_rows, max_abs_err=max(errs))}
+
+
+# K2's products on the LM trainer's path: (layout, R, C, D, width of B)
+LM_K2 = {"head_fwd_nt": ("nt", 2048, 32768, 512, 10),
+         "head_dgrad_nn": ("nn", 2048, 512, 32768, 10),
+         "head_wgrad_tn": ("tn", 32768, 512, 2048, None),
+         "wk_fwd_nn_split": ("nn", 2048, 256, 512, 10),
+         "wq_wgrad_tn_split": ("tn", 512, 512, 2048, None)}
 
 
 def site_launches(cfg, pol, B: int, backward: bool):
@@ -1671,6 +1728,382 @@ def phase_train_profile():
 
 
 # ---------------------------------------------------------------------------
+# the trainer slice: repro_torch.launch.train on the example's LM_100M
+# ---------------------------------------------------------------------------
+
+# The example's recipe (examples/train_lm.py: LM_100M, adamw lr 3e-3, batch
+# 16, seq 128, DFXP 10/12, controller interval 20) on the fused path.
+LM_ARGV = ["--arch", "lm_100m", "--global-batch", "16", "--seq-len", "128",
+           "--comp-width", "10", "--update-width", "12",
+           "--update-interval", "20", "--optimizer", "adamw", "--lr", "3e-3",
+           "--fused-matmul", "--log-every", "1", "--device", "cuda"]
+LM_DFXP = ["--arithmetic", "dfxp", "--calibrate-steps", "2"]
+LM_F32 = ["--arithmetic", "float32", "--calibrate-steps", "0"]
+# The reference launcher's losses at steps 1-20 at the same argv (without
+# --fused-matmul: the reference's fused path gives the same numbers), jax
+# 0.9.0 on a CPU: `python tests/test_torch_launch_train.py`.
+REF_LM = {
+    "float32": [10.5108, 10.5138, 10.4877, 10.509, 10.5433, 10.6203,
+                10.5863, 10.5537, 10.5706, 10.6838, 10.6898, 10.7135,
+                10.615, 10.6133, 10.6563, 10.6544, 10.6985, 10.6557,
+                10.5933, 10.628],
+    "dfxp": [10.5118, 10.5214, 10.496, 10.5172, 10.5375, 10.5615, 10.5856,
+             10.6939, 10.8393, 10.9489, 11.2427, 11.4246, 11.6947, 11.9083,
+             12.1511, 12.305, 12.5441, 12.6448, 12.8398, 12.8456]}
+REF_LM_GROUPS = 62
+LM_STEP1_TOL = 1e-3             # same weights and data: the initial loss
+LM_STEP20_TOL = 0.5             # nats: a free-running run parts from the
+                                # reference after its first flipped tie
+# a subprocess of the trainer CLI: K1 on (the reference's API, no flag)
+# and LM_100M registered as the arch "lm_100m", as the example does
+LM_CLI = ("import sys; sys.path.insert(0, sys.argv.pop(1)); "
+          "from repro_torch.core.quant import enable_pallas_quantize; "
+          "enable_pallas_quantize(True); "
+          "from repro_torch.examples.train_lm import register; register(); "
+          "from repro_torch.launch.train import main; main(sys.argv[1:])")
+
+
+def lm_site_launches(cfg, B: int, S: int):
+    """(K1, K2) launches of one fused DFXP step of the dense LM, from its
+    rounding sites: every ``tape.dot`` (7 a layer and the head) is one K2
+    forward, dgrad and wgrad, and rounds its weight's statistics once
+    (K1); the embedding table rounds once at ``emb/w``; every activation
+    site (qkv, k, v, out, res; pre, out, res a layer; emb/out;
+    head/logits) rounds its value forward and its cotangent backward.  K1
+    takes a site of at least ``MIN_SIZE`` elements."""
+    N, d, f, L = B * S, cfg.d_model, cfg.d_ff, cfg.num_layers
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    weights = [d * q, d * kv, d * kv, q * d, d * f, d * f, f * d] * L \
+        + [cfg.vocab_size * d] * 2
+    acts = [N * q, N * kv, N * kv, N * d, N * d, N * f, N * d, N * d] * L \
+        + [N * d, N * cfg.vocab_size]
+    k1 = sum(n >= MIN_SIZE for n in weights) \
+        + 2 * sum(n >= MIN_SIZE for n in acts)
+    return k1, 3 * (7 * L + 1)
+
+
+def _lm_parse(text: str) -> dict:
+    """Group count, per-step losses, the summary and the outcome table of
+    one launcher run's output."""
+    import re
+    m = re.search(r"calibrated (\d+) scale groups", text)
+    losses = {int(s): float(v) for s, v in
+              re.findall(r"^step (\d+): loss=(\S+)$", text, re.M)}
+    summ = [ln for ln in text.splitlines() if ln.startswith("summary: ")]
+    return {"groups": int(m.group(1)) if m else None, "losses": losses,
+            "summary": json.loads(summ[-1][9:]) if summ else None,
+            "table": "     outcome  count" in text}
+
+
+def lm_cli(args, timeout: int):
+    """Run the trainer CLI in a subprocess; ``(returncode, stdout,
+    stderr)``.  A run past ``timeout`` is killed and fails the phase."""
+    src = str(Path(__file__).resolve().parent / "src")
+    r = subprocess.run([sys.executable, "-c", LM_CLI, src, *args],
+                       capture_output=True, text=True, timeout=timeout)
+    return r.returncode, r.stdout, r.stderr
+
+
+def _lm_in_process(argv):
+    """``repro_torch.launch.train.main(argv)`` in this process (K1 on):
+    its output parsed and the final state.  The launcher's signal
+    handlers are put back afterwards."""
+    import contextlib
+    import io
+    import signal
+    from repro_torch.core.quant import enable_pallas_quantize
+    from repro_torch.launch import train
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM,
+                                                  signal.SIGINT)}
+    buf = io.StringIO()
+    enable_pallas_quantize(True)
+    try:
+        with contextlib.redirect_stdout(buf):
+            state = train.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        enable_pallas_quantize(False)
+        for s, h in handlers.items():
+            signal.signal(s, h)
+    return _lm_parse(buf.getvalue()), state
+
+
+def _ckpt_leaves(d: str):
+    """The newest committed checkpoint under ``d``: (step, {name: array})."""
+    import os
+    steps = [int(n.split("_")[1]) for n in os.listdir(d)
+             if n.startswith("step_") and n[5:].isdigit()
+             and os.path.exists(os.path.join(d, n, "_COMMITTED"))]
+    path = os.path.join(d, f"step_{max(steps):08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    return max(steps), {m["name"]: np.load(os.path.join(path, m["file"]))
+                        for m in leaves}
+
+
+def phase_train_lm_parity():
+    """Card = CPU at smoke size: three supervised DFXP 10/12 steps of a
+    tied 2-layer LM (the example's shape, narrow) from calibrated
+    exponents, fused matmul and K1 from 4096 elements on the card, plain
+    versions on the CPU: exponents equal, losses within 1e-4 (the CPU
+    parity tests' tolerance against the reference)."""
+    import dataclasses
+    from repro_torch.core import prng
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.core.quant import enable_pallas_quantize
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.opt import OptConfig, adamw_init
+    from repro_torch.train import TrainSupervisor, init_train_state
+    from repro_torch.train.calibrate import calibrate
+    cfg = T.ModelConfig(name="lm-tiny", num_layers=2, d_model=64,
+                        num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
+                        vocab_size=256, tie_embeddings=True)
+    pol = PrecisionPolicy("dfxp", update_interval=2, fused_matmul=True)
+    obs = dataclasses.replace(pol, arithmetic="observe")
+    opt = OptConfig(kind="adamw", lr=3e-3, lr_decay_steps=1000)
+    gs = T.group_shapes(cfg)
+    data = SyntheticLM(cfg.vocab_size, 32, 4, seed=0)
+    runs = []
+    enable_pallas_quantize(True, min_size=1 << 12)
+    try:
+        for dev in ("cuda", "cpu"):
+            def batch(c, dev=dev):
+                return {k: torch.from_numpy(v).to(dev)
+                        for k, v in data.batch(c).items()}
+            init = calibrate(
+                lambda p, b, s, e: T.loss_fn(cfg, obs, p, b, e, s),
+                T.init_params(cfg, 0, device=dev), gs, pol, opt,
+                (batch(i) for i in range(2)), steps=2)
+            params = T.init_params(cfg, prng.fold_in(prng.PRNGKey(0), 1),
+                                   device=dev)
+            before = train_launches()
+            sup = TrainSupervisor(
+                lambda p, b, s, e: T.loss_fn(cfg, pol, p, b, e, s), gs, pol,
+                opt, init_train_state(params, adamw_init(params), gs, pol,
+                                      init_exp=init),
+                batch_fn=batch, rng=0)
+            sup.run(3)
+            after = train_launches()
+            runs.append((sup.losses, {k: v.tolist() for k, v in
+                                      sup.state.scale.exps.items()},
+                         {k: after[k] - before[k] for k in after},
+                         {k: v.tolist() for k, v in init.items()}))
+    finally:
+        enable_pallas_quantize(False)
+    card, cpu = runs
+    lc, lp = np.array(card[0]), np.array(cpu[0])
+    diff = float(np.abs(lc - lp).max()) if lc.size == lp.size else math.inf
+    same_init = card[3] == cpu[3]
+    same_exps = card[1] == cpu[1]
+    log(f"LM parity card vs cpu (3 supervised DFXP steps, {cfg.name}): "
+        f"max loss diff {diff:.3e}; calibrated exponents equal {same_init}; "
+        f"exponents equal {same_exps}; card launches {card[2]}")
+    if not (lc.size == 3 and diff <= 1e-4 and same_init and same_exps
+            and card[2]["dfxp_quantize"] > 0 and card[2]["qmatmul"] > 0):
+        raise SystemExit("LM training on the card disagrees with the CPU")
+    return {"max_loss_diff": diff, "card_launches": card[2]}
+
+
+def phase_train_lm():
+    """The trainer main path: ``repro_torch.launch.train`` on the
+    example's LM_100M at full width and depth (12 layers, d_model 512,
+    vocab 32768, tied), batch 16 x 128, DFXP 10/12 through K2 (fused
+    matmul) and K1, adamw lr 3e-3, 2 calibration steps:
+
+    1. a 60-step run here (checkpoints every 10), and a float32 run of 20
+       steps: every step ok, 62 groups, step 1 within ``LM_STEP1_TOL`` and
+       step 20 within ``LM_STEP20_TOL`` of the reference's in each row,
+       DFXP above float32 at step 20, K1 and K2 launches = the sites'
+       arithmetic;
+    2. the same argv in a subprocess with ``--kill-at 30`` exits 137, and
+       the rerun without the kill resumes and ends with the solo run's
+       final loss and final checkpoint, bit for bit;
+    3. a chaos run, the reference CI's sweep at full width (packed
+       storage, SGD, ``--chaos 0``: a corrupt checkpoint tear and a bit
+       flip at cursor 11, a 4-step NaN burst at 13): exit 0, every
+       attempt resolved, a rollback, a bit flip and a tear logged;
+    4. one step profiled, one synchronous checkpoint and one restore
+       timed, the peak memory, the init's seconds."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import prng
+    from repro_torch.data import SyntheticLM
+    from repro_torch.examples import train_lm
+    from repro_torch.launch.train import build_policy
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.opt import OptConfig
+    from repro_torch.train import TrainSupervisor
+    train_lm.register()
+    cfg = train_lm.LM_100M
+    tmp = tempfile.mkdtemp(prefix="lm_ckpt_")
+    res = {"config": cfg.name}
+    try:
+        # -- init alone ------------------------------------------------------
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, 0, device="cuda")
+        torch.cuda.synchronize()
+        res["init_s"] = time.perf_counter() - t0
+        del params
+
+        # -- 1. the solo run (the main path: counts from 0) ------------------
+        solo_dir = f"{tmp}/solo"
+        # a checkpoint every 10 steps, so the kill at cursor 30 lands just
+        # as the save of 30 begins, after the save of 20 was waited for:
+        # the resume is from 20 whatever a 0.77 GB write takes
+        argv = LM_ARGV + LM_DFXP + ["--steps", "60", "--ckpt-every", "10",
+                                    "--keep", "1"]
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        solo, state = _lm_in_process(argv + ["--ckpt-dir", solo_dir])
+        res["solo_wall_s"] = time.perf_counter() - t0
+        launches = train_launches()
+        res["launches"] = launches
+        res["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - base
+        k1s, k2s = lm_site_launches(cfg, 16, 128)
+        want = {"dfxp_quantize": 60 * k1s, "qmatmul": 60 * k2s}
+        f32, _ = _lm_in_process(LM_ARGV + LM_F32 + ["--steps", "20"])
+        rows = {"dfxp": solo, "float32": f32}
+        for row, r in rows.items():
+            log(f"LM {row}: groups {r['groups']}, losses "
+                + ", ".join(f"{s}: {r['losses'][s]:.4f} (ref "
+                            f"{REF_LM[row][s - 1]})" for s in (1, 10, 20)
+                            if s in r["losses"]))
+        s_ok = all(r["summary"] and r["summary"]["attempts"]
+                   == r["summary"]["steps_committed"] == len(r["losses"])
+                   and r["summary"]["halted"] is False
+                   for r in rows.values())
+        d1 = max(abs(r["losses"].get(1, math.inf) - REF_LM[k][0])
+                 for k, r in rows.items())
+        d20 = max(abs(r["losses"].get(20, math.inf) - REF_LM[k][19])
+                  for k, r in rows.items())
+        above = solo["losses"].get(20, 0.0) > f32["losses"].get(20, math.inf)
+        res.update(groups=solo["groups"], step1_max_diff=d1,
+                   step20_max_diff=d20, dfxp_above_float32=above,
+                   expected_launches=want, per_step={"dfxp_quantize": k1s,
+                                                    "qmatmul": k2s},
+                   losses={k: [r["losses"].get(s) for s in (1, 10, 20, 40,
+                                                             60)]
+                           for k, r in rows.items()},
+                   final_loss=solo["summary"] and solo["summary"]
+                   ["final_loss"])
+        log(f"LM solo: {res['solo_wall_s']:.1f}s, every step ok {s_ok}, "
+            f"step-1 diff {d1:.2e}, step-20 diff {d20:.3f}, dfxp above "
+            f"float32 {above}; launches {launches} expected {want}; peak "
+            f"{res['peak_memory_bytes'] / 1e9:.2f} GB")
+        if not (s_ok and solo["groups"] == REF_LM_GROUPS
+                and d1 <= LM_STEP1_TOL and d20 <= LM_STEP20_TOL and above
+                and launches == want):
+            raise SystemExit("the LM trainer's solo run failed its checks")
+
+        # -- 2. crash and resume ---------------------------------------------
+        crash = argv + ["--ckpt-dir", f"{tmp}/crash"]
+        t0 = time.perf_counter()
+        code, out, err = lm_cli(crash + ["--kill-at", "30"], 600)
+        code = 128 - code if code < 0 else code     # a signal's shell code
+        killed = code == 137
+        code2, out2, err2 = lm_cli(crash, 600)
+        res["crash_resume_s"] = time.perf_counter() - t0
+        resumed = _lm_parse(out2)
+        same_loss = (resumed["summary"] is not None and
+                     resumed["summary"]["final_loss"] == res["final_loss"])
+        (sa, a), (sb, b) = _ckpt_leaves(solo_dir), _ckpt_leaves(
+            f"{tmp}/crash")
+        diff_leaves = [k for k in a if k not in b
+                       or not np.array_equal(a[k], b[k])]
+        res.update(kill_exit=code, resume_exit=code2,
+                   resumed_final_loss=resumed["summary"] and
+                   resumed["summary"]["final_loss"],
+                   ckpt_leaves=len(a), ckpt_leaves_differing=len(diff_leaves))
+        log(f"LM crash at 30: exit {code}; resume: exit {code2}, "
+            f"'resumed from cursor' {'resumed from cursor 20' in out2}, "
+            f"final loss {res['resumed_final_loss']!r} vs solo "
+            f"{res['final_loss']!r}; checkpoint {sb} vs {sa}: "
+            f"{len(diff_leaves)} of {len(a)} leaves differ {diff_leaves[:3]}")
+        if not (killed and code2 == 0 and "resumed from cursor 20" in out2
+                and same_loss and sa == sb == 60 and not diff_leaves):
+            log(err[-2000:] + err2[-2000:])
+            raise SystemExit("the LM trainer's crash and resume is not "
+                             "bit-exact")
+        shutil.rmtree(f"{tmp}/crash", ignore_errors=True)
+
+        # -- 3. chaos at full width ------------------------------------------
+        fault_log = f"{tmp}/faults.json"
+        chaos = ["--arch", "lm_100m", "--global-batch", "16", "--seq-len",
+                 "128", "--arithmetic", "dfxp", "--fused-matmul",
+                 "--calibrate-steps", "0", "--update-interval", "4",
+                 "--storage", "packed", "--steps", "24", "--ckpt-dir",
+                 f"{tmp}/chaos", "--ckpt-every", "4", "--skip-budget", "3",
+                 "--chaos", "0", "--log-every", "100", "--fault-log",
+                 fault_log, "--bundle-dir", f"{tmp}/bundle",
+                 "--device", "cuda"]
+        t0 = time.perf_counter()
+        code3, out3, err3 = lm_cli(chaos, 600)
+        res["chaos_s"] = time.perf_counter() - t0
+        with open(fault_log) as f:
+            flog = json.load(f)
+        run, kinds = flog["run"], [e["kind"] for e in
+                                   flog["harness"]["events"]]
+        chaos_ok = (code3 == 0 and "Traceback" not in out3 + err3
+                    and sum(run["outcomes"].values()) == run["attempts"]
+                    == 24 and run["outcomes"]["rolled_back"] >= 1
+                    and "bit_flip" in kinds and "ckpt_tear" in kinds
+                    and _lm_parse(out3)["table"])
+        res["chaos"] = {"exit": code3, "outcomes": run["outcomes"],
+                        "events": flog["harness"]["event_counts"]}
+        log(f"LM chaos (seed 0, packed, 24 steps): exit {code3}, "
+            f"{res['chaos_s']:.1f}s, outcomes {run['outcomes']}, events "
+            f"{flog['harness']['event_counts']}")
+        if not chaos_ok:
+            log(err3[-3000:])
+            raise SystemExit("the LM trainer's chaos run failed its checks")
+
+        # -- 4. a profiled step, a checkpoint, a restore ---------------------
+        from repro_torch.core.quant import enable_pallas_quantize
+        ns = type("Args", (), dict(
+            arithmetic="dfxp", comp_width=10, update_width=12,
+            update_interval=20, storage="sim", max_overflow_rate=1e-4,
+            fused_matmul=True))
+        pol = build_policy(ns)
+        data = SyntheticLM(cfg.vocab_size, 128, 16, seed=0)
+        sup = TrainSupervisor(
+            lambda p, b, s, e: T.loss_fn(cfg, pol, p, b, e, s),
+            T.group_shapes(cfg), pol,
+            OptConfig(kind="adamw", lr=3e-3, lr_decay_steps=1000), state,
+            batch_fn=lambda c: {k: torch.from_numpy(v).cuda()
+                                for k, v in data.batch(c).items()},
+            rng=prng.PRNGKey(0, "cuda"))
+        sup.cursor = 60
+        enable_pallas_quantize(True)
+        try:
+            res["step_profile"] = _profile("lm_train_step", sup.step_once)
+        finally:
+            enable_pallas_quantize(False)
+        mgr = CheckpointManager(f"{tmp}/timing", keep=1)
+        t0 = time.perf_counter()
+        mgr.save(sup.cursor, sup.ckpt_tree())
+        res["ckpt_save_s"] = time.perf_counter() - t0
+        import os
+        sdir = f"{tmp}/timing/step_{sup.cursor:08d}"
+        res["ckpt_bytes"] = sum(os.path.getsize(f"{sdir}/{n}")
+                                for n in os.listdir(sdir))
+        t0 = time.perf_counter()
+        mgr.restore_latest(sup.ckpt_template())
+        torch.cuda.synchronize()
+        res["ckpt_restore_s"] = time.perf_counter() - t0
+        log(f"LM checkpoint: {res['ckpt_bytes'] / 1e9:.3f} GB written in "
+            f"{res['ckpt_save_s']:.2f}s, restored in "
+            f"{res['ckpt_restore_s']:.2f}s; init {res['init_s']:.2f}s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the PRNG slice: threefry keys and draws, dropout and stochastic rounding
 # in training, sampled serving over a stochastic pool, the precision sweep
 # ---------------------------------------------------------------------------
@@ -1958,6 +2391,11 @@ def main():
     tprof = phase_train_profile()
     log(f"[{time.perf_counter() - t0:.0f}s] conv maxout trained, train step "
         f"profiled")
+    lm_par = phase_train_lm_parity()
+    lm = phase_train_lm()
+    lm["parity"] = lm_par
+    log(f"[{time.perf_counter() - t0:.0f}s] LM trainer trained, crashed, "
+        f"resumed and survived chaos")
     eng, st, launches, peak = phase_serve()
     log(f"[{time.perf_counter() - t0:.0f}s] main path served")
     peng, pst, plaunches, ppeak = phase_paged(eng)
@@ -2018,18 +2456,22 @@ def main():
     for name, src, replaces, main_case, note in (
             ("dfxp_quantize", "src/repro_torch/kernels/dfxp/csrc/"
              "dfxp_quantize.cu", "src/repro/kernels/dfxp/dfxp_kernel.py:45",
-             "maxout_w_fc0", "torch.fake_quantize_per_tensor_affine, the "
+             "lm_head_logits", "torch.fake_quantize_per_tensor_affine, the "
              "same rounding without the overflow counts"),
             ("qmatmul", "src/repro_torch/kernels/qmatmul/csrc/qmatmul.cu",
              "src/repro/kernels/qmatmul/qmatmul_kernel.py:78",
-             "maxout_fwd_nn", "torch.matmul (TF32 off) on the operands "
+             "lm_head_fwd_nt", "torch.matmul (TF32 off) on the operands "
              "rounded outside the timed call; bound_ms on the kernel's TF32 "
              "route, f32_bound_ms at the float32 SIMT rate")):
         k = kern[name]
         main_row = k["rows"][main_case]
+        # launches: this slice's main path (the LM trainer's solo run);
+        # by path: each training main path, counted from 0 around it
         rows.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": train["launches"][name],
+            "replaces": replaces, "launches": lm["launches"][name],
+            "launches_by_path": {"train_lm": lm["launches"][name],
+                                 "quickstart": train["launches"][name]},
             "max_abs_err": k["max_abs_err"], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
@@ -2039,6 +2481,7 @@ def main():
             if key in main_row:
                 rows[-1][key] = main_row[key]
     summary = {"peak_memory_bytes": peak, "tok_per_s": st["tok_per_s"],
+               "weight_init": st["weight_init"],
                "ttft_mean_s": st["ttft_mean_s"], "decode_steps":
                st["decode_steps"], "prefill_chunks": st["prefill_chunks"],
                "whole_prompt_tok_per_s": wst["tok_per_s"],
@@ -2054,6 +2497,7 @@ def main():
     log("train: " + json.dumps({"parity": tpar, "main": train, "conv": conv,
                                 "sweep": sweep, "profile": tprof}))
     log("serve: " + json.dumps(summary))
+    log("train_lm: " + json.dumps(lm))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -109,11 +109,14 @@ def _words(key: Tensor, ndim: int) -> Tuple[Tensor, Tensor]:
     return key[..., 0].reshape(shape), key[..., 1].reshape(shape)
 
 
-def _counters(shape: Sequence[int], device) -> Tuple[Tensor, Tensor]:
+def _counters(shape: Sequence[int], device,
+              offset: int = 0) -> Tuple[Tensor, Tensor]:
     """``iota_2x32_shape``: the high and low words of each element's flat
-    index in ``shape``."""
+    index in ``shape``, counted from ``offset`` (a block of a larger
+    draw whose flat indices start there)."""
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64,
+                       device=device).reshape(shape)
     return idx >> 32, idx & MASK
 
 
@@ -144,13 +147,16 @@ def _shape(shape) -> Tuple[int, ...]:
         int(s) for s in shape)
 
 
-def random_bits(key: Tensor, shape=()) -> Tensor:
+def random_bits(key: Tensor, shape=(), *, offset: int = 0) -> Tensor:
     """32 random bits per element (``int64`` in ``[0, 2**32)``):
-    ``bits1 ^ bits2`` of the element's counters.  ``[..., *shape]``."""
+    ``bits1 ^ bits2`` of the element's counters.  ``[..., *shape]``.
+    ``offset`` draws the elements of a larger draw whose flat indices
+    start there: the partitionable scheme hashes each element's own
+    index, so a block is those elements of the whole draw, bit for bit."""
     key = as_key(key)
     shape = _shape(shape)
     k1, k2 = _words(key, len(shape))
-    hi, lo = _counters(shape, key.device)
+    hi, lo = _counters(shape, key.device, offset)
     a, b = threefry2x32(k1, k2, hi, lo)
     return a.bitwise_xor_(b)
 
@@ -163,11 +169,11 @@ def _f32(v: float) -> float:
 
 
 def uniform(key: Tensor, shape=(), minval: float = 0.0,
-            maxval: float = 1.0) -> Tensor:
+            maxval: float = 1.0, *, offset: int = 0) -> Tensor:
     """Float32 uniform on ``[minval, maxval)``: 23 mantissa bits under the
     exponent of 1.0, minus 1, scaled and shifted in one fused
     multiply-add (as XLA fuses them), then ``max(minval, ·)``."""
-    bits = random_bits(key, shape)
+    bits = random_bits(key, shape, offset=offset)
     one = (bits >> 9) | 0x3F800000
     floats = one.to(torch.int32).view(torch.float32) - 1.0
     lo = np.float32(minval)
@@ -314,11 +320,37 @@ def erfinv(x: Tensor) -> Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
-def normal(key: Tensor, shape=()) -> Tensor:
+def normal(key: Tensor, shape=(), *, offset: int = 0) -> Tensor:
     """Standard normal float32 draws: ``sqrt(2) * erfinv(u)``, ``u``
     uniform on ``[nextafter(-1, 0), 1)``."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    return erfinv(uniform(key, shape, lo, 1.0)) * _f32(math.sqrt(2.0))
+    return erfinv(uniform(key, shape, lo, 1.0, offset=offset)) * _f32(
+        math.sqrt(2.0))
+
+
+def normal_blocked(key: Tensor, shape, *, max_block: int = 1 << 24
+                   ) -> Tensor:
+    """:func:`normal` over ``shape`` (at least 1-D), drawn in blocks of
+    whole rows (axis 0) of at most ``max_block`` elements into one output
+    tensor: the same numbers, with the threefry temporaries (a few int64
+    and float64 words per element) of one block alive at a time instead
+    of the whole draw's.  A batch of keys ``[..., 2]`` draws ``[...,
+    *shape]``, one key at a time; a ``meta`` key gives the empty tensor
+    of that shape."""
+    key = as_key(key)
+    shape = _shape(shape)
+    out = torch.empty(key.shape[:-1] + shape, dtype=torch.float32,
+                      device=key.device)
+    if key.device.type == "meta":
+        return out
+    row = math.prod(shape[1:])
+    rows = max(1, max_block // max(row, 1))
+    for idx in np.ndindex(*key.shape[:-1]):
+        for r0 in range(0, shape[0], rows):
+            r1 = min(r0 + rows, shape[0])
+            out[idx][r0:r1] = normal(key[idx], (r1 - r0,) + shape[1:],
+                                     offset=r0 * row)
+    return out
 
 
 def gumbel(key: Tensor, shape=()) -> Tensor:

@@ -4,9 +4,10 @@
 nested dicts of numpy arrays, layer-stacked ``[n, ...]`` per stage
 (``repro.models.transformer.init_params``) — and returns the same tree of
 torch tensors on the requested device, after checking every leaf against
-the port's own shapes.  The CPU tests use it so that both packages
-compute with the same weights; a full-width run on the card draws its
-own weights on the device (:func:`repro_torch.models.transformer.init_params`).
+the port's own shapes (a tied model has no ``head`` leaf in either
+package).  The CPU tests use it to hand one package's weights to the
+other; :func:`repro_torch.models.transformer.init_params` itself draws
+the reference's numbers from the same threefry key, on the device.
 ``maxout_params_from_jax`` does the same for the maxout networks
 (``repro.models.maxout.init_params``).
 """

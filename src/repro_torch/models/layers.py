@@ -5,14 +5,19 @@ sum goes through ``tape.dot`` (weight re-quantized to the computation
 width at use time, f32 accumulation) and every group boundary through
 ``tape.act``.  With a float32 policy all of it is the identity.
 
-Attention comes in three serving shapes:
+Attention comes in a training shape and three serving shapes:
+  * ``attention_train`` — naive masked scores (the training path);
   * ``attention_prefill`` — whole-prompt online softmax over KV chunks;
   * ``attention_prefill_chunk`` — one prompt chunk against the KV pool;
   * ``attention_decode`` — one token against the KV pool.
 
 Weights are ``[d_in, d_out]`` as in ``x @ W``, and queries handed to the
 attention kernels are kv-head-major ``[B, K, G, hd]`` — the reference's
-layouts, so the two packages compare like with like.
+layouts, so the two packages compare like with like.  Initial weights
+are the reference's: threefry normals (:mod:`repro_torch.core.prng`) from
+the same keys, split in the same order, so ``init_*(key)`` draws the
+reference's numbers; a batch of keys ``[L, 2]`` draws ``L`` stacked
+layers (the reference's ``vmap`` over its split keys).
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.tape import QTape
 from repro_torch.kernels.attn import ops as attn_ops
 from repro_torch.kernels.attn import ref as AR
@@ -39,18 +45,13 @@ def rmsnorm(x: Tensor, w: Tensor, eps: float = 1e-6) -> Tensor:
     return (xf * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
 
 
-def randn(gen: Optional[torch.Generator], shape, device) -> Tensor:
-    """Standard normal f32 drawn on ``device`` from ``gen`` (``gen`` is
-    None only for the shape-only ``meta`` device)."""
-    return torch.randn(shape, generator=gen, device=device,
-                       dtype=torch.float32)
-
-
-def init_dense(gen, d_in: int, d_out: int, scale: Optional[float] = None,
-               *, lead=(), device="cpu") -> Tensor:
-    """Normal ``[*lead, d_in, d_out]`` weights scaled by ``scale``."""
+def init_dense(key: Tensor, d_in: int, d_out: int,
+               scale: Optional[float] = None) -> Tensor:
+    """Normal ``[..., d_in, d_out]`` weights times ``scale`` (default
+    ``1/sqrt(d_in)``), one ``[d_in, d_out]`` draw per key of ``key``
+    ``[..., 2]``, drawn in row blocks (:func:`prng.normal_blocked`)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return randn(gen, (*lead, d_in, d_out), device).mul_(scale)
+    return prng.normal_blocked(key, (d_in, d_out)).mul_(scale)
 
 
 # ---------------------------------------------------------------------------
@@ -99,13 +100,13 @@ class AttnSpec:
         return self.num_kv_heads * self.head_dim
 
 
-def init_attn(gen, spec: AttnSpec, *, lead=(), device="cpu") -> dict:
-    kw = dict(lead=lead, device=device)
+def init_attn(key: Tensor, spec: AttnSpec) -> dict:
+    ks = prng.split(key, 4)
     return {
-        "wq": init_dense(gen, spec.d_model, spec.q_dim, **kw),
-        "wk": init_dense(gen, spec.d_model, spec.kv_dim, **kw),
-        "wv": init_dense(gen, spec.d_model, spec.kv_dim, **kw),
-        "wo": init_dense(gen, spec.q_dim, spec.d_model, **kw),
+        "wq": init_dense(ks[..., 0, :], spec.d_model, spec.q_dim),
+        "wk": init_dense(ks[..., 1, :], spec.d_model, spec.kv_dim),
+        "wv": init_dense(ks[..., 2, :], spec.d_model, spec.kv_dim),
+        "wo": init_dense(ks[..., 3, :], spec.q_dim, spec.d_model),
     }
 
 
@@ -134,6 +135,39 @@ def _mask(q_pos: Tensor, k_pos: Tensor, window, causal: bool) -> Tensor:
     if window:
         m = m & (d < window)
     return m
+
+
+def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor,
+          scale: float) -> Tensor:
+    """Naive scores; f32 softmax; GQA via head-group reshape.  ``q``
+    [B, Sq, H, hd], ``k``/``v`` [B, Sk, K, hd], ``mask`` [B, Sq, Sk]."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, Sq, K, H // K, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k) * scale
+    logits = torch.where(mask[:, None, None], logits, -1e30)
+    p = torch.softmax(logits.to(torch.float32), dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def attention_train(params, spec: AttnSpec, x: Tensor, positions: Tensor,
+                    tape: QTape, prefix: str, window=None,
+                    kv_source: Optional[Tensor] = None) -> Tensor:
+    """Training-path self-attention (naive masked scores): ``x`` [B, S,
+    D] at ``positions`` [B, S]; ``wo`` through ``tape.dot`` and the
+    ``out`` site, as the reference's.  The q·k and p·v products are plain
+    ``einsum``s, as the reference leaves them to XLA."""
+    if kv_source is not None:
+        raise NotImplementedError(
+            "cross-attention (kv_source) is not ported yet: it comes with "
+            "the encoder-decoder family (ROADMAP module item 21)")
+    B, S, _ = x.shape
+    q, k, v = _qkv(params, spec, x, positions, tape, prefix)
+    mask = _mask(positions, positions, window, spec.causal)
+    o = _sdpa(q, k, v, mask, 1.0 / math.sqrt(spec.head_dim))
+    y = tape.dot(f"{prefix}/wo", o.reshape(B, S, spec.q_dim), params["wo"])
+    return tape.act(f"{prefix}/out", y)
 
 
 def attention_prefill(params, spec: AttnSpec, x: Tensor, positions: Tensor,
@@ -360,13 +394,12 @@ def attention_decode(params, spec: AttnSpec, x: Tensor, positions: Tensor,
 # feed-forward
 # ---------------------------------------------------------------------------
 
-def init_swiglu(gen, d_model: int, d_ff: int, *, lead=(),
-                device="cpu") -> dict:
-    kw = dict(lead=lead, device=device)
+def init_swiglu(key: Tensor, d_model: int, d_ff: int) -> dict:
+    ks = prng.split(key, 3)
     return {
-        "w_gate": init_dense(gen, d_model, d_ff, **kw),
-        "w_up": init_dense(gen, d_model, d_ff, **kw),
-        "w_down": init_dense(gen, d_ff, d_model, **kw),
+        "w_gate": init_dense(ks[..., 0, :], d_model, d_ff),
+        "w_up": init_dense(ks[..., 1, :], d_model, d_ff),
+        "w_down": init_dense(ks[..., 2, :], d_ff, d_model),
     }
 
 
@@ -382,8 +415,8 @@ def swiglu(params, x: Tensor, tape: QTape, prefix: str) -> Tensor:
 # embedding / head
 # ---------------------------------------------------------------------------
 
-def init_embed(gen, vocab: int, d_model: int, *, device="cpu") -> Tensor:
-    return randn(gen, (vocab, d_model), device).mul_(0.02)
+def init_embed(key: Tensor, vocab: int, d_model: int) -> Tensor:
+    return prng.normal_blocked(key, (vocab, d_model)).mul_(0.02)
 
 
 def embed(table: Tensor, tokens: Tensor, tape: QTape) -> Tensor:
@@ -391,6 +424,11 @@ def embed(table: Tensor, tokens: Tensor, tape: QTape) -> Tensor:
     return tape.act("emb/out", t[tokens.long()])
 
 
-def lm_head(w: Tensor, x: Tensor, tape: QTape) -> Tensor:
-    """Vocabulary projection through ``tape.dot`` (an untied head)."""
-    return tape.act("head/logits", tape.dot("head/w", x, w))
+def lm_head(table_or_w: Tensor, x: Tensor, tape: QTape, *,
+            tied: bool) -> Tensor:
+    """Vocabulary projection through ``tape.dot`` (K2 on the fused path).
+
+    Tied heads contract against the embedding table's last dim
+    (``transpose_b``: the ``nt`` layout on the fused path)."""
+    logits = tape.dot("head/w", x, table_or_w, transpose_b=tied)
+    return tape.act("head/logits", logits)

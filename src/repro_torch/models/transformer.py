@@ -2,15 +2,25 @@
 
 A model is a sequence of **stages**; each stage repeats a *super-block*
 (an ordered tuple of sub-blocks) ``count`` times over layer-stacked
-parameters ``[count, ...]``.  The dense family (llama3/qwen3/phi3) is one
-stage of ``(attn, ffn) × L``.  The reference's ``lax.scan`` over layers is
-a Python loop here that stacks each layer's statistics.
+parameters ``[count, ...]``.  The dense family (llama3/qwen3/phi3 and the
+example's LM_100M) is one stage of ``(attn, ffn) × L``.  The reference's
+``lax.scan`` over layers is a Python loop here that stacks each layer's
+statistics.
 
 Parameters keep the reference's pytree: ``{"stages": {"dec": {"stacked":
 {"0:attn": {...}, "1:ffn": {...}}, "shared": {}}}, "embed", "head",
-"final_norm"}`` with ``[count, d_in, d_out]`` weights, so
+"final_norm"}`` with ``[count, d_in, d_out]`` weights (no ``head`` when
+the embeddings are tied: the head contracts against the table), so
 :func:`repro_torch.models.convert.params_from_jax` is a leaf-for-leaf
-copy.  Caches keep the reference's ``[n_layer, B, ...]`` layout too.
+copy, and :func:`init_params` draws the reference's numbers from the
+same threefry key.  Caches keep the reference's ``[n_layer, B, ...]``
+layout too.
+
+Training: :func:`forward` in ``train``/``hidden`` mode and
+:func:`loss_fn` (mean cross-entropy, optionally over sequence chunks
+recomputed in the backward, ``torch.utils.checkpoint`` for the
+reference's ``jax.checkpoint``) take the per-site gradient-statistics
+sinks of :mod:`repro_torch.core.quant`.
 
 The serving entry points (:func:`prefill`, :func:`decode_step`,
 :func:`prefill_chunk_step`) update the cache they are given **in
@@ -23,8 +33,13 @@ import dataclasses
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import resolve_device
+from repro_torch.core import prng
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.core.quant import qbound_site
 from repro_torch.core.tape import QTape
 
 from . import layers as L
@@ -41,7 +56,7 @@ class ModelConfig:
     """The dense-decoder fields of the reference's ``ModelConfig``."""
 
     name: str = "model"
-    family: str = "dense"          # the port serves the dense family
+    family: str = "dense"          # the port has the dense family
     num_layers: int = 4
     d_model: int = 256
     num_heads: int = 4
@@ -51,7 +66,7 @@ class ModelConfig:
     vocab_size: int = 1024
     rope_theta: float = 1e6
     window: int = 0                # >0: sliding window attention
-    tie_embeddings: bool = False   # the port has untied heads only
+    tie_embeddings: bool = True
 
     @property
     def attn_spec(self) -> L.AttnSpec:
@@ -74,11 +89,11 @@ class Stage:
 
 def build_stages(cfg: ModelConfig) -> Tuple[Stage, ...]:
     """The dense branch of the reference's ``build_stages`` (swiglu FFN,
-    token inputs, untied head)."""
-    if cfg.family != "dense" or cfg.tie_embeddings:
+    token inputs)."""
+    if cfg.family != "dense":
         raise NotImplementedError(
-            f"the port serves dense models with an untied head; "
-            f"{cfg.name!r} is {cfg.family}, tied={cfg.tie_embeddings}")
+            f"the port has the dense family; {cfg.name!r} is {cfg.family} "
+            f"(ROADMAP module item 21)")
     blocks = (SubBlock("attn", window=cfg.window), SubBlock("ffn"))
     return (Stage("dec", cfg.num_layers, blocks),)
 
@@ -87,43 +102,46 @@ def build_stages(cfg: ModelConfig) -> Tuple[Stage, ...]:
 # params
 # ---------------------------------------------------------------------------
 
-def _init_block(gen, cfg: ModelConfig, blk: SubBlock, lead, device) -> dict:
-    p = {"norm": torch.ones((*lead, cfg.d_model), dtype=torch.float32,
-                            device=device)}
+def _init_block(key: Tensor, cfg: ModelConfig, blk: SubBlock) -> dict:
+    """One sub-block's parameters from ``key`` (a batch ``[count, 2]``
+    draws the stacked layers, one key each)."""
+    p = {"norm": torch.ones(key.shape[:-1] + (cfg.d_model,),
+                            dtype=torch.float32, device=key.device)}
     if blk.kind == "attn":
-        p.update(L.init_attn(gen, cfg.attn_spec, lead=lead, device=device))
+        p.update(L.init_attn(key, cfg.attn_spec))
     else:
-        p.update(L.init_swiglu(gen, cfg.d_model, cfg.d_ff, lead=lead,
-                               device=device))
+        p.update(L.init_swiglu(key, cfg.d_model, cfg.d_ff))
     return p
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, *, device="cpu") -> dict:
-    """Random parameters drawn on ``device`` from a seeded generator.
+def init_params(cfg: ModelConfig, key=0, *, device="cuda") -> dict:
+    """The reference's initial parameters (``transformer.py:198-226``),
+    drawn on ``device`` from the threefry ``key`` (an int is
+    ``PRNGKey(int)``) with the reference's key tree: ``split`` into
+    ``len(stages) + 3`` keys, ``fold_in(keys[stage], i)`` per sub-block
+    and ``split`` over its stacked layers; the embedding from
+    ``keys[-3]``, an untied head from ``keys[-2]``.
 
-    Same shapes and scales as the reference's ``init_params`` (different
-    numbers: the generators differ; tests copy the reference's weights
-    with :func:`repro_torch.models.convert.params_from_jax`).  Each leaf
-    is drawn where it lives, so a full-width model never exists on the
-    host; ``device="meta"`` gives the shapes alone.
-    """
-    device = torch.device(device)
-    gen = None
-    if device.type != "meta":
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
+    Each leaf is drawn where it lives and large ones in row blocks
+    (:func:`prng.normal_blocked`), so a full-width model never exists on
+    the host and the draw's temporaries stay small; ``device="meta"``
+    gives the shapes alone."""
+    key = prng.as_key(key, resolve_device(device))
+    stages = build_stages(cfg)
+    keys = prng.split(key, len(stages) + 3)
     params: dict = {"stages": {}}
-    for stage in build_stages(cfg):
-        stacked = {f"{i}:{blk.kind}": _init_block(gen, cfg, blk,
-                                                  (stage.count,), device)
-                   for i, blk in enumerate(stage.blocks)}
+    for si, stage in enumerate(stages):
+        stacked = {}
+        for i, blk in enumerate(stage.blocks):
+            ks = prng.split(prng.fold_in(keys[si], i), stage.count)
+            stacked[f"{i}:{blk.kind}"] = _init_block(ks, cfg, blk)
         params["stages"][stage.name] = {"stacked": stacked, "shared": {}}
-    params["embed"] = L.init_embed(gen, cfg.vocab_size, cfg.d_model,
-                                   device=device)
-    params["head"] = L.init_dense(gen, cfg.d_model, cfg.vocab_size,
-                                  scale=0.02, device=device)
+    params["embed"] = L.init_embed(keys[-3], cfg.vocab_size, cfg.d_model)
+    if not cfg.tie_embeddings:
+        params["head"] = L.init_dense(keys[-2], cfg.d_model, cfg.vocab_size,
+                                      scale=0.02)
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=torch.float32,
-                                      device=device)
+                                      device=key.device)
     return params
 
 
@@ -165,7 +183,8 @@ def _stage_group_names(stage: Stage):
         pfx = f"{stage.name}/{i}:{blk.kind}"
         w_sites, a_sites = _SITES[blk.kind]
         names += [f"w:{pfx}/{s}" for s in w_sites]
-        names += [f"a:{pfx}/{s}" for s in a_sites]
+        for s in a_sites:
+            names += [f"a:{pfx}/{s}", f"g:{pfx}/{s}"]
     return names
 
 
@@ -199,7 +218,10 @@ def _apply_block(cfg: ModelConfig, blk: SubBlock, pfx: str, bp, x,
     window = blk.window if blk.window > 0 else None
     if blk.kind == "attn":
         spec = cfg.attn_spec
-        if mode == "prefill":
+        if mode == "train":
+            y = L.attention_train(bp, spec, h, positions, tape, pfx,
+                                  window=window)
+        elif mode == "prefill":
             y, (k, v) = L.attention_prefill(bp, spec, h, positions, tape,
                                             pfx, window=window)
             cap = min(window, max_cache_len) if window else max_cache_len
@@ -225,27 +247,41 @@ def _layer(tree, i: int):
             for k, t in tree.items()}
 
 
+def _unbind(tree, n: int):
+    """The ``n`` layers of a layer-stacked dict as views, one
+    ``unbind`` per leaf: under autograd the layers' gradients meet in one
+    stack per leaf, not in ``n`` full-size sums."""
+    if isinstance(tree, dict):
+        per = {k: _unbind(t, n) for k, t in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return tree.unbind(0)
+
+
 def _run_stage(cfg, policy, stage: Stage, sp, x, positions, scales,
                mode: str, cache=None, max_cache_len: int = 0, kv_codec=None,
-               n_valid=None, append_mask=None):
+               n_valid=None, append_mask=None, sinks=None):
     """Run one stage layer by layer. Returns (x, stats, cache_out).
 
     Decode and chunk modes write each layer's new cache entry back into
-    ``cache`` in place; prefill mode builds and stacks fresh entries.
+    ``cache`` in place; prefill mode builds and stacks fresh entries;
+    train mode threads each layer's slice of the ``g:`` ``sinks``.
     """
     names = _stage_group_names(stage)
     per_layer_stats = []
     fresh: Dict[str, list] = {}
+    layers = _unbind(sp["stacked"], stage.count)
+    sk_names = [n for n in names if sinks and n in sinks]
+    sk_layers = {n: sinks[n].unbind(0) for n in sk_names}
     for li in range(stage.count):
         sc = {n: scales[n][li] for n in names if n in scales}
-        tape = QTape(policy, sc)
+        tape = QTape(policy, sc, {n: sk_layers[n][li] for n in sk_names})
         for i, blk in enumerate(stage.blocks):
             bkey = f"{i}:{blk.kind}"
             ci = None
             if cache is not None and bkey in cache:
                 ci = _layer(cache[bkey], li)
             x, co = _apply_block(cfg, blk, f"{stage.name}/{bkey}",
-                                 _layer(sp["stacked"][bkey], li), x,
+                                 layers[li][bkey], x,
                                  positions, tape, mode, ci,
                                  max_cache_len=max_cache_len,
                                  kv_codec=kv_codec, n_valid=n_valid,
@@ -272,8 +308,108 @@ def _embed_tokens(policy, params, tokens, tape):
     return x.to(getattr(torch, policy.compute_dtype))
 
 
-def _head(params, x, tape):
-    return L.lm_head(params["head"], L.rmsnorm(x, params["final_norm"]), tape)
+def _head(cfg, params, x, tape):
+    """Final norm and the vocabulary projection (tied: the table)."""
+    x = L.rmsnorm(x, params["final_norm"])
+    if cfg.tie_embeddings:
+        return L.lm_head(params["embed"], x, tape, tied=True)
+    return L.lm_head(params["head"], x, tape, tied=False)
+
+
+def forward(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
+            scales: Dict[str, Tensor], sinks: Dict[str, Tensor], *,
+            mode: str = "train"):
+    """Full-sequence forward of the training path. Returns ``(logits
+    [B, S, V], stats, None)``; ``mode="hidden"`` returns the final-normed
+    hidden states instead of logits (the caller fuses head and loss).
+
+    ``batch``: ``tokens`` [B, S] and optional ``positions`` [B, S].
+    ``sinks``: the ``g:`` groups' zero sinks (``[count, 3]`` per stacked
+    group), whose gradients are the backward statistics."""
+    if mode not in ("train", "hidden"):
+        raise ValueError(f"forward runs the train or hidden mode, not "
+                         f"{mode!r} (serving: prefill/decode_step/"
+                         f"prefill_chunk_step)")
+    tape = QTape(policy, scales, sinks)      # the embed and head sites
+    tokens = batch["tokens"]
+    x = _embed_tokens(policy, params, tokens, tape)
+    B, S = tokens.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+    stats: Dict[str, Tensor] = {}
+    for stage in build_stages(cfg):
+        x, st, _ = _run_stage(cfg, policy, stage,
+                              params["stages"][stage.name], x, positions,
+                              scales, "train", sinks=sinks)
+        stats.update(st)
+    if mode == "hidden":
+        x = L.rmsnorm(x, params["final_norm"])
+        stats.update(tape.stats)
+        return x, stats, None
+    logits = _head(cfg, params, x, tape)
+    stats.update(tape.stats)
+    return logits, stats, None
+
+
+def _ce(logits: Tensor, labels: Tensor) -> Tensor:
+    """Log-likelihood of each label (``log_softmax`` in f32)."""
+    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+    return torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+
+
+def loss_fn(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
+            scales: Dict[str, Tensor], sinks: Dict[str, Tensor], *,
+            ce_chunk: int = 0):
+    """Mean cross-entropy over ``batch["labels"]`` (masked by an optional
+    ``loss_mask``); returns ``(loss, stats)``.
+
+    ``ce_chunk > 0`` computes the head product and the softmax-CE over
+    sequence chunks of that many positions, each recomputed in the
+    backward (``torch.utils.checkpoint``), so the ``[tokens, vocab]``
+    logits never exist whole — the reference's rematerialized scan,
+    with the head's ``qbound`` and statistics per chunk."""
+    labels = batch["labels"]
+    if not ce_chunk:
+        logits, stats, _ = forward(cfg, policy, params, batch, scales, sinks)
+        ll = _ce(logits, labels)
+        mask = batch.get("loss_mask")
+        if mask is None:
+            return -ll.mean(), stats
+        return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0), stats
+
+    hidden, stats, _ = forward(cfg, policy, params, batch, scales, sinks,
+                               mode="hidden")
+    tape = QTape(policy, scales, sinks)
+    table = params["embed"] if cfg.tie_embeddings else params["head"]
+    w = tape.weight("head/w", table).to(hidden.dtype)
+    B, S, D = hidden.shape
+    if S % ce_chunk:
+        raise ValueError(f"ce_chunk {ce_chunk} does not divide seq {S}")
+    fmt = policy.comp_format()
+    a_e = scales.get("a:head/logits", 0.0)
+    g_e = scales.get("g:head/logits", 0.0)
+    head_sink = sinks.get("g:head/logits")
+
+    def body(xch: Tensor, lch: Tensor):
+        logits = (torch.einsum("bsd,vd->bsv", xch, w) if cfg.tie_embeddings
+                  else torch.einsum("bsd,dv->bsv", xch, w))
+        logits, st = qbound_site(logits, fmt, fmt, a_e, g_e, head_sink,
+                                 want_stats=True)
+        return _ce(logits, lch).sum(), st
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    head_stats = []
+    for c in range(S // ce_chunk):
+        sl = slice(c * ce_chunk, (c + 1) * ce_chunk)
+        part, st = checkpoint(body, hidden[:, sl], labels[:, sl],
+                              use_reentrant=False)
+        total = total + part
+        head_stats.append(st)
+    stats["a:head/logits"] = torch.stack(head_stats).sum(0)
+    stats.update(tape.stats)
+    return -total / (B * S), stats
 
 
 def prefill(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
@@ -298,7 +434,7 @@ def prefill(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
         stats.update(st)
         cache_all[stage.name] = cache_out
     # decode only needs the last position: skip the full-seq head matmul
-    logits = _head(params, x[:, -1:, :], tape)
+    logits = _head(cfg, params, x[:, -1:, :], tape)
     stats.update(tape.stats)
     return logits[:, -1, :], stats, cache_all
 
@@ -319,7 +455,7 @@ def decode_step(cfg: ModelConfig, policy, params, cache, tokens, pos,
                               scales, "decode", cache=cache[stage.name],
                               kv_codec=kv_codec, append_mask=append_mask)
         stats.update(st)
-    logits = _head(params, x, tape)
+    logits = _head(cfg, params, x, tape)
     stats.update(tape.stats)
     return logits[:, -1, :], stats, cache
 
@@ -351,7 +487,7 @@ def prefill_chunk_step(cfg: ModelConfig, policy, params, cache, tokens, p0,
     # only the last valid position's logits matter (first sampled token)
     idx = torch.clamp(n_valid - 1, 0, C - 1).long()
     x = x[torch.arange(B, device=x.device), idx][:, None, :]
-    logits = _head(params, x, tape)
+    logits = _head(cfg, params, x, tape)
     stats.update(tape.stats)
     return logits[:, -1, :], stats, cache
 

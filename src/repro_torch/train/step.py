@@ -31,9 +31,14 @@ leaf from ``fold_in(rng, hash(name) % 2**31)`` as the reference keys it
 those streams repeat across processes only under a fixed
 ``PYTHONHASHSEED``; the port and the reference agree within a process.
 
-Not ported here (ROADMAP): ``supervise``/``runaway_ovf`` (item 20),
-``numerics_tap`` (item 19) and ``grad_transform``/``ef_transform`` (item
-22); each raises if asked for.
+``supervise=True`` is the fault-tolerant variant that
+:class:`repro_torch.train.resilience.TrainSupervisor` drives
+(``step.py:84-93``, ``:317-357`` of the reference): device-side sentinels
+and a branch-free ``torch.where`` select that discards a tripped step's
+update on the device.
+
+Not ported here (ROADMAP): ``numerics_tap`` (item 19) and
+``grad_transform``/``ef_transform`` (item 22); each raises if asked for.
 """
 from __future__ import annotations
 
@@ -42,10 +47,11 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.packed import pack
+from repro_torch.core.packed import PackedArray, pack
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.quant import exact_pow2, float_round, round_mantissa
-from repro_torch.core.scale import accumulate, controller_step
+from repro_torch.core.scale import ScaleState, accumulate, controller_step
+from repro_torch.core.tape import tensor_class
 from repro_torch.optim.opt import (OptConfig, adamw_update, apply_max_norm,
                                    clip_by_global_norm, global_norm,
                                    sgd_update, tree_map)
@@ -92,6 +98,33 @@ def _map_with_group(fn, tree, exps: Dict[str, Tensor], prefix: str):
         return out
 
     return map_with_path(apply, tree), stats
+
+
+# Sentinel flag bits (metrics["flags"] in supervised mode).
+FLAG_LOSS_NONFINITE = 1
+FLAG_GRAD_NONFINITE = 2
+FLAG_RUNAWAY_OVF = 4
+
+
+def benign_injection() -> Dict[str, Tensor]:
+    """The no-fault injection input of a supervised step (host scalars;
+    a step adds them to device tensors without a copy or a sync)."""
+    return {"grad_nan": torch.tensor(False),
+            "loss_scale": torch.tensor(1.0, dtype=torch.float32)}
+
+
+def _select(pred: Tensor, old, new):
+    """``torch.where(pred, old, new)`` over a state tree (dicts,
+    ``PackedArray``s, ``ScaleState``s, tensors)."""
+    if isinstance(new, dict):
+        return {k: _select(pred, old[k], v) for k, v in new.items()}
+    if isinstance(new, PackedArray):
+        return PackedArray(_select(pred, old.mantissa, new.mantissa),
+                           _select(pred, old.exp, new.exp), new.width)
+    if isinstance(new, ScaleState):
+        return ScaleState(exps=_select(pred, old.exps, new.exps),
+                          acc=_select(pred, old.acc, new.acc))
+    return torch.where(pred, old, new)
 
 
 def _unflatten(template, leaves):
@@ -144,22 +177,47 @@ def make_train_step(
     ``grad_norm`` (before clipping) and ``step``.  ``rng`` (a threefry
     key, :mod:`repro_torch.core.prng`) keys the stochastic storage
     rounding of ``policy.stochastic_rounding`` only, as in the reference;
-    the loss function draws its own dropout keys."""
-    for flag, item, what in ((supervise or runaway_ovf is not None, 20,
-                              "supervise/runaway_ovf"),
-                             (numerics_tap, 19, "numerics_tap"),
+    the loss function draws its own dropout keys.
+
+    ``supervise=True`` makes the signature ``step(state, batch, rng, ef,
+    inj) -> (state, metrics, ef)`` (``ef`` is ``{}`` until the
+    error-feedback transforms are ported, ROADMAP item 22):
+
+    * ``inj`` is the fault-injection input (:func:`benign_injection`):
+      ``loss_scale`` multiplies the loss before autograd (a loss spike
+      travels through real gradients) and ``grad_nan`` adds
+      ``where(flag, nan, 0)`` to every gradient leaf;
+    * ``metrics["flags"]`` is an int32 bitmask — :data:`FLAG_LOSS_NONFINITE`
+      | :data:`FLAG_GRAD_NONFINITE` | :data:`FLAG_RUNAWAY_OVF` (a tensor
+      class, :func:`repro_torch.core.tape.tensor_class`, whose §5
+      overflow rate this step exceeds ``runaway_ovf``) — and
+      ``metrics["cls_rates"]`` the per-class rates;
+    * on a tripped sentinel the update is discarded on the device by a
+      ``torch.where`` select, no branch and no read-back: parameters,
+      optimizer state, step and ``ef`` keep their old values; the scale
+      state keeps its old value on a NaN trip and takes the new one on a
+      runaway-only trip (the §5 controller must see the overflow window
+      to move out of it).
+    """
+    for flag, item, what in ((numerics_tap, 19, "numerics_tap"),
                              (grad_transform is not None
                               or ef_transform is not None, 22,
                               "grad_transform/ef_transform")):
         if flag:
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP module item {item})")
+    if supervise and policy.storage == "packed" and opt_cfg.kind != "sgd":
+        # the step returns adamw's moments in f32 where the state held them
+        # packed, and the discard selects between the two; the reference's
+        # select fails on the same mismatch (ROADMAP §3)
+        raise ValueError("a supervised step in packed storage takes SGD, "
+                         f"not {opt_cfg.kind!r}")
     dyn = policy.dynamic
     quant_params = policy.enabled and policy.arithmetic in ("fixed", "dfxp")
 
     stochastic = policy.stochastic_rounding and quant_params
 
-    def step(state: TrainState, batch, rng=None):
+    def _impl(state: TrainState, batch, rng, ef, inj):
         if stochastic and rng is None:
             raise ValueError("stochastic rounding requires a PRNG key")
         dev = state.step.device
@@ -174,6 +232,12 @@ def make_train_step(
         else:
             params_c, mom_c = state.params, state.opt
         exps = state.scale.exps
+        lfn = loss_fn
+        if inj is not None:
+            def lfn(p, b, s, e):
+                # a loss spike rides through autograd: scaled loss, grads
+                loss, st = loss_fn(p, b, s, e)
+                return loss * inj["loss_scale"], st
 
         # ---- 1. grads over microbatches ----------------------------------
         if microbatches > 1:
@@ -185,8 +249,7 @@ def make_train_step(
                          for n, s in group_shapes.items()
                          if n.startswith(("a:", "w:"))}
             for b in _split(batch, microbatches):
-                lo, st, g, gs = loss_and_grads(loss_fn, params_c, b, sinks,
-                                               exps)
+                lo, st, g, gs = loss_and_grads(lfn, params_c, b, sinks, exps)
                 loss = loss + lo
                 grads = tree_map(torch.add, grads, g)
                 sink_stats = {k: sink_stats[k] + gs[k] for k in sink_stats}
@@ -196,9 +259,13 @@ def make_train_step(
             grads = tree_map(lambda g: g / microbatches, grads)
         else:
             loss, fwd_stats, grads, sink_stats = loss_and_grads(
-                loss_fn, params_c, batch, sinks, exps)
+                lfn, params_c, batch, sinks, exps)
 
         with torch.no_grad():
+            if inj is not None:
+                poison = torch.where(inj["grad_nan"], float("nan"), 0.0)
+                grads = tree_map(lambda g: g + poison.to(g.dtype), grads)
+
             # ---- 2. clip -------------------------------------------------
             gnorm = global_norm(grads)
             if opt_cfg.grad_clip:
@@ -276,9 +343,50 @@ def make_train_step(
                     new_scale, max_overflow_rate=policy.max_overflow_rate,
                     apply=apply)
 
-        metrics = {"loss": loss, "grad_norm": gnorm,
-                   "step": state.step.to(torch.float32)}
-        return TrainState(params=new_params, opt=new_opt, scale=new_scale,
-                          step=state.step + 1), metrics
+            metrics = {"loss": loss, "grad_norm": gnorm,
+                       "step": state.step.to(torch.float32)}
+            new_state = TrainState(params=new_params, opt=new_opt,
+                                   scale=new_scale, step=state.step + 1)
+            if not supervise:
+                return new_state, metrics, ef
+
+            # ---- sentinels and the on-device discard ---------------------
+            bad_loss = ~torch.isfinite(loss)
+            bad_grad = ~torch.isfinite(gnorm)
+            cls_ovf: Dict[str, Tensor] = {}
+            cls_tot: Dict[str, Tensor] = {}
+            for gname, st in all_stats.items():
+                c = tensor_class(gname)
+                cls_ovf[c] = cls_ovf.get(c, 0.0) + st[..., 0].sum()
+                cls_tot[c] = cls_tot.get(c, 0.0) + st[..., 2].sum()
+            cls_rates = {c: cls_ovf[c] / torch.clamp(cls_tot[c], min=1.0)
+                         for c in sorted(cls_ovf)}
+            runaway = torch.zeros((), dtype=torch.bool, device=dev)
+            if runaway_ovf is not None and cls_rates:
+                runaway = torch.stack(list(cls_rates.values())).max() \
+                    > runaway_ovf
+            metrics["flags"] = (bad_loss.to(torch.int32) * FLAG_LOSS_NONFINITE
+                                + bad_grad.to(torch.int32)
+                                * FLAG_GRAD_NONFINITE
+                                + runaway.to(torch.int32) * FLAG_RUNAWAY_OVF)
+            metrics["cls_rates"] = cls_rates
+            nan_bad = bad_loss | bad_grad
+            any_bad = nan_bad | runaway
+            new_state = TrainState(
+                params=_select(any_bad, state.params, new_state.params),
+                opt=_select(any_bad, state.opt, new_state.opt),
+                # runaway-only: keep the new scale so the §5 controller
+                # can move the exponent out of the overflow regime
+                scale=_select(nan_bad, state.scale, new_state.scale),
+                step=torch.where(any_bad, state.step, new_state.step))
+            return new_state, metrics, ef     # no ef_transform: unchanged
+
+    if supervise:
+        def step(state: TrainState, batch, rng, ef, inj):
+            return _impl(state, batch, rng, ef, inj)
+    else:
+        def step(state: TrainState, batch, rng=None):
+            new_state, metrics, _ = _impl(state, batch, rng, {}, None)
+            return new_state, metrics
 
     return step

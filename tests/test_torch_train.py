@@ -331,10 +331,13 @@ def test_train_step_matches_reference(name):
 
 def test_train_step_raises_on_what_is_not_ported():
     pol, cfg = TPolicy("dfxp"), topt.OptConfig()
-    for kw in (dict(supervise=True), dict(numerics_tap=True),
+    for kw in (dict(numerics_tap=True),
                dict(grad_transform=lambda g: g), dict(ef_transform=print)):
         with pytest.raises(NotImplementedError, match="item"):
             t_make_step(lambda *a: None, {}, pol, cfg, **kw)
+    # the supervised step is ported (tests/test_torch_resilience.py)
+    assert callable(t_make_step(lambda *a: None, {}, pol, cfg,
+                                supervise=True, runaway_ovf=1e-3))
     # stochastic rounding is ported (the PRNG): the policy builds as the
     # reference's does, and its step rounds from the step's key
     spol = TPolicy("dfxp", stochastic_rounding=True)
