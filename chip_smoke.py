@@ -24,10 +24,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    and the merge of K3, K4, K5 and K6), plain version and a library
    yardstick;
 4. smoke-size parity: the port's model on the card (kernels) against the
-   same model on the CPU (plain versions), slot-major and paged (engine
-   logits with prefix sharing, and a tight arena that preempts);
-5. the main path: ``repro_torch.launch.serve`` at full llama3-8B width,
-   DFXP-10, int8 pool, fused decode, chunked prefill (6 requests, 4
+   same model on the CPU (plain versions), slot-major for each of the
+   eight token-in archs (17a) and paged for llama3 (engine logits with
+   prefix sharing, and a tight arena that preempts);
+5. the main path: ``repro_torch.launch.serve`` at full llama3-8B width
+   and 16 of its 32 layers (``LLAMA_LAYERS``), DFXP-10, int8 pool, fused decode, chunked prefill (6 requests, 4
    slots, 16 tokens each); every request must end OK and both kernels
    must have launched, K3 once per layer per decode step;
 6. the paged main path on the same weights: P = C = 64, int8 pages,
@@ -73,7 +74,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 14. the PRNG (before the parity phases): ``split``, ``fold_in``, bits,
     ``uniform``, ``bernoulli``, ``normal`` (16.8M draws), ``gumbel`` and
     ``categorical`` on the card equal the CPU's, and jax's constants;
-15. sampled serving at full llama3-8B width over a stochastic int8 pool
+15. sampled serving at full llama3-8B width (16 layers) over a stochastic int8 pool
     (top-k 40 at temperature 0.8), slot-major (C = 128) and paged
     (P = 64): every request OK with 16 tokens, K3-K6 launched as in the
     greedy runs, request 0 alone drawing what it drew in the batch, no
@@ -91,7 +92,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     (exit 0, a rollback, a tear, a bit flip); one profiled step, a
     checkpoint and a restore timed; before it, three supervised steps of
     a tiny tied LM on the card against the CPU (exponents equal, losses
-    within 1e-4).
+    within 1e-4);
+17. the token-in families: (a) with 4, each of the eight smoke configs
+    on the card (K3/K4 over an f32 pool) against the CPU, prefill
+    (chunked where the family chunks) + 4 decode steps, within ``TOL``,
+    gemma3-smoke past its window; after 16, K3 and K4 against their
+    plain versions at the families' head shapes and gemma3's windows
+    (wrapped rings, p0 > window), timed; (b) granite-moe-1b at full
+    width and depth through ``launch.serve`` (DFXP-10, int8 pool, fused
+    decode, 6 requests of 96/200/384 tokens, 4 slots; chunk 128 asked
+    for, whole prompts run): every request OK, K3 once per layer per
+    decode step, K4 never, request 0 alone = in the batch, float32
+    decode logits = the full forward's within ``FAMILY_DECODE_TOL`` (a
+    capacity that drops no token), a profiled decode step; (c) the
+    trainer with no ``--arch`` (granite-moe-1b at full width, batch 8 x
+    64, SGD) 20 steps under DFXP 10/12 and float32: every step ok, K1
+    and K2 launches = the sites' arithmetic (``lm_site_launches``, MoE
+    blocks included), at 2 layers steps 1 and 10 within ``GRANITE_TOL``
+    of the reference launcher's (``REF_GRANITE``), two 5-step DFXP runs
+    equal bit for bit, a profiled step; (d) mamba2-370m (48 layers) and
+    zamba2-1.2b (38 layers) served whole-prompt, gemma3-27b at full
+    width and 6 layers with 1100-1200-token prompts and chunk 128, its
+    local rings wrapped and K3 and K4 called with a window: every request
+    OK, K3/K4 launches = attention calls x steps, request 0 alone = in
+    the batch, weight bytes, peak memory, tok/s and TTFT.
 
 The ``kernels`` JSON gives each attention kernel's device time per call
 inside the profiled serving step (``in_step_ms_per_call``) beside its
@@ -112,7 +136,11 @@ import torch
 
 TOL = 1e-4                      # kernel vs plain, outputs of size O(1..16)
 K6_TOL = 1e-5                   # K6 on K4's TF32 route vs plain (atol, rtol)
-SERVE_ARGS = ["--arch", "llama3_8b", "--num-requests", "6", "--slots", "4",
+# llama3-8B at full width and 16 of its 32 layers (registered as
+# "llama3_8b_l16" by phase_serve): the cut keeps the whole run, with the
+# token-in families' phases, inside its time limit
+LLAMA_LAYERS = 16
+SERVE_ARGS = ["--arch", f"llama3_8b_l{LLAMA_LAYERS}", "--num-requests", "6", "--slots", "4",
               "--prompt-len", "96,200,384", "--max-new", "16",
               "--cache-bits", "8", "--fused-decode", "--prefill-chunk",
               "128"]
@@ -367,35 +395,45 @@ def prefill_smem(hd: int, W: int, C: int) -> int:
             + 16)
 
 
+def k3(a):
+    """K3 (flash-decode) on a :func:`cases.decode_case`'s arguments."""
+    from repro_torch.kernels.attn import ops
+    return ops.flash_decode(a["q"], a["k"], a["v"], a["pos"], a["q_pos"],
+                            a["k_exp"], a["v_exp"], width=a["width"],
+                            scale=a["scale"], window=a["window"])
+
+
+def k3_plain(a):
+    from repro_torch.kernels.attn import ref
+    return ref.decode_attention_ref(
+        a["q"], a["k"], a["v"], a["pos"], a["q_pos"], k_exp=a["k_exp"],
+        v_exp=a["v_exp"], width=a["width"], scale=a["scale"],
+        window=a["window"])
+
+
+def k4(a):
+    """K4 (flash-prefill) on a :func:`cases.prefill_case`'s arguments."""
+    from repro_torch.kernels.attn import ops
+    return ops.flash_prefill(a["q"], a["k_new"], a["v_new"], a["k"], a["v"],
+                             a["pos"], a["p0"], a["n_valid"], a["k_exp"],
+                             a["v_exp"], width=a["width"], scale=a["scale"],
+                             window=a["window"])
+
+
+def k4_plain(a):
+    from repro_torch.kernels.attn import ref
+    return ref.prefill_attention_ref(
+        a["q"], a["k"], a["v"], a["pos"], a["k_new"], a["v_new"], a["p0"],
+        a["n_valid"], k_exp=a["k_exp"], v_exp=a["v_exp"], width=a["width"],
+        scale=a["scale"], window=a["window"])
+
+
 def phase_kernels():
     """K3-K6 against their plain versions; timings and bounds."""
     from repro_torch.kernels.attn import cases, ops, ref
     dev = torch.device("cuda")
     B, W, K, G, HD, C = 4, 400, 8, 4, 128, 128
     NBLK = 8                    # paged: 464-token max_len over 64-row pages
-
-    def k3(a):
-        return ops.flash_decode(a["q"], a["k"], a["v"], a["pos"], a["q_pos"],
-                                a["k_exp"], a["v_exp"], width=a["width"],
-                                scale=a["scale"], window=a["window"])
-
-    def k3_plain(a):
-        return ref.decode_attention_ref(
-            a["q"], a["k"], a["v"], a["pos"], a["q_pos"], k_exp=a["k_exp"],
-            v_exp=a["v_exp"], width=a["width"], scale=a["scale"],
-            window=a["window"])
-
-    def k4(a):
-        return ops.flash_prefill(a["q"], a["k_new"], a["v_new"], a["k"],
-                                 a["v"], a["pos"], a["p0"], a["n_valid"],
-                                 a["k_exp"], a["v_exp"], width=a["width"],
-                                 scale=a["scale"], window=a["window"])
-
-    def k4_plain(a):
-        return ref.prefill_attention_ref(
-            a["q"], a["k"], a["v"], a["pos"], a["k_new"], a["v_new"],
-            a["p0"], a["n_valid"], k_exp=a["k_exp"], v_exp=a["v_exp"],
-            width=a["width"], scale=a["scale"], window=a["window"])
 
     def sdpa_decode(a):
         # the same function in one library call: f32 K/V, boolean mask
@@ -721,51 +759,6 @@ def k6_sweep(plain, dev, nblocks, K, G, hd) -> dict:
     return {"us": us, "fastest": min(us, key=us.get), "plan": top}
 
 
-def phase_parity():
-    """Smoke-size model on the card (kernels) vs the CPU (plain)."""
-    from repro_torch import configs
-    from repro_torch.core.policy import PrecisionPolicy
-    from repro_torch.core.scale import ScaleState
-    from repro_torch.models import transformer as T
-    from repro_torch.serve import kv_pool
-
-    cfg = configs.get_smoke("llama3_8b")
-    pol = PrecisionPolicy("float32", fused_decode=True)
-    logits = {}
-    for dev in ("cuda", "cpu"):
-        params = _to(T.init_params(cfg, 7, device="cpu"), dev)
-        exps = ScaleState.create(T.group_shapes(cfg), -6.0, device=dev).exps
-        # an f32 pool: quantizing K/V that differ by an ulp between the
-        # two devices could move a mantissa by a step at a rounding tie
-        kvp = kv_pool.make_kv_pool(cfg, pol, max_slots=1, max_len=48,
-                                   device=dev)
-        g = torch.Generator().manual_seed(11)
-        toks = torch.randint(0, cfg.vocab_size, (1, 40), generator=g)
-        out = []
-        for p0 in (0, 16, 32):
-            n = min(16, 40 - p0)
-            t = torch.zeros((1, 16), dtype=torch.int32)
-            t[0, :n] = toks[0, p0:p0 + n]
-            lg, _, _ = T.prefill_chunk_step(
-                cfg, pol, params, kvp.pool, t.to(dev),
-                torch.tensor([p0], dtype=torch.int32, device=dev),
-                torch.tensor([n], dtype=torch.int32, device=dev), exps,
-                kv_codec=kvp.codec)
-            out.append(lg.cpu())
-        for step in range(4):
-            lg, _, _ = T.decode_step(
-                cfg, pol, params, kvp.pool, toks[:, step].to(dev),
-                torch.tensor([40 + step], dtype=torch.int32, device=dev),
-                exps, kv_codec=kvp.codec)
-            out.append(lg.cpu())
-        logits[dev] = torch.stack(out)
-    err = float((logits["cuda"] - logits["cpu"]).abs().max())
-    log(f"smoke parity card vs cpu: logits {tuple(logits['cpu'].shape)} "
-        f"max_abs_err {err:.3e}")
-    if not (torch.isfinite(logits["cuda"]).all() and err < TOL):
-        raise SystemExit("the port on the card disagrees with the CPU")
-
-
 def phase_parity_paged():
     """Smoke-size paged engine on the card (K5/K6) vs the CPU (plain):
     the logits of every chunk and decode step under prefix sharing, at
@@ -837,7 +830,8 @@ def _check_served(eng, n_layers, max_new, decode_kernel, prefill_kernel):
     """All requests OK with ``max_new`` in-vocabulary tokens; the run's
     decode kernel launched once per layer per decode step, its prefill
     kernel (None: whole-prompt) once per layer per chunk, and no other
-    attention kernel at all."""
+    attention kernel at all (``n_layers``: the attention layers a step
+    runs; none for an SSM)."""
     from repro_torch.kernels.attn import ops
     st = eng.stats()
     statuses = [s.value for s in eng.statuses.values()]
@@ -860,7 +854,8 @@ def _check_served(eng, n_layers, max_new, decode_kernel, prefill_kernel):
           and all(n == max_new for n in lens)
           and all(((r >= 0) & (r < vocab)).all()
                   for r in eng.results.values())
-          and launches == want and launches[decode_kernel] > 0
+          and launches == want
+          and (launches[decode_kernel] > 0 or not n_layers)
           and (prefill_kernel is None or launches[prefill_kernel] > 0))
     if not ok:
         raise SystemExit(f"serving run failed its checks (launches "
@@ -887,6 +882,7 @@ def phase_serve():
                     peak_bytes=torch.cuda.max_memory_allocated() - base)
         return params
 
+    register_cut("llama3_8b", LLAMA_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
     T.init_params = timed_init
@@ -1764,22 +1760,46 @@ LM_CLI = ("import sys; sys.path.insert(0, sys.argv.pop(1)); "
 
 
 def lm_site_launches(cfg, B: int, S: int):
-    """(K1, K2) launches of one fused DFXP step of the dense LM, from its
-    rounding sites: every ``tape.dot`` (7 a layer and the head) is one K2
-    forward, dgrad and wgrad, and rounds its weight's statistics once
-    (K1); the embedding table rounds once at ``emb/w``; every activation
-    site (qkv, k, v, out, res; pre, out, res a layer; emb/out;
-    head/logits) rounds its value forward and its cotangent backward.  K1
-    takes a site of at least ``MIN_SIZE`` elements."""
-    N, d, f, L = B * S, cfg.d_model, cfg.d_ff, cfg.num_layers
+    """(K1, K2) launches of one fused DFXP step of a token-in LM of dense
+    (attn, swiglu ffn) and MoE (attn, moe) blocks, from its rounding
+    sites: every ``tape.dot`` (4 an attention block, 3 a SwiGLU FFN, and
+    the head) is one K2 forward, dgrad and wgrad, and rounds its weight's
+    statistics once (K1); an expert bank (3 a MoE block, ``[E, D, F]``)
+    and the embedding table round once at ``tape.weight``; every
+    activation site (qkv, k, v, out, res of attention; pre, out, res of
+    an FFN; dispatch ``[E, C, D]``, pre ``[E, C, F]``, expert_out, out,
+    res of a MoE block at its capacity ``C``; emb/out; head/logits)
+    rounds its value forward and its cotangent backward.  K1 takes a site
+    of at least ``MIN_SIZE`` elements."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    N, d = B * S, cfg.d_model
     q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-    weights = [d * q, d * kv, d * kv, q * d, d * f, d * f, f * d] * L \
-        + [cfg.vocab_size * d] * 2
-    acts = [N * q, N * kv, N * kv, N * d, N * d, N * f, N * d, N * d] * L \
-        + [N * d, N * cfg.vocab_size]
+    weights, acts, dots = [], [], 1
+    for stage in T.build_stages(cfg):
+        n = stage.count
+        for blk in stage.blocks:
+            if blk.kind == "attn":
+                weights += [d * q, d * kv, d * kv, q * d] * n
+                acts += [N * q, N * kv, N * kv, N * d, N * d] * n
+                dots += 4 * n
+            elif blk.kind == "ffn" and cfg.ffn_kind == "swiglu":
+                f = cfg.d_ff
+                weights += [d * f, d * f, f * d] * n
+                acts += [N * f, N * d, N * d] * n
+                dots += 3 * n
+            elif blk.kind == "moe" and not cfg.shared_expert:
+                E, F = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+                C = moe._capacity(N, cfg.moe_spec)
+                weights += [E * d * F] * 3 * n
+                acts += [E * C * d, E * C * F, E * C * d, N * d, N * d] * n
+            else:
+                raise NotImplementedError(f"no site count for {blk.kind}")
+    weights += [cfg.vocab_size * d] * 2
+    acts += [N * d, N * cfg.vocab_size]
     k1 = sum(n >= MIN_SIZE for n in weights) \
         + 2 * sum(n >= MIN_SIZE for n in acts)
-    return k1, 3 * (7 * L + 1)
+    return k1, 3 * dots
 
 
 def _lm_parse(text: str) -> dict:
@@ -2360,6 +2380,524 @@ def phase_prng_launches(eng, seng):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the token-in families: MoE (granite, llama4), SSM (mamba2), hybrid
+# (zamba2), windowed and qk-norm dense (gemma3, qwen3), phi3
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("llama3_8b", "qwen3_14b", "phi3_medium_14b", "gemma3_27b",
+                "llama4_maverick_400b", "granite_moe_1b", "mamba2_370m",
+                "zamba2_1p2b")
+FAMILY_SERVE = ["--num-requests", "6", "--slots", "4", "--prompt-len",
+                "96,200,384", "--max-new", "16", "--cache-bits", "8",
+                "--fused-decode", "--device", "cuda"]
+# granite is asked for chunk 128: the engine keeps MoE on whole prompts
+GRANITE_SERVE = ["--arch", "granite_moe_1b", *FAMILY_SERVE,
+                 "--prefill-chunk", "128"]
+# gemma3-27b at full width and 6 of its 62 layers (one 5-local + 1-global
+# super-block): prompts past the local window of 1024, so the local rings
+# wrap and K3 and K4 run windowed, p0 > window included
+GEMMA_LAYERS = 6
+GEMMA_SERVE = ["--num-requests", "4", "--slots", "4", "--prompt-len",
+               "1100,1150,1200,1130", "--max-new", "16", "--cache-bits", "8",
+               "--fused-decode", "--prefill-chunk", "128", "--device", "cuda"]
+# the trainer with no --arch: granite-moe-1b at full width and depth,
+# batch 8 x 64, SGD lr 0.01, DFXP 10/12 with 5 calibration steps
+GRANITE_TRAIN = ["--fused-matmul", "--steps", "20", "--log-every", "1",
+                 "--device", "cuda"]
+GRANITE_F32 = ["--arithmetic", "float32", "--calibrate-steps", "0"]
+# The reference launcher's losses at steps 1-10 at the same argv, granite
+# at full width with 2 of its 24 layers ("granite_moe_1b_l2"), jax 0.9.0 on
+# a CPU: `python tools/ref_family_train.py` (the port on the CPU at the
+# same argv, `--port`: float32 equal to 4 decimals at every step; DFXP
+# 1.4e-3 off at step 1 and 2.7e-3 at step 10, flipped rounding ties).
+REF_GRANITE = {
+    "float32": [10.9991, 11.0209, 11.037, 11.0144, 11.0112, 10.9998,
+                11.0229, 10.991, 11.0595, 10.9678],
+    "dfxp": [11.0027, 11.0217, 11.0326, 11.0174, 11.0101, 11.004, 11.0176,
+             10.9899, 11.0609, 10.968]}
+REF_GRANITE_GROUPS = 69
+# bounds on |card - reference| at steps 1 and 10, set before the card run
+# from the CPU gap above: float32 1e-3 / 1e-2, DFXP 1e-2 / 3e-2
+GRANITE_TOL = {"float32": (1e-3, 1e-2), "dfxp": (1e-2, 3e-2)}
+# full-width decode logits against the full forward (float32, a capacity
+# that drops no token, f32 pool): the same sums in other orders
+FAMILY_DECODE_TOL = 1e-3
+
+
+def register_cut(arch: str, layers: int) -> str:
+    """Register ``<arch>_l<layers>``: the arch's full-width config with its
+    depth cut, as the LM example registers LM_100M.  Returns its name."""
+    import dataclasses
+    import types
+    from repro_torch import configs
+    name = f"{arch}_l{layers}"
+    cfg = dataclasses.replace(configs.get(arch), name=f"{arch}-l{layers}",
+                              num_layers=layers)
+    sys.modules[f"repro_torch.configs.{name}"] = types.SimpleNamespace(
+        CONFIG=cfg, SMOKE=cfg)
+    return name
+
+
+def attn_calls(cfg) -> tuple:
+    """(attention sub-block applications, the windowed ones among them)
+    of one token step: each stage's count times its attention blocks."""
+    from repro_torch.models import transformer as T
+    n = w = 0
+    for stage in T.build_stages(cfg):
+        for blk in stage.blocks:
+            if blk.kind == "attn":
+                n += stage.count
+                w += stage.count if blk.window else 0
+    return n, w
+
+
+class WindowSpy:
+    """Counts the attention wrappers' calls that pass a window, in place
+    around ``repro_torch.kernels.attn.ops`` (the codecs call the module's
+    functions), for a ``with`` block."""
+
+    def __init__(self):
+        self.calls = {"flash_decode": 0, "flash_prefill": 0}
+
+    def __enter__(self):
+        from repro_torch.kernels.attn import ops
+        self.saved = {n: getattr(ops, n) for n in self.calls}
+        for n, fn in self.saved.items():
+            def spy(*a, _fn=fn, _n=n, **kw):
+                if kw.get("window"):
+                    self.calls[_n] += 1
+                return _fn(*a, **kw)
+            setattr(ops, n, spy)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.attn import ops
+        for n, fn in self.saved.items():
+            setattr(ops, n, fn)
+
+
+def phase_family_kernels():
+    """K3 and K4 against their plain versions at the shapes the families'
+    main paths give them, over the int8 pool, timed (kernel, plain, and
+    the bound from this case's bytes and operations): K3 at granite's
+    heads (K=8, G=2, hd=64) and zamba2's (K=32, G=1, hd=64) over a
+    400-slot ring, and at gemma3-27b's (K=16, G=2, hd=128) over a local
+    ring of 1024 that has wrapped (window 1024) and a global one of 1216;
+    K4 at gemma3's heads, a 128-row chunk at p0 = 1152 > window with 48
+    valid rows over the wrapped local ring, and at p0 = 1024 over the
+    global one."""
+    from repro_torch.kernels.attn import cases
+
+    fills = [112, 216, 400, 300]
+    gfills = [1116, 1166, 1216, 1146]
+    shapes = {
+        "k3_granite": ("flash_decode", k3, k3_plain, cases.decode_cost,
+                       lambda s: cases.decode_case(4, 400, 8, 2, 64, 8,
+                                                   fill=fills, seed=s)),
+        "k3_zamba2": ("flash_decode", k3, k3_plain, cases.decode_cost,
+                      lambda s: cases.decode_case(4, 400, 32, 1, 64, 8,
+                                                  fill=fills, seed=s)),
+        "k3_gemma3_local": ("flash_decode", k3, k3_plain, cases.decode_cost,
+                            lambda s: cases.decode_case(
+                                4, 1024, 16, 2, 128, 8, fill=gfills,
+                                window=1024, seed=s)),
+        "k3_gemma3_global": ("flash_decode", k3, k3_plain,
+                             cases.decode_cost,
+                             lambda s: cases.decode_case(
+                                 4, 1216, 16, 2, 128, 8, fill=gfills,
+                                 seed=s)),
+        "k4_gemma3_local": ("flash_prefill", k4, k4_plain,
+                            cases.prefill_route_cost,
+                            lambda s: cases.prefill_case(
+                                1, 128, 1024, 16, 2, 128, 8, p0=[1152],
+                                n_valid=[48], window=1024, seed=s)),
+        "k4_gemma3_global": ("flash_prefill", k4, k4_plain,
+                             cases.prefill_route_cost,
+                             lambda s: cases.prefill_case(
+                                 1, 128, 1216, 16, 2, 128, 8, p0=[1024],
+                                 n_valid=[128], seed=s)),
+    }
+    out = {}
+    for name, (kname, fn, plain, cost, make) in shapes.items():
+        a = make(0)
+        got, want = fn(a), plain(a)
+        err = float((got - want).abs().max())
+        log(f"{name}: max_abs_err {err:.3e} against the plain version")
+        if not (torch.isfinite(got).all() and err < TOL):
+            raise SystemExit(f"{name} disagrees with its plain version")
+        if not torch.equal(fn(a), got):
+            raise SystemExit(f"{name}: two calls differ")
+        nbytes = sum(t.numel() * t.element_size() for t in a.values()
+                     if torch.is_tensor(t))
+        copies = [a] + [make(s) for s in range(1, max(2, -(-(120 << 20)
+                                                         // nbytes)))]
+        row = time_row(name, f"{kname}_kernel", fn, plain, copies, cost)
+        row["max_abs_err"] = err
+        out[name] = row
+    return out
+
+
+def phase_families_parity():
+    """Smoke size, each of the eight token-in archs: the card (K3/K4 over
+    an f32 pool) against the CPU (plain versions), float32, a 40-token
+    prompt (past gemma3-smoke's window of 16) — three chunks of 16 where
+    the family chunks, the whole prompt inserted into the pool where it
+    does not — then 4 decode steps; logits within ``TOL``."""
+    from repro_torch import configs
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.core.scale import ScaleState
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import kv_pool
+
+    pol = PrecisionPolicy("float32", fused_decode=True)
+    g = torch.Generator().manual_seed(13)
+    res = {}
+    for arch in FAMILY_ARCHS:
+        cfg = configs.get_smoke(arch)
+        chunked = cfg.family == "dense" and not cfg.num_experts
+        toks = torch.randint(0, cfg.vocab_size, (1, 44), generator=g)
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            params = _to(T.init_params(cfg, 7, device="cpu"), dev)
+            exps = ScaleState.create(T.group_shapes(cfg), -6.0,
+                                     device=dev).exps
+            kvp = kv_pool.make_kv_pool(cfg, pol, max_slots=1, max_len=48,
+                                       device=dev)
+            out = []
+            if chunked:
+                for p0 in (0, 16, 32):
+                    n = min(16, 40 - p0)
+                    t = torch.zeros((1, 16), dtype=torch.int32)
+                    t[0, :n] = toks[0, p0:p0 + n]
+                    lg, _, _ = T.prefill_chunk_step(
+                        cfg, pol, params, kvp.pool, t.to(dev),
+                        torch.tensor([p0], dtype=torch.int32, device=dev),
+                        torch.tensor([n], dtype=torch.int32, device=dev),
+                        exps, kv_codec=kvp.codec)
+                    out.append(lg.cpu())
+            else:
+                lg, _, entry = T.prefill(cfg, pol, params,
+                                         {"tokens": toks[:, :40].to(dev)},
+                                         exps, max_cache_len=48)
+                kv_pool.insert(kvp.pool, entry,
+                               torch.tensor([0], device=dev), kvp.codec)
+                out.append(lg.cpu())
+            for step in range(4):
+                lg, _, _ = T.decode_step(
+                    cfg, pol, params, kvp.pool, toks[:, 40 + step].to(dev),
+                    torch.tensor([40 + step], dtype=torch.int32, device=dev),
+                    exps, kv_codec=kvp.codec)
+                out.append(lg.cpu())
+            logits[dev] = torch.stack(out)
+        err = float((logits["cuda"] - logits["cpu"]).abs().max())
+        res[arch] = err
+        log(f"family parity {cfg.name} card vs cpu ({'chunked' if chunked
+            else 'whole-prompt'}): logits {tuple(logits['cpu'].shape)} "
+            f"max_abs_err {err:.3e}")
+        if not (torch.isfinite(logits["cuda"]).all() and err < TOL):
+            raise SystemExit(f"{cfg.name} on the card disagrees with the "
+                             f"CPU")
+    return res
+
+
+def _alone_tokens(eng, uid: int, prompt_tokens, max_new: int):
+    """Request ``uid``'s prompt served alone on an engine of the same
+    geometry and options: its tokens."""
+    from repro_torch.serve import ServeEngine
+    alone = ServeEngine(eng.cfg, eng.policy, eng.params,
+                        max_slots=eng.max_slots, max_len=eng.max_len,
+                        options=eng.options, device="cuda")
+    u = alone.submit(prompt_tokens, max_new=max_new)
+    alone.run()
+    return alone.results[u]
+
+
+def _weight_bytes(params) -> int:
+    if isinstance(params, dict):
+        return sum(_weight_bytes(v) for v in params.values())
+    return params.numel() * params.element_size()
+
+
+def serve_family(argv, *, chunked: bool):
+    """``repro_torch.launch.serve.main(argv)`` counted from 0, held by
+    :func:`_check_served` (K3 once per attention call of every decode
+    step, K4 once per attention call of every chunk when ``chunked``);
+    the windowed calls among them; request 0 alone gives its tokens in
+    the batch.  Returns (engine, the run's numbers)."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import prompt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with WindowSpy() as spy:
+        eng = serve.main(argv)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n, nw = attn_calls(eng.cfg)
+    st, launches = _check_served(eng, n, 16, "flash_decode",
+                                 "flash_prefill" if chunked else None)
+    want_win = {"flash_decode": nw * st["decode_steps"],
+                "flash_prefill": nw * st["prefill_chunks"]}
+    lens = [int(x) for x in argv[argv.index("--prompt-len") + 1].split(",")]
+    alone = _alone_tokens(eng, 0, prompt(0, lens[0], eng.cfg.vocab_size), 16)
+    same = bool(np.array_equal(alone, eng.results[0]))
+    res = {"arch": eng.cfg.name, "layers": eng.cfg.num_layers,
+           "wall_s": wall, "tok_per_s": st["tok_per_s"],
+           "ttft_mean_s": st["ttft_mean_s"], "ttft_max_s": st["ttft_max_s"],
+           "decode_steps": st["decode_steps"],
+           "prefill_chunks": st["prefill_chunks"],
+           "weight_bytes": _weight_bytes(eng.params),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "windowed_calls": dict(spy.calls),
+           "alone_equals_batch": same}
+    log(f"{eng.cfg.name} served: {json.dumps(res)}")
+    if not (spy.calls == want_win and same
+            and (st["prefill_chunks"] > 0) == chunked):
+        raise SystemExit(f"{eng.cfg.name} serving failed its checks "
+                         f"(windowed {spy.calls}, expected {want_win}; "
+                         f"alone = batch {same})")
+    return eng, res
+
+
+def phase_granite_serve():
+    """granite-moe-1b served at full width and depth through the CLI
+    (DFXP-10, int8 pool, fused decode; chunk 128 asked for, whole prompts
+    run), then at float32 with a capacity that drops no token: the
+    decode logits of 8 teacher-forced steps after a 96-token prefill
+    against the full forward's over the same 104 tokens, within
+    ``FAMILY_DECODE_TOL``; and one profiled decode step."""
+    import dataclasses
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.launch.serve import prompt
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import kv_pool
+    eng, res = serve_family(GRANITE_SERVE, chunked=False)
+    cfg, params = eng.cfg, eng.params
+    nd = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+    pol = PrecisionPolicy("float32", fused_decode=True)
+    exps = eng.exps
+    seq = np.concatenate([prompt(0, 96, cfg.vocab_size),
+                          eng.results[0][:8]]).astype(np.int64)
+    tseq = torch.from_numpy(seq).cuda()[None]
+    with torch.no_grad():
+        full, _, _ = T.forward(nd, pol, params, {"tokens": tseq}, exps, {})
+        kvp = kv_pool.make_kv_pool(nd, pol, max_slots=1, max_len=128,
+                                   device="cuda")
+        lg, _, entry = T.prefill(nd, pol, params, {"tokens": tseq[:, :96]},
+                                 exps, max_cache_len=128)
+        kv_pool.insert(kvp.pool, entry, torch.tensor([0], device="cuda"),
+                       kvp.codec)
+        out = [lg]
+        for j in range(7):
+            lg, _, _ = T.decode_step(
+                nd, pol, params, kvp.pool, tseq[:, 96 + j],
+                torch.tensor([96 + j], dtype=torch.int32, device="cuda"),
+                exps, kv_codec=kvp.codec)
+            out.append(lg)
+        got = torch.cat(out)
+        err = float((got - full[0, 95:103]).abs().max())
+        scale = float(full[0, 95:103].abs().max())
+    res["decode_vs_forward_max_abs_err"] = err
+    res["logits_max_abs"] = scale
+    log(f"granite f32 prefill+decode vs forward (no drops): max_abs_err "
+        f"{err:.3e} on logits up to {scale:.3f}")
+    if not (math.isfinite(err) and err <= FAMILY_DECODE_TOL):
+        raise SystemExit("granite's decode disagrees with its forward")
+    tok = torch.zeros(eng.max_slots, dtype=torch.int32, device="cuda")
+    pos = torch.full((eng.max_slots,), 300, dtype=torch.int32,
+                     device="cuda")
+
+    def decode():
+        T.decode_step(cfg, eng.policy, params, eng.kv.pool, tok, pos,
+                      eng.exps, kv_codec=eng.codec)
+
+    res["decode_profile"] = _profile("granite_decode_step", decode)
+    res["decode_device_ops"] = device_ops(decode)
+    log(f"granite decode step: {res['decode_device_ops']} device operations")
+    return eng, res
+
+
+def _state_leaves(tree, path=""):
+    """Tensors of a train state (dataclasses, dicts) by path."""
+    import dataclasses
+    if dataclasses.is_dataclass(tree):
+        tree = {f.name: getattr(tree, f.name)
+                for f in dataclasses.fields(tree)}
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_state_leaves(v, f"{path}/{k}"))
+        return out
+    return {path: tree} if torch.is_tensor(tree) else {}
+
+
+def phase_granite_train():
+    """The trainer with no ``--arch``: granite-moe-1b at full width and
+    depth, batch 8 x 64, SGD, fused matmul and K1, DFXP 10/12 (5
+    calibration steps) and float32, 20 steps each: every step ok, losses
+    finite, K1 and K2 launches = the sites' arithmetic
+    (:func:`lm_site_launches`, MoE blocks included); the same argv at 2
+    of the 24 layers against the reference launcher's losses at steps 1
+    and 10 (``REF_GRANITE``, within ``GRANITE_TOL``); two 5-step DFXP runs
+    (no calibration) end in the same bits, every state leaf; one
+    profiled train step."""
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.core.quant import enable_pallas_quantize
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import build_policy
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.opt import OptConfig
+    from repro_torch.train import TrainSupervisor
+    cfg = configs.get("granite_moe_1b")
+    res = {"config": cfg.name}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    dfxp, state = _lm_in_process(GRANITE_TRAIN)
+    res["dfxp_wall_s"] = time.perf_counter() - t0
+    launches = train_launches()
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - base
+    k1s, k2s = lm_site_launches(cfg, 8, 64)
+    want = {"dfxp_quantize": 20 * k1s, "qmatmul": 20 * k2s}
+    res.update(launches=launches, expected_launches=want,
+               per_step={"dfxp_quantize": k1s, "qmatmul": k2s})
+    t0 = time.perf_counter()
+    f32, _ = _lm_in_process(GRANITE_TRAIN + GRANITE_F32)
+    res["float32_wall_s"] = time.perf_counter() - t0
+    rows = {"dfxp": dfxp, "float32": f32}
+    s_ok = all(r["summary"] and r["summary"]["attempts"]
+               == r["summary"]["steps_committed"] == len(r["losses"]) == 20
+               and r["summary"]["halted"] is False
+               and all(math.isfinite(v) for v in r["losses"].values())
+               for r in rows.values())
+    res["losses"] = {k: [r["losses"].get(s) for s in (1, 5, 10, 15, 20)]
+                     for k, r in rows.items()}
+    res["groups"] = dfxp["groups"]
+    log(f"granite trained ({cfg.num_layers} layers): every step ok {s_ok}, "
+        f"groups "
+        f"{dfxp['groups']}, losses {res['losses']}; launches {launches} "
+        f"expected {want}; peak {res['peak_memory_bytes'] / 1e9:.2f} GB; "
+        f"{res['dfxp_wall_s']:.1f}s dfxp, {res['float32_wall_s']:.1f}s f32")
+    if not (s_ok and dfxp["groups"] == REF_GRANITE_GROUPS
+            and launches == want):
+        raise SystemExit("granite training failed its checks")
+
+    # -- a profiled step on the run's final state ----------------------------
+    ns = type("Args", (), dict(
+        arithmetic="dfxp", comp_width=10, update_width=12,
+        update_interval=20, storage="sim", max_overflow_rate=1e-4,
+        fused_matmul=True))
+    pol = build_policy(ns)
+    data = SyntheticLM(cfg.vocab_size, 64, 8, seed=0)
+    sup = TrainSupervisor(
+        lambda p, b, s, e: T.loss_fn(cfg, pol, p, b, e, s),
+        T.group_shapes(cfg), pol, OptConfig(kind="sgd", lr=0.01,
+                                            lr_decay_steps=1000), state,
+        batch_fn=lambda c: {k: torch.from_numpy(v).cuda()
+                            for k, v in data.batch(c).items()},
+        rng=prng.PRNGKey(0, "cuda"))
+    sup.cursor = 20
+    enable_pallas_quantize(True)
+    try:
+        res["step_profile"] = _profile("granite_train_step", sup.step_once)
+        res["step_device_ops"] = device_ops(sup.step_once)
+    finally:
+        enable_pallas_quantize(False)
+    log(f"granite train step: {res['step_device_ops']} device operations")
+    del sup, state
+
+    # -- the reference's losses, at 2 layers ---------------------------------
+    cut = register_cut("granite_moe_1b", 2)
+    res["ref"] = {}
+    for row, flags in (("dfxp", []), ("float32", GRANITE_F32)):
+        r, _ = _lm_in_process(["--arch", cut, "--fused-matmul", "--steps",
+                               "10", "--log-every", "1", "--device", "cuda",
+                               *flags])
+        got = [r["losses"].get(s, math.inf) for s in (1, 10)]
+        ref = [REF_GRANITE[row][0], REF_GRANITE[row][9]]
+        d = [abs(a - b) for a, b in zip(got, ref)]
+        res["ref"][row] = {"card": got, "reference": ref, "diff": d,
+                           "bound": list(GRANITE_TOL[row])}
+        log(f"granite 2-layer {row}: steps 1, 10 {got} vs the reference's "
+            f"{ref}: diff {d[0]:.2e}, {d[1]:.2e} (bounds "
+            f"{GRANITE_TOL[row]})")
+        if not (d[0] <= GRANITE_TOL[row][0] and d[1] <= GRANITE_TOL[row][1]):
+            raise SystemExit(f"granite {row} training disagrees with the "
+                             f"reference launcher's losses")
+
+    # -- determinism: two 5-step DFXP runs -----------------------------------
+    runs = []
+    for _ in range(2):
+        r, st = _lm_in_process(["--fused-matmul", "--steps", "5",
+                                "--calibrate-steps", "0", "--log-every", "1",
+                                "--device", "cuda"])
+        runs.append((r["losses"], {k: v.cpu() for k, v in
+                                   _state_leaves(st).items()}))
+        del st
+    (la, a), (lb, b) = runs
+    differ = [k for k in a if k not in b or not torch.equal(a[k], b[k])]
+    res["determinism"] = {"leaves": len(a), "differing": len(differ),
+                          "losses_equal": la == lb}
+    log(f"granite two 5-step DFXP runs: {len(differ)} of {len(a)} state "
+        f"leaves differ {differ[:3]}; losses equal {la == lb}")
+    if differ or la != lb or not a:
+        raise SystemExit("two granite DFXP runs do not give the same bits")
+    return res
+
+
+def phase_families_serve():
+    """mamba2-370m (48 layers) and zamba2-1.2b (38 layers; shared
+    attention through K3) served whole-prompt at full width, and
+    gemma3-27b at full width and ``GEMMA_LAYERS`` layers with prompts past
+    its window (K3 and K4 windowed on its local layers): each through
+    :func:`serve_family`, with its weight bytes, peak memory, tok/s and
+    TTFT; gemma3's local rings must have wrapped."""
+    out = {}
+    for arch in ("mamba2_370m", "zamba2_1p2b"):
+        eng, out[arch] = serve_family(["--arch", arch, *FAMILY_SERVE],
+                                      chunked=False)
+        del eng
+        torch.cuda.empty_cache()
+    name = register_cut("gemma3_27b", GEMMA_LAYERS)
+    eng, res = serve_family(["--arch", name, *GEMMA_SERVE], chunked=True)
+    ring = eng.kv.pool["dec"]["0:attn"]["pos"]
+    res["local_ring_cap"] = int(ring.shape[-1])
+    res["local_ring_max_pos"] = int(ring.max())
+    log(f"gemma3 local ring: cap {res['local_ring_cap']}, newest position "
+        f"{res['local_ring_max_pos']}")
+    if not (res["local_ring_cap"] == eng.cfg.window
+            and res["local_ring_max_pos"] > eng.cfg.window
+            and res["windowed_calls"]["flash_prefill"] > 0):
+        raise SystemExit("gemma3's local rings did not wrap")
+    out["gemma3_27b"] = res
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phases_families(t0, parity: dict) -> dict:
+    """The token-in families' phases after the trainer's (``parity``: the
+    smoke parity phase's result), each engine freed before the next."""
+    fam = {"parity": parity, "kernels": phase_family_kernels()}
+    log(f"[{time.perf_counter() - t0:.0f}s] families' kernel shapes checked")
+    eng, fam["granite_serve"] = phase_granite_serve()
+    del eng
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t0:.0f}s] granite-moe-1b served")
+    fam["granite_train"] = phase_granite_train()
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t0:.0f}s] granite-moe-1b trained")
+    fam["serve"] = phase_families_serve()
+    log(f"[{time.perf_counter() - t0:.0f}s] mamba2, zamba2, gemma3 served")
+    log("families: " + json.dumps(fam))
+    return fam
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2379,7 +2917,7 @@ def main():
     log(f"[{time.perf_counter() - t0:.0f}s] kernels checked")
     prng_res = phase_prng()
     log(f"[{time.perf_counter() - t0:.0f}s] PRNG checked")
-    phase_parity()
+    fam_parity = phase_families_parity()
     phase_parity_paged()
     tpar = phase_train_parity()
     log(f"[{time.perf_counter() - t0:.0f}s] smoke parity checked")
@@ -2396,6 +2934,7 @@ def main():
     lm["parity"] = lm_par
     log(f"[{time.perf_counter() - t0:.0f}s] LM trainer trained, crashed, "
         f"resumed and survived chaos")
+    fam = phases_families(t0, fam_parity)
     eng, st, launches, peak = phase_serve()
     log(f"[{time.perf_counter() - t0:.0f}s] main path served")
     peng, pst, plaunches, ppeak = phase_paged(eng)
@@ -2441,6 +2980,20 @@ def main():
                 rows[-1][key] = main_row[key]
     rows[2]["k5_vs_k3_max_abs_diff"] = \
         kern["flash_decode_paged"]["k5_vs_k3_max_abs_diff"]
+    # K3 and K4 on the token-in families' serving paths, each counted from
+    # 0 around its run, and the calls among them that pass a window
+    fam_paths = {"granite_moe_1b": fam["granite_serve"],
+                 **{a: fam["serve"][a] for a in ("mamba2_370m",
+                                                 "zamba2_1p2b",
+                                                 "gemma3_27b")}}
+    for row in rows[:2]:
+        row["launches_by_path"] = {"llama3_8b": row["launches"], **{
+            a: r["launches"][row["name"]] for a, r in fam_paths.items()}}
+        row["windowed_calls"] = {a: r["windowed_calls"][row["name"]]
+                                 for a, r in fam_paths.items()}
+        tag = "k3_" if row["name"] == "flash_decode" else "k4_"
+        row["family_cases"] = {k: v for k, v in fam["kernels"].items()
+                               if k.startswith(tag)}
     # each attention kernel's device time per call inside the profiled
     # serving step (one call per layer), beside its isolated rows
     n_layers = eng.cfg.num_layers
@@ -2471,7 +3024,9 @@ def main():
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": lm["launches"][name],
             "launches_by_path": {"train_lm": lm["launches"][name],
-                                 "quickstart": train["launches"][name]},
+                                 "quickstart": train["launches"][name],
+                                 "granite_moe_1b_train": fam[
+                                     "granite_train"]["launches"][name]},
             "max_abs_err": k["max_abs_err"], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],

@@ -1,11 +1,17 @@
-"""Architecture registry of the port.
+"""Architecture registry of the port: the reference's token-in decoders.
 
 ``get(name)`` → full ModelConfig; ``get_smoke(name)`` → reduced
-same-family config for CPU tests.  The port has the dense decoder
-family; the reference's other architectures join this registry with the
-slices that port their blocks (ROADMAP module item 21).  As in the
-reference's ``importlib`` lookup, a module registered in ``sys.modules``
-as ``repro_torch.configs.<name>`` (with ``CONFIG`` and ``SMOKE``) is an
+same-family config for CPU tests.  Eight of the reference's ten
+architectures, each ``CONFIG`` and ``SMOKE`` copied field for field from
+``repro.configs``: dense (llama3, qwen3 with qk-norm, phi3), gemma3
+(5:1 local:global windows, qk-norm, embed scale), MoE (granite, llama4
+with its shared expert), SSM (mamba2) and hybrid (zamba2's shared
+attention).  The reference's other two, ``seamless_m4t_medium`` (an
+encoder-decoder) and ``qwen2_vl_72b`` (embeds input, M-RoPE), raise
+``NotImplementedError`` (ROADMAP module item 21b); the dry-run's
+``shapes.py`` waits for item 23.  As in the reference's ``importlib``
+lookup, a module registered in ``sys.modules`` as
+``repro_torch.configs.<name>`` (with ``CONFIG`` and ``SMOKE``) is an
 arch too: the LM example registers its inline LM_100M so.
 """
 from __future__ import annotations
@@ -15,10 +21,32 @@ import sys
 
 from repro_torch.models.transformer import ModelConfig
 
-ARCHS = ("llama3_8b",)
+ARCHS = (
+    "zamba2_1p2b",
+    "llama3_8b",
+    "qwen3_14b",
+    "phi3_medium_14b",
+    "gemma3_27b",
+    "llama4_maverick_400b",
+    "granite_moe_1b",
+    "mamba2_370m",
+)
+
+_NOT_PORTED = ("seamless_m4t_medium", "qwen2_vl_72b")
 
 _ALIASES = {
+    "zamba2-1.2b": "zamba2_1p2b",
     "llama3-8b": "llama3_8b",
+    "qwen3-14b": "qwen3_14b",
+    "phi3-medium-14b": "phi3_medium_14b",
+    "gemma3-27b": "gemma3_27b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b",
+    "llama4-maverick-400b": "llama4_maverick_400b",
+    "granite-moe-1b-a400m": "granite_moe_1b",
+    "granite-moe-1b": "granite_moe_1b",
+    "mamba2-370m": "mamba2_370m",
+    "qwen2-vl-72b": "qwen2_vl_72b",
 }
 
 
@@ -27,10 +55,12 @@ def _module(name: str):
     registered = sys.modules.get(f"repro_torch.configs.{key}")
     if registered is not None:
         return registered
+    if key in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{key} is not ported yet: the encoder-decoder and the "
+            f"embeds-input/M-RoPE models come with ROADMAP module item 21b")
     if key not in ARCHS:
-        raise ValueError(f"unknown arch {name!r}: the port has {ARCHS}; "
-                         f"the other families come with ROADMAP module "
-                         f"item 21")
+        raise ValueError(f"unknown arch {name!r}: the port has {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 

@@ -28,7 +28,8 @@ arithmetic and one exact float conversion: bit for bit equal to
 ``jax.random``.  ``normal`` (``sqrt(2) * erfinv(u)``) and ``gumbel``
 (``-log(-log(u))``) evaluate the float32 approximations XLA's CPU backend
 evaluates — Giles' ``erfinv`` polynomial, Cephes' ``logf`` and ``log1p``
-— with each of XLA's fused multiply-adds rounded once and ``erfinv``'s
+(and, for the mamba init's ``log(expm1(exp(u)))``, Cephes' ``expf``,
+XLA's ``expm1`` and its rational ``tanh``) — with each of XLA's fused multiply-adds rounded once and ``erfinv``'s
 square root rounded correctly (:func:`_sqrt`), so they too agree with
 the reference bit for bit on the CPU on jax 0.9.0.  ``categorical`` is
 the argmax of logits plus that noise.  Every operation is a correctly
@@ -263,6 +264,66 @@ def log1p(x: Tensor) -> Tensor:
     small = x + _fma(xs, -0.5, (x * xs) * small)
     return torch.where(x.abs() < _f32(0.41421356237309504880), small,
                        log(x + 1.0))
+
+
+# Cephes' expf, which XLA's CPU backend evaluates for ``exp``.
+_EXP_P = tuple(_f32(v) for v in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+    1.6666665459e-1, 5.0000001201e-1))
+
+
+def exp(x: Tensor) -> Tensor:
+    """Float32 ``exp``, XLA's CPU evaluation: ``n = floor(x log2(e) +
+    1/2)``, Cephes' two-part reduction by ``n ln 2`` and degree-5
+    polynomial in fused multiply-adds, times ``2**n``.  Equal to XLA's
+    where the result is a normal float (inputs in about ``[-87.3,
+    88.3]``); XLA's overflow and flush-to-zero tails are not followed."""
+    x = torch.clamp(x.to(torch.float32), _f32(-87.8), _f32(88.8))
+    n = torch.floor(_fma(x, _f32(1.44269504088896341), 0.5))
+    x = _fma(n, -_f32(0.693359375), x)
+    x = _fma(n, -_f32(-2.12194440e-4), x)
+    y = _fma(x, _EXP_P[0], _EXP_P[1])
+    for p in _EXP_P[2:]:
+        y = _fma(y, x, p)
+    y = 1.0 + _fma(y, x * x, x)
+    n = torch.clamp(n, -127.0, 127.0).to(torch.int32)
+    return y * ((n + 127) << 23).view(torch.float32)
+
+
+# XLA's rational tanh (Eigen's): odd numerator over even denominator.
+_TANH_NUM = tuple(_f32(v) for v in (
+    -2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+    5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+    4.89352455891786e-03))
+_TANH_DEN = tuple(_f32(v) for v in (
+    1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
+    4.89352518554385e-03))
+
+
+def tanh(x: Tensor) -> Tensor:
+    """Float32 ``tanh``, XLA's CPU evaluation: ``x`` below 4e-4 in
+    magnitude, else a 13/6 rational function of ``x`` clamped to
+    ``±7.905``."""
+    x = x.to(torch.float32)
+    c = torch.clamp(x, -_f32(7.90531110763549805), _f32(7.90531110763549805))
+    c2 = c * c
+
+    def poly(coeffs):
+        r = torch.full_like(c2, coeffs[0])
+        for v in coeffs[1:]:
+            r = _fma(r, c2, v)
+        return r
+
+    return torch.where(x.abs() < _f32(0.0004), x,
+                       (c * poly(_TANH_NUM)) / poly(_TANH_DEN))
+
+
+def expm1(x: Tensor) -> Tensor:
+    """Float32 ``exp(x) - 1``, XLA's CPU evaluation: ``tanh(x/2) *
+    (exp(x) + 1)`` below 1/2 in magnitude, ``exp(x) - 1`` above."""
+    x = x.to(torch.float32)
+    ex = exp(x)
+    return torch.where(x.abs() < 0.5, tanh(x * 0.5) * (ex + 1.0), ex - 1.0)
 
 
 def _sqrt(w: Tensor) -> Tensor:

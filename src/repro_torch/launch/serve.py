@@ -15,6 +15,15 @@ by default:
       --num-requests 6 --slots 4 --prompt-len 96,200,384 --max-new 16 \\
       --cache-bits 8 --fused-decode --page-size 64
 
+``--arch`` takes every registered arch (``repro_torch.configs.ARCHS``):
+MoE, SSM and hybrid models prefill whole prompts whatever
+``--prefill-chunk`` asks for, as the reference's engine does, and the
+paged pool takes the dense attention family without windows only::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_370m \\
+      --smoke --device cpu --num-requests 3 --slots 2 --prompt-len 6,10 \\
+      --max-new 4 --cache-bits 8
+
 ``--smoke`` takes the reduced config, ``--device cpu`` runs the plain
 PyTorch versions on the CPU.  Weights are random, drawn on the device
 from ``--seed``; prompts are drawn from seeds ``1000 + i``.  A

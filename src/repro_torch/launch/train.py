@@ -24,6 +24,11 @@ HALTED; 143 after SIGTERM/SIGINT; ``--kill-at`` dies by SIGKILL (137).
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_8b \\
       --smoke --steps 20 --global-batch 4 --seq-len 32 --arithmetic dfxp \\
       --device cpu
+  # the default arch, granite-moe-1b (MoE every layer), at smoke size
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
+
+``--arch`` takes every registered arch; with none the trainer trains
+granite-moe-1b, as the reference's does (at full width on the card).
 
 Weights are the reference's from ``--seed`` (threefry), data
 :class:`repro_torch.data.SyntheticLM`.  ``--fused-matmul`` routes every

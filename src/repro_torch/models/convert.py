@@ -1,7 +1,8 @@
 """Parameters of the JAX package, as the port's parameters.
 
 ``params_from_jax(cfg, tree)`` takes the reference's parameter pytree —
-nested dicts of numpy arrays, layer-stacked ``[n, ...]`` per stage
+nested dicts of numpy arrays, layer-stacked ``[n, ...]`` per stage, a
+stage's shared blocks (zamba2) unstacked under ``"shared"``
 (``repro.models.transformer.init_params``) — and returns the same tree of
 torch tensors on the requested device, after checking every leaf against
 the port's own shapes (a tied model has no ``head`` leaf in either

@@ -1,6 +1,6 @@
-"""Shared neural-net layers, quantization-aware (tape-threaded), dense parts.
+"""Shared neural-net layers, quantization-aware (tape-threaded).
 
-The port of ``repro.models.layers`` for the dense decoder: every weighted
+The port of ``repro.models.layers`` for the token-in decoders: every weighted
 sum goes through ``tape.dot`` (weight re-quantized to the computation
 width at use time, f32 accumulation) and every group boundary through
 ``tape.act``.  With a float32 policy all of it is the identity.
@@ -25,6 +25,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import prng
@@ -67,7 +68,8 @@ def rope_freqs(head_dim: int, theta: float, device) -> Tensor:
 def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     """``x``: [B, S, H, hd]. ``positions``: [B, S] absolute positions."""
     if positions.ndim != 2:
-        raise NotImplementedError("M-RoPE position streams are not ported")
+        raise NotImplementedError("M-RoPE position streams are not ported "
+                                  "(ROADMAP module item 21b)")
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)                    # [hd/2]
     angle = positions.to(torch.float32)[..., None] * freqs     # [B, S, hd/2]
@@ -88,6 +90,7 @@ class AttnSpec:
     num_heads: int
     num_kv_heads: int
     head_dim: int
+    qk_norm: bool = False
     rope_theta: float = 1e4
     causal: bool = True
 
@@ -102,12 +105,17 @@ class AttnSpec:
 
 def init_attn(key: Tensor, spec: AttnSpec) -> dict:
     ks = prng.split(key, 4)
-    return {
+    p = {
         "wq": init_dense(ks[..., 0, :], spec.d_model, spec.q_dim),
         "wk": init_dense(ks[..., 1, :], spec.d_model, spec.kv_dim),
         "wv": init_dense(ks[..., 2, :], spec.d_model, spec.kv_dim),
         "wo": init_dense(ks[..., 3, :], spec.q_dim, spec.d_model),
     }
+    if spec.qk_norm:
+        ones = key.shape[:-1] + (spec.head_dim,)
+        p["q_norm"] = torch.ones(ones, dtype=torch.float32, device=key.device)
+        p["k_norm"] = torch.ones(ones, dtype=torch.float32, device=key.device)
+    return p
 
 
 def _qkv(params, spec: AttnSpec, x: Tensor, positions, tape: QTape,
@@ -119,6 +127,9 @@ def _qkv(params, spec: AttnSpec, x: Tensor, positions, tape: QTape,
         B, S, spec.num_kv_heads, spec.head_dim)
     v = tape.dot(f"{prefix}/wv", x, params["wv"]).reshape(
         B, S, spec.num_kv_heads, spec.head_dim)
+    if spec.qk_norm:
+        q = rmsnorm(q, params["q_norm"])
+        k = rmsnorm(k, params["k_norm"])
     q = apply_rope(q, positions, spec.rope_theta)
     k = apply_rope(k, positions, spec.rope_theta)
     q = tape.act(f"{prefix}/qkv", q)
@@ -409,6 +420,51 @@ def swiglu(params, x: Tensor, tape: QTape, prefix: str) -> Tensor:
     h = tape.act(f"{prefix}/pre", torch.nn.functional.silu(g) * u)
     y = tape.dot(f"{prefix}/w_down", h, params["w_down"])
     return tape.act(f"{prefix}/out", y)
+
+
+def init_gelu_ffn(key: Tensor, d_model: int, d_ff: int) -> dict:
+    ks = prng.split(key, 2)
+    lead = key.shape[:-1]
+    return {"w_in": init_dense(ks[..., 0, :], d_model, d_ff),
+            "w_out": init_dense(ks[..., 1, :], d_ff, d_model),
+            "b_in": torch.zeros(lead + (d_ff,), device=key.device),
+            "b_out": torch.zeros(lead + (d_model,), device=key.device)}
+
+
+def gelu(x: Tensor) -> Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation, in its formula:
+    ``x * (1 + tanh(sqrt(2/pi) (x + 0.044715 x**3))) / 2`` (``F.gelu``
+    defaults to the erf form)."""
+    c = float(np.float32(math.sqrt(2.0 / math.pi)))
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x ** 3)))))
+
+
+def gelu_ffn(params, x: Tensor, tape: QTape, prefix: str) -> Tensor:
+    h = tape.dot(f"{prefix}/w_in", x, params["w_in"]) + params["b_in"]
+    h = tape.act(f"{prefix}/pre", gelu(h))
+    y = tape.dot(f"{prefix}/w_out", h, params["w_out"]) + params["b_out"]
+    return tape.act(f"{prefix}/out", y)
+
+
+def init_maxout(key: Tensor, d_in: int, d_out: int, k: int) -> dict:
+    """Maxout unit (paper §2): max over ``k`` affine maps; the
+    reference's ``split(key, 1)`` draw."""
+    kw = prng.split(key, 1)[..., 0, :]
+    lead = key.shape[:-1]
+    w = prng.normal_blocked(kw, (k, d_in, d_out)).div_(
+        float(np.float32(math.sqrt(d_in))))
+    return {"w": w, "b": torch.zeros(lead + (k, d_out), device=key.device)}
+
+
+def maxout(params, x: Tensor, tape: QTape, prefix: str) -> Tensor:
+    """``h_i = max_j (b_ij + w_ij · x)``, the paper's hidden unit: the
+    ``k`` affine maps as one ``[d_in, k·d_out]`` product, then the max."""
+    k, d_in, d_out = params["w"].shape
+    w2 = params["w"].permute(1, 0, 2).reshape(d_in, k * d_out)
+    b2 = params["b"].reshape(k * d_out)
+    z = tape.dot(f"{prefix}/w", x, w2) + b2
+    h = torch.amax(z.reshape(z.shape[:-1] + (k, d_out)), dim=-2)
+    return tape.act(f"{prefix}/out", h)
 
 
 # ---------------------------------------------------------------------------

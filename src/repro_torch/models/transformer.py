@@ -1,14 +1,22 @@
-"""Decoder LM of the port: the dense stage of ``repro.models.transformer``.
+"""Decoder LM of the port: ``repro.models.transformer`` for token-in models.
 
 A model is a sequence of **stages**; each stage repeats a *super-block*
 (an ordered tuple of sub-blocks) ``count`` times over layer-stacked
-parameters ``[count, ...]``.  The dense family (llama3/qwen3/phi3 and the
-example's LM_100M) is one stage of ``(attn, ffn) × L``.  The reference's
-``lax.scan`` over layers is a Python loop here that stacks each layer's
-statistics.
+parameters ``[count, ...]``.  The reference's ``lax.scan`` over layers is
+a Python loop here that stacks each layer's statistics.  Every token-in
+decoder family of the reference:
+
+  * dense (llama3/qwen3/phi3, the example's LM_100M): ``(attn, ffn) × L``;
+  * gemma3's 5:1 local:global: ``5×(windowed attn, ffn) + (attn, ffn)``
+    repeated, the remainder a ``dec_tail`` stage of local layers; local
+    layers take their own RoPE theta;
+  * MoE (granite every layer, llama4 every 2nd): ``(attn, ffn|moe)``;
+  * SSM (mamba2): ``(mamba,) × L``;
+  * hybrid (zamba2): ``N×mamba + shared attn + shared ffn``, the shared
+    blocks' weights stored once (``"shared"``), a ``dec_tail`` of mamba.
 
 Parameters keep the reference's pytree: ``{"stages": {"dec": {"stacked":
-{"0:attn": {...}, "1:ffn": {...}}, "shared": {}}}, "embed", "head",
+{"0:attn": {...}, "1:ffn": {...}}, "shared": {...}}}, "embed", "head",
 "final_norm"}`` with ``[count, d_in, d_out]`` weights (no ``head`` when
 the embeddings are tied: the head contracts against the table), so
 :func:`repro_torch.models.convert.params_from_jax` is a leaf-for-leaf
@@ -30,8 +38,10 @@ reference's donated pool, which keeps one copy of the pool resident.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -43,6 +53,8 @@ from repro_torch.core.quant import qbound_site
 from repro_torch.core.tape import QTape
 
 from . import layers as L
+from . import moe as M
+from . import ssm as S
 
 Tensor = torch.Tensor
 
@@ -51,12 +63,19 @@ Tensor = torch.Tensor
 # config
 # ---------------------------------------------------------------------------
 
+_ITEM_21B = ("the encoder-decoder family and embeds-input models are not "
+             "ported yet (ROADMAP module item 21b)")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The dense-decoder fields of the reference's ``ModelConfig``."""
+    """The reference's ``ModelConfig`` (``transformer.py:47-107``), field
+    for field.  The encoder-decoder and embeds-input fields
+    (``encoder_layers``, ``input_mode``, ``mrope_sections``) raise
+    unless left at their defaults."""
 
     name: str = "model"
-    family: str = "dense"          # the port has the dense family
+    family: str = "dense"          # dense|moe|ssm|hybrid (encdec: 21b)
     num_layers: int = 4
     d_model: int = 256
     num_heads: int = 4
@@ -64,20 +83,68 @@ class ModelConfig:
     head_dim: int = 64
     d_ff: int = 1024
     vocab_size: int = 1024
+    # attention variants
+    qk_norm: bool = False
     rope_theta: float = 1e6
-    window: int = 0                # >0: sliding window attention
+    mrope_sections: Tuple[int, ...] = ()
+    window: int = 0                # >0: sliding window for local layers
+    local_global_pattern: int = 0  # N: N local then 1 global (gemma3: 5)
+    local_rope_theta: float = 1e4  # theta for local (windowed) layers
+    embed_scale: bool = False      # multiply embeds by sqrt(d_model) (gemma)
+    # ffn
+    ffn_kind: str = "swiglu"       # swiglu|gelu|maxout
+    maxout_k: int = 2
+    # moe
+    num_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    moe_period: int = 1            # MoE every k-th layer (llama4: 2)
+    shared_expert: bool = False
+    capacity_factor: float = 1.25
+    # ssm / hybrid
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
+    hybrid_period: int = 0         # zamba2: shared attn+ffn every N mamba
+    # enc-dec
+    encoder_layers: int = 0
+    # io
+    input_mode: str = "tokens"     # tokens (embeds: 21b)
     tie_embeddings: bool = True
+
+    def __post_init__(self):
+        if (self.encoder_layers or self.family == "encdec"
+                or self.input_mode != "tokens" or self.mrope_sections):
+            raise NotImplementedError(f"{self.name}: {_ITEM_21B}")
 
     @property
     def attn_spec(self) -> L.AttnSpec:
         return L.AttnSpec(self.d_model, self.num_heads, self.num_kv_heads,
-                          self.head_dim, rope_theta=self.rope_theta)
+                          self.head_dim, qk_norm=self.qk_norm,
+                          rope_theta=self.rope_theta)
+
+    @property
+    def ssm_spec(self) -> S.SSMSpec:
+        return S.SSMSpec(self.d_model, self.ssm_state, self.ssm_headdim,
+                         self.ssm_expand, chunk=self.ssm_chunk)
+
+    @property
+    def moe_spec(self) -> M.MoESpec:
+        return M.MoESpec(self.d_model, self.moe_d_ff or self.d_ff,
+                         self.num_experts, self.top_k,
+                         capacity_factor=self.capacity_factor,
+                         shared_expert_d_ff=self.d_ff if self.shared_expert
+                         else 0)
 
 
 @dataclasses.dataclass(frozen=True)
 class SubBlock:
-    kind: str                      # attn|ffn
+    kind: str                      # attn|ffn|moe|mamba
     window: int = 0                # 0 = global
+    shared: bool = False           # one weight for every repetition
+    causal: bool = True
+    rope_theta: float = 0.0        # 0 → cfg.rope_theta
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,14 +155,52 @@ class Stage:
 
 
 def build_stages(cfg: ModelConfig) -> Tuple[Stage, ...]:
-    """The dense branch of the reference's ``build_stages`` (swiglu FFN,
-    token inputs)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the port has the dense family; {cfg.name!r} is {cfg.family} "
-            f"(ROADMAP module item 21)")
-    blocks = (SubBlock("attn", window=cfg.window), SubBlock("ffn"))
-    return (Stage("dec", cfg.num_layers, blocks),)
+    """The reference's stages (``transformer.py:125-168``) for the
+    token-in decoders."""
+    stages = []
+    Ld = cfg.num_layers
+    if cfg.family == "ssm":
+        stages.append(Stage("dec", Ld, (SubBlock("mamba"),)))
+    elif cfg.family == "hybrid":
+        p = cfg.hybrid_period or 6
+        reps, rem = divmod(Ld, p)
+        blocks = tuple(SubBlock("mamba") for _ in range(p)) + (
+            SubBlock("attn", shared=True), SubBlock("ffn", shared=True))
+        stages.append(Stage("dec", reps, blocks))
+        if rem:
+            stages.append(Stage("dec_tail", 1,
+                                tuple(SubBlock("mamba") for _ in range(rem))))
+    elif cfg.local_global_pattern:
+        n = cfg.local_global_pattern
+        reps, rem = divmod(Ld, n + 1)
+        local = (SubBlock("attn", window=cfg.window,
+                          rope_theta=cfg.local_rope_theta), SubBlock("ffn"))
+        glob = (SubBlock("attn"), SubBlock("ffn"))
+        stages.append(Stage("dec", reps, local * n + glob))
+        if rem:
+            stages.append(Stage("dec_tail", 1, local * rem))
+    elif cfg.num_experts:
+        p = cfg.moe_period
+        reps, rem = divmod(Ld, p)
+        blocks = []
+        for i in range(p):
+            blocks.append(SubBlock("attn"))
+            blocks.append(SubBlock("moe" if i == p - 1 else "ffn"))
+        stages.append(Stage("dec", reps, tuple(blocks)))
+        assert rem == 0, "num_layers must divide moe_period"
+    else:
+        stages.append(Stage("dec", Ld, (SubBlock("attn", window=cfg.window),
+                                        SubBlock("ffn"))))
+    return tuple(stages)
+
+
+def _block_attn_spec(cfg: ModelConfig, blk: SubBlock) -> L.AttnSpec:
+    spec = cfg.attn_spec
+    if blk.rope_theta:
+        spec = dataclasses.replace(spec, rope_theta=blk.rope_theta)
+    if not blk.causal:
+        spec = dataclasses.replace(spec, causal=False)
+    return spec
 
 
 # ---------------------------------------------------------------------------
@@ -104,23 +209,35 @@ def build_stages(cfg: ModelConfig) -> Tuple[Stage, ...]:
 
 def _init_block(key: Tensor, cfg: ModelConfig, blk: SubBlock) -> dict:
     """One sub-block's parameters from ``key`` (a batch ``[count, 2]``
-    draws the stacked layers, one key each)."""
+    draws the stacked layers, one key each; a shared block one key)."""
     p = {"norm": torch.ones(key.shape[:-1] + (cfg.d_model,),
                             dtype=torch.float32, device=key.device)}
     if blk.kind == "attn":
-        p.update(L.init_attn(key, cfg.attn_spec))
+        p.update(L.init_attn(key, _block_attn_spec(cfg, blk)))
+    elif blk.kind == "ffn":
+        if cfg.ffn_kind == "swiglu":
+            p.update(L.init_swiglu(key, cfg.d_model, cfg.d_ff))
+        elif cfg.ffn_kind == "gelu":
+            p.update(L.init_gelu_ffn(key, cfg.d_model, cfg.d_ff))
+        else:
+            p.update(L.init_maxout(key, cfg.d_model, cfg.d_ff, cfg.maxout_k))
+    elif blk.kind == "moe":
+        p.update(M.init_moe(key, cfg.moe_spec))
+    elif blk.kind == "mamba":
+        p.update(S.init_ssm(key, cfg.ssm_spec))
     else:
-        p.update(L.init_swiglu(key, cfg.d_model, cfg.d_ff))
+        raise ValueError(blk.kind)
     return p
 
 
 def init_params(cfg: ModelConfig, key=0, *, device="cuda") -> dict:
-    """The reference's initial parameters (``transformer.py:198-226``),
+    """The reference's initial parameters (``transformer.py:198-222``),
     drawn on ``device`` from the threefry ``key`` (an int is
     ``PRNGKey(int)``) with the reference's key tree: ``split`` into
-    ``len(stages) + 3`` keys, ``fold_in(keys[stage], i)`` per sub-block
-    and ``split`` over its stacked layers; the embedding from
-    ``keys[-3]``, an untied head from ``keys[-2]``.
+    ``len(stages) + 3`` keys, ``fold_in(keys[stage], i)`` per sub-block,
+    ``split`` over its stacked layers (a shared block takes the folded
+    key itself); the embedding from ``keys[-3]``, an untied head from
+    ``keys[-2]``.
 
     Each leaf is drawn where it lives and large ones in row blocks
     (:func:`prng.normal_blocked`), so a full-width model never exists on
@@ -131,11 +248,16 @@ def init_params(cfg: ModelConfig, key=0, *, device="cuda") -> dict:
     keys = prng.split(key, len(stages) + 3)
     params: dict = {"stages": {}}
     for si, stage in enumerate(stages):
-        stacked = {}
+        stacked, shared = {}, {}
         for i, blk in enumerate(stage.blocks):
-            ks = prng.split(prng.fold_in(keys[si], i), stage.count)
-            stacked[f"{i}:{blk.kind}"] = _init_block(ks, cfg, blk)
-        params["stages"][stage.name] = {"stacked": stacked, "shared": {}}
+            bkey = f"{i}:{blk.kind}"
+            k = prng.fold_in(keys[si], i)
+            if blk.shared:
+                shared[bkey] = _init_block(k, cfg, blk)
+            else:
+                stacked[bkey] = _init_block(prng.split(k, stage.count), cfg,
+                                            blk)
+        params["stages"][stage.name] = {"stacked": stacked, "shared": shared}
     params["embed"] = L.init_embed(keys[-3], cfg.vocab_size, cfg.d_model)
     if not cfg.tie_embeddings:
         params["head"] = L.init_dense(keys[-2], cfg.d_model, cfg.vocab_size,
@@ -151,12 +273,31 @@ def init_params(cfg: ModelConfig, key=0, *, device="cuda") -> dict:
 
 _SITES = {
     "attn": (("wq", "wk", "wv", "wo"), ("qkv", "k", "v", "out", "res")),
-    "ffn": (("w_gate", "w_up", "w_down"), ("pre", "out", "res")),
+    "ffn": {
+        "swiglu": (("w_gate", "w_up", "w_down"), ("pre", "out", "res")),
+        "gelu": (("w_in", "w_out"), ("pre", "out", "res")),
+        "maxout": (("w",), ("out", "res")),
+    },
+    "moe": (("w_gate", "w_up", "w_down"),
+            ("dispatch", "pre", "expert_out", "out", "res")),
+    "mamba": (("in_proj", "out_proj"), ("x", "y", "out", "state", "res")),
 }
 
 
+def _block_sites(cfg: ModelConfig, blk: SubBlock):
+    if blk.kind == "ffn":
+        w, a = _SITES["ffn"][cfg.ffn_kind]
+    else:
+        w, a = _SITES[blk.kind]
+    if blk.kind == "moe" and cfg.shared_expert:
+        w = w + ("shared/w_gate", "shared/w_up", "shared/w_down")
+        a = a + ("shared/pre", "shared/out")
+    return w, a
+
+
 def group_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """All quantization scale groups and their shapes (() or (count,)).
+    """All quantization scale groups and their shapes: ``(count,)`` for a
+    stacked sub-block, ``()`` for a shared one and the embed/head sites.
 
     The same names and shapes as the reference, ``g:`` gradient groups
     included, so a scale state carries over between the packages."""
@@ -164,12 +305,13 @@ def group_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     for stage in build_stages(cfg):
         for i, blk in enumerate(stage.blocks):
             pfx = f"{stage.name}/{i}:{blk.kind}"
-            w_sites, a_sites = _SITES[blk.kind]
+            shape = () if blk.shared else (stage.count,)
+            w_sites, a_sites = _block_sites(cfg, blk)
             for s in w_sites:
-                groups[f"w:{pfx}/{s}"] = (stage.count,)
+                groups[f"w:{pfx}/{s}"] = shape
             for s in a_sites:
-                groups[f"a:{pfx}/{s}"] = (stage.count,)
-                groups[f"g:{pfx}/{s}"] = (stage.count,)
+                groups[f"a:{pfx}/{s}"] = shape
+                groups[f"g:{pfx}/{s}"] = shape
     groups["w:emb/w"] = ()
     for g in ("a:emb/out", "g:emb/out", "w:head/w", "a:head/logits",
               "g:head/logits"):
@@ -177,11 +319,13 @@ def group_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     return groups
 
 
-def _stage_group_names(stage: Stage):
+def _stage_group_names(cfg: ModelConfig, stage: Stage, shared: bool):
     names = []
     for i, blk in enumerate(stage.blocks):
+        if blk.shared != shared:
+            continue
         pfx = f"{stage.name}/{i}:{blk.kind}"
-        w_sites, a_sites = _SITES[blk.kind]
+        w_sites, a_sites = _block_sites(cfg, blk)
         names += [f"w:{pfx}/{s}" for s in w_sites]
         for s in a_sites:
             names += [f"a:{pfx}/{s}", f"g:{pfx}/{s}"]
@@ -216,8 +360,13 @@ def _apply_block(cfg: ModelConfig, blk: SubBlock, pfx: str, bp, x,
     h = L.rmsnorm(x, bp["norm"])
     cache_out = None
     window = blk.window if blk.window > 0 else None
+    if mode == "chunk" and blk.kind not in ("attn", "ffn"):
+        # chunked prefill is attention-family only: MoE capacity and SSM
+        # state couple a whole prompt (the engine keeps those on the
+        # whole-prompt path)
+        raise ValueError(f"chunked prefill does not support {blk.kind!r}")
     if blk.kind == "attn":
-        spec = cfg.attn_spec
+        spec = _block_attn_spec(cfg, blk)
         if mode == "train":
             y = L.attention_train(bp, spec, h, positions, tape, pfx,
                                   window=window)
@@ -234,8 +383,25 @@ def _apply_block(cfg: ModelConfig, blk: SubBlock, pfx: str, bp, x,
             y, cache_out = L.attention_decode(
                 bp, spec, h, positions, cache_in, tape, pfx, window=window,
                 codec=kv_codec, append_mask=append_mask)
+    elif blk.kind == "ffn":
+        if cfg.ffn_kind == "swiglu":
+            y = L.swiglu(bp, h, tape, pfx)
+        elif cfg.ffn_kind == "gelu":
+            y = L.gelu_ffn(bp, h, tape, pfx)
+        else:
+            y = L.maxout(bp, h, tape, pfx)
+    elif blk.kind == "moe":
+        y = M.moe_ffn(bp, cfg.moe_spec, h, tape, pfx,
+                      dropless=(mode == "decode"))
+    elif blk.kind == "mamba":
+        if mode == "decode":
+            y, cache_out = S.ssm_decode(bp, cfg.ssm_spec, h, cache_in, tape,
+                                        pfx)
+        else:
+            y, cache_out = S.ssm_forward(bp, cfg.ssm_spec, h, tape, pfx,
+                                         return_cache=(mode == "prefill"))
     else:
-        y = L.swiglu(bp, h, tape, pfx)
+        raise ValueError(blk.kind)
     x = x + y.to(x.dtype)
     x = tape.act(f"{pfx}/res", x)
     return x, cache_out
@@ -265,23 +431,34 @@ def _run_stage(cfg, policy, stage: Stage, sp, x, positions, scales,
     Decode and chunk modes write each layer's new cache entry back into
     ``cache`` in place; prefill mode builds and stacks fresh entries;
     train mode threads each layer's slice of the ``g:`` ``sinks``.
+    A shared sub-block's weights, scales and sinks serve every repetition
+    (its sink's gradient sums over them), and its statistics are summed
+    over the repetitions, as the reference's scan does
+    (``transformer.py:450-452``); its cache has one entry a repetition.
     """
-    names = _stage_group_names(stage)
+    names = _stage_group_names(cfg, stage, shared=False)
+    shared_names = _stage_group_names(cfg, stage, shared=True)
+    sinks = sinks or {}
+    sc_shared = {n: scales[n] for n in shared_names if n in scales}
+    sk_shared = {n: sinks[n] for n in shared_names if n in sinks}
     per_layer_stats = []
     fresh: Dict[str, list] = {}
     layers = _unbind(sp["stacked"], stage.count)
-    sk_names = [n for n in names if sinks and n in sinks]
+    sk_names = [n for n in names if n in sinks]
     sk_layers = {n: sinks[n].unbind(0) for n in sk_names}
     for li in range(stage.count):
         sc = {n: scales[n][li] for n in names if n in scales}
-        tape = QTape(policy, sc, {n: sk_layers[n][li] for n in sk_names})
+        sc.update(sc_shared)
+        sk = {n: sk_layers[n][li] for n in sk_names}
+        sk.update(sk_shared)
+        tape = QTape(policy, sc, sk)
         for i, blk in enumerate(stage.blocks):
             bkey = f"{i}:{blk.kind}"
             ci = None
             if cache is not None and bkey in cache:
                 ci = _layer(cache[bkey], li)
-            x, co = _apply_block(cfg, blk, f"{stage.name}/{bkey}",
-                                 layers[li][bkey], x,
+            bp = sp["shared"][bkey] if blk.shared else layers[li][bkey]
+            x, co = _apply_block(cfg, blk, f"{stage.name}/{bkey}", bp, x,
                                  positions, tape, mode, ci,
                                  max_cache_len=max_cache_len,
                                  kv_codec=kv_codec, n_valid=n_valid,
@@ -294,8 +471,10 @@ def _run_stage(cfg, policy, stage: Stage, sp, x, positions, scales,
                 for name, t in co.items():
                     ci[name].copy_(t)
         per_layer_stats.append(tape.stats)
-    stats = {n: torch.stack([s[n] for s in per_layer_stats])
-             for n in per_layer_stats[0]} if per_layer_stats else {}
+    stats = {}
+    for n in (per_layer_stats[0] if per_layer_stats else ()):
+        s = torch.stack([st[n] for st in per_layer_stats])
+        stats[n] = s.sum(0) if n in shared_names else s
     if mode == "prefill":
         cache = {bkey: {name: torch.stack([e[name] for e in entries])
                         for name in entries[0]}
@@ -303,8 +482,10 @@ def _run_stage(cfg, policy, stage: Stage, sp, x, positions, scales,
     return x, stats, cache
 
 
-def _embed_tokens(policy, params, tokens, tape):
+def _embed_tokens(cfg, policy, params, tokens, tape):
     x = L.embed(params["embed"], tokens, tape)
+    if cfg.embed_scale:
+        x = x * float(np.float32(math.sqrt(cfg.d_model)))
     return x.to(getattr(torch, policy.compute_dtype))
 
 
@@ -332,7 +513,7 @@ def forward(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
                          f"prefill_chunk_step)")
     tape = QTape(policy, scales, sinks)      # the embed and head sites
     tokens = batch["tokens"]
-    x = _embed_tokens(policy, params, tokens, tape)
+    x = _embed_tokens(cfg, policy, params, tokens, tape)
     B, S = tokens.shape
     positions = batch.get("positions")
     if positions is None:
@@ -418,7 +599,7 @@ def prefill(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
     decode cache ``{stage: {bkey: {"k","v","pos"}}}``)."""
     tape = QTape(policy, scales)
     tokens = batch["tokens"]
-    x = _embed_tokens(policy, params, tokens, tape)
+    x = _embed_tokens(cfg, policy, params, tokens, tape)
     B, S = tokens.shape
     positions = batch.get("positions")
     if positions is None:
@@ -446,7 +627,7 @@ def decode_step(cfg: ModelConfig, policy, params, cache, tokens, pos,
     append for masked-off rows.  Returns (logits [B, V], stats, cache) —
     ``cache`` updated in place."""
     tape = QTape(policy, scales)
-    x = _embed_tokens(policy, params, tokens[:, None], tape)
+    x = _embed_tokens(cfg, policy, params, tokens[:, None], tape)
     positions = pos.to(torch.int32).reshape(-1, 1)
     stats: Dict[str, Tensor] = {}
     for stage in build_stages(cfg):
@@ -471,7 +652,7 @@ def prefill_chunk_step(cfg: ModelConfig, policy, params, cache, tokens, p0,
     cache) — ``cache`` updated in place.
     """
     tape = QTape(policy, scales)
-    x = _embed_tokens(policy, params, tokens, tape)
+    x = _embed_tokens(cfg, policy, params, tokens, tape)
     B, C = tokens.shape
     p0 = torch.as_tensor(p0, dtype=torch.int32, device=x.device)
     n_valid = torch.as_tensor(n_valid, dtype=torch.int32, device=x.device)
@@ -494,20 +675,33 @@ def prefill_chunk_step(cfg: ModelConfig, policy, params, cache, tokens, p0,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cpu") -> dict:
-    """Zero decode cache for ``batch`` sequences of capacity ``max_len``."""
+    """Zero decode cache for ``batch`` sequences of capacity ``max_len``:
+    per attention sub-block a ring of ``min(window, max_len)`` slots
+    (``max_len`` for a global one), per mamba sub-block its conv window
+    and f32 state, each with a leading dim of the stage's count (a shared
+    block keeps one entry a repetition)."""
     cache: dict = {}
     for stage in build_stages(cfg):
         sc: dict = {}
+        n = stage.count
         for i, blk in enumerate(stage.blocks):
-            if blk.kind != "attn":
-                continue
-            cap = min(blk.window, max_len) if blk.window else max_len
-            K, hd, n = cfg.num_kv_heads, cfg.head_dim, stage.count
-            sc[f"{i}:{blk.kind}"] = {
-                "k": torch.zeros((n, batch, cap, K, hd), device=device),
-                "v": torch.zeros((n, batch, cap, K, hd), device=device),
-                "pos": torch.full((n, batch, cap), -1, dtype=torch.int32,
-                                  device=device),
-            }
+            bkey = f"{i}:{blk.kind}"
+            if blk.kind == "attn":
+                cap = min(blk.window, max_len) if blk.window else max_len
+                K, hd = cfg.num_kv_heads, cfg.head_dim
+                sc[bkey] = {
+                    "k": torch.zeros((n, batch, cap, K, hd), device=device),
+                    "v": torch.zeros((n, batch, cap, K, hd), device=device),
+                    "pos": torch.full((n, batch, cap), -1, dtype=torch.int32,
+                                      device=device),
+                }
+            elif blk.kind == "mamba":
+                s = cfg.ssm_spec
+                sc[bkey] = {
+                    "conv": torch.zeros((n, batch, s.conv_kernel - 1,
+                                         s.conv_dim), device=device),
+                    "state": torch.zeros((n, batch, s.heads, s.headdim,
+                                          s.state), device=device),
+                }
         cache[stage.name] = sc
     return cache

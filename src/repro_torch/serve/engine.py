@@ -16,10 +16,11 @@ Every device step has fixed shapes:
 * whole-prompt mode (``prefill_chunk=0``) groups queued requests of equal
   prompt length into one prefill batch — no padding — and inserts the
   fresh cache into pool rows (``kv_pool.insert``, packed in packed mode).
-* chunked mode (``prefill_chunk=C > 0``) admits any queued request into
-  any free slot immediately, and each engine step runs ONE ``C``-token
-  prefill chunk for the oldest prefilling slot, interleaved with the
-  decode batch.  While a slot is mid-prefill the decode append is masked
+* chunked mode (``prefill_chunk=C > 0``; dense attention models only,
+  MoE, SSM and hybrid models keep the whole-prompt path) admits any
+  queued request into any free slot immediately, and each engine step
+  runs ONE ``C``-token prefill chunk for the oldest prefilling slot,
+  interleaved with the decode batch.  While a slot is mid-prefill the decode append is masked
   off for it (``append_mask``), so its pool row and controller state stay
   as a solo run would leave them.
 
@@ -203,7 +204,11 @@ class ServeEngine:
             int(getattr(policy, "prefill_chunk", 0))
         if self._paged and not pc:
             pc = self.page_size   # paged mode always prefills in chunks
-        self.prefill_chunk = pc
+        # chunked prefill: attention-family only (MoE capacity and SSM
+        # state couple a whole prompt; they keep the whole-prompt path,
+        # as in the reference, whatever chunk was asked for)
+        chunkable = cfg.family == "dense" and not cfg.num_experts
+        self.prefill_chunk = pc if chunkable else 0
         self._pfill = np.zeros(B, np.int32)       # prefill frontier per slot
         self._pstarted = np.zeros(B, bool)        # paged: block table mapped
         self._prefilling: collections.deque = collections.deque()  # slot FIFO

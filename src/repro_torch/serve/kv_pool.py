@@ -60,6 +60,12 @@ class CacheQuantConfig:
             raise ValueError(f"cache width {self.width} outside [2, 16]")
 
 
+def is_attn_entry(entry: dict) -> bool:
+    """True for decode-attention cache entries (raw or packed); a mamba
+    sub-block's ``{"conv", "state"}`` entry is not one."""
+    return ("k" in entry or "k_m" in entry) and "pos" in entry
+
+
 def _rescale(m: Tensor, de: Tensor, width: int) -> Tensor:
     """Re-grid a mantissa buffer after its exponent moved by ``de`` [B]:
     ``m' = round(m * 2**-de)``, clipped.  ``de == 0`` rows are exact."""
@@ -335,11 +341,14 @@ class PackedKVCodec:
 
 def make_pool(cfg: T.ModelConfig, max_slots: int, max_len: int,
               codec: Optional[PackedKVCodec] = None, *, device="cpu") -> dict:
-    """Zero slot pool: ``init_cache`` with attn entries optionally packed."""
+    """Zero slot pool: ``init_cache`` with attn entries optionally packed
+    (a mamba entry's conv window and state stay f32, as the reference
+    keeps them)."""
     raw = T.init_cache(cfg, max_slots, max_len, device=device)
     if codec is None:
         return raw
-    return {sname: {bkey: codec.init_like(e) for bkey, e in sc.items()}
+    return {sname: {bkey: codec.init_like(e) if is_attn_entry(e) else e
+                    for bkey, e in sc.items()}
             for sname, sc in raw.items()}
 
 
@@ -392,7 +401,7 @@ def make_kv_pool(cfg: T.ModelConfig, policy, *, max_slots: int,
         ccfg = None    # a cache_cfg without cache_bits is ignored (f32)
     if psize:
         from . import paged
-        if cfg.family != "dense":
+        if cfg.family != "dense" or cfg.num_experts or cfg.encoder_layers:
             raise ValueError("paged KV pool requires the dense attention "
                              "family (chunked prefill writes pages "
                              "incrementally)")
@@ -416,9 +425,10 @@ def insert(pool: dict, raw_entry: dict, slots: Tensor,
            codec: Optional[PackedKVCodec] = None,
            slot_keys: Optional[Tensor] = None) -> dict:
     """Write a fresh prefill cache (group size g) into pool rows ``slots``,
-    in place.  In packed mode each entry is quantized via
+    in place.  In packed mode each attention entry is quantized via
     ``codec.pack_entry`` first (``slot_keys`` [g, 2] seeding a stochastic
-    pool's chains).  Returns ``pool``."""
+    pool's chains); a mamba entry's conv window and state are copied as
+    they are.  Returns ``pool``."""
     slots = slots.long()
     for sname, sc in pool.items():
         for bkey, pe in sc.items():
@@ -443,6 +453,13 @@ def seed_slot_keys(pool: dict, slot: int, key: Tensor) -> dict:
                 k = prng.as_key(key, e["key"].device)[None]
                 e["key"][:, slot] = _layer_keys(k, e["key"].shape[0])[:, 0]
     return pool
+
+
+def _pool_device(pool: dict) -> torch.device:
+    for sc in pool.values():
+        for e in sc.values():
+            return next(iter(e.values())).device
+    raise ValueError("empty pool")
 
 
 def _packed_entries(pool: dict):
@@ -507,7 +524,7 @@ def slot_overflow_rates(pool: dict, n_slots: int) -> Tensor:
     over quantized elements since admission, summed over layers and K/V;
     paged pools gather their per-page counters through each slot's block
     table.  Float32 pools return zeros."""
-    dev = next(iter(next(iter(pool.values())).values()))["pos"].device
+    dev = _pool_device(pool)
     ovf = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
     tot = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
     for e in _packed_entries(pool):
@@ -529,7 +546,7 @@ def slot_totals(pool: dict, slot: int) -> Tensor:
     Paged pools gather the per-page counters of every page on the slot's
     block table, so pages inherited from a shared prefix count toward
     each request that maps them, as the reference's totals do."""
-    dev = next(iter(next(iter(pool.values())).values()))["pos"].device
+    dev = _pool_device(pool)
     out = torch.zeros((3,), dtype=torch.float32, device=dev)
     for e in _packed_entries(pool):
         for t in (e["tot_k"], e["tot_v"]):

@@ -57,7 +57,7 @@ from repro_torch.kernels.attn import ops as attn_ops
 from repro_torch.kernels.attn import ref as AR
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.serve.kv_pool import _rescale, append_keys
+from repro_torch.serve.kv_pool import _rescale, append_keys, is_attn_entry
 
 Tensor = torch.Tensor
 
@@ -395,10 +395,20 @@ def make_paged_pool(cfg: T.ModelConfig, max_slots: int, max_len: int,
     ``max_len``) plus the null page; a smaller budget is legal — the
     allocator recycles freed and evicted pages, and the engine answers
     exhaustion with preemption.
+
+    What the reference refuses, this refuses with its messages: rings of
+    more than one cap (windowed attention is not paged) and non-attention
+    entries (an SSM's conv window and state are per-slot, not paged;
+    :func:`repro_torch.serve.kv_pool.make_kv_pool` refuses those families
+    first).
     """
     raw = T.init_cache(cfg, max_slots, max_len, device="meta")
     P = codec.page_size
-    caps = {e["k"].shape[2] for sc in raw.values() for e in sc.values()}
+    entries = [e for sc in raw.values() for e in sc.values()]
+    if not all(is_attn_entry(e) for e in entries):
+        raise ValueError("paged KV pool requires the dense attention family "
+                         "(chunked prefill writes pages incrementally)")
+    caps = {e["k"].shape[2] for e in entries}
     if len(caps) > 1:
         raise ValueError(f"paged pool needs one ring cap, got {caps} "
                          "(windowed attention is not paged)")

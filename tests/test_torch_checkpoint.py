@@ -288,3 +288,31 @@ def test_checkpoint_crosses_the_packages(tmp_path, writer):
     _corrupt_one_leaf(path)
     with pytest.raises(LeafCorruptError, match="'a'"):
         restore_tree(t, path)
+
+
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "granite_moe_1b"])
+def test_family_params_cross_the_packages(tmp_path, arch):
+    """A hybrid model's parameters (its ``"shared"`` blocks) and an MoE
+    model's, saved by the reference, restore into the port's tree bit for
+    bit, with the leaf names and files the port writes itself."""
+    from repro import configs as jconfigs
+    from repro.models import transformer as JT
+    from repro_torch import configs as tconfigs
+    from repro_torch.models import transformer as TT
+    jp = JT.init_params(jconfigs.get_smoke(arch), jax.random.PRNGKey(3))
+    tp = TT.init_params(tconfigs.get_smoke(arch), 3, device="cpu")
+    ref, port = str(tmp_path / "ref"), str(tmp_path / "port")
+    j_save(jp, ref)
+    save_tree(tp, port)
+    got = restore_tree(tp, ref)
+    flat = jax.tree_util.tree_leaves_with_path(jp)
+    assert len(flat) == len(_manifest(ref))
+    for (path, want), m in zip(flat, _manifest(ref)):
+        d = got
+        for k in path:
+            d = d[k.key]
+        np.testing.assert_array_equal(d.numpy(), np.asarray(want), m["name"])
+    assert [(m["name"], m["file"]) for m in _manifest(ref)] == \
+        [(m["name"], m["file"]) for m in _manifest(port)]
+    if arch == "zamba2_1p2b":
+        assert any("/shared/" in m["name"] for m in _manifest(port))
