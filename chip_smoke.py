@@ -90,9 +90,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     30 (137) and resumed in subprocesses, ending with the solo run's
     final loss and checkpoint bit for bit; a chaos run at full width
     (exit 0, a rollback, a tear, a bit flip); one profiled step, a
-    checkpoint and a restore timed; before it, three supervised steps of
-    a tiny tied LM on the card against the CPU (exponents equal, losses
-    within 1e-4);
+    checkpoint and a restore timed; the solo, killed and resumed runs
+    write the §5 numerics timeline (``--numerics-log``): records every 20
+    steps holding the states' exponents, controller moves, the killed and
+    resumed runs' records equal to the solo run's, the resume still bit
+    for bit; before it, three supervised steps of a tiny tied LM on the
+    card against the CPU (exponents equal, losses within 1e-4);
 17. the token-in families: (a) with 4, each of the eight smoke configs
     on the card (K3/K4 over an f32 pool) against the CPU, prefill
     (chunked where the family chunks) + 4 decode steps, within ``TOL``,
@@ -115,7 +118,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     width and 6 layers with 1100-1200-token prompts and chunk 128, its
     local rings wrapped and K3 and K4 called with a window: every request
     OK, K3/K4 launches = attention calls x steps, request 0 alone = in
-    the batch, weight bytes, peak memory, tok/s and TTFT.
+    the batch, weight bytes, peak memory, tok/s and TTFT;
+18. the two models the engine does not serve (token-in decoders only):
+    (a) with 4, seamless-smoke (24 source frames) and qwen2vl-smoke
+    (embeds, M-RoPE positions with an image span) prefilled and decoded
+    4 steps through K3 on their f32 rings, card against CPU within
+    ``TOL``; (b) K1, K2 and K3 against their plain versions at these
+    models' shapes (seamless's 256256-row table and [512, 256256] logits,
+    qwen2-vl's 8192 x 152064 head; K2 on seamless's head at N = 256256
+    in all three layouts and its cross-attention's wk; K3 at K=16, G=1
+    and K=8, G=8), timed beside their bounds and library calls;
+    (c) seamless-m4t-medium at full width and depth trained through
+    ``make_train_step`` (DFXP 10/12 with 5 calibration steps, fused
+    matmul and K1, then float32; batch 8 x 64 over 96 source frames, 10
+    steps each): 151 groups, K1 and K2 launches = the sites' arithmetic,
+    peak memory; its float32 weights prefilled (4 prompts of 64 tokens)
+    and decoded 16 greedy steps through K3 (12 calls a step) within
+    ``FAMILY_DECODE_TOL`` of the full forward; the same recipe at 1 + 1
+    layers within ``SEAMLESS_TOL`` of the reference's losses at steps 1
+    and 10 (``REF_SEAMLESS``); (d) qwen2-vl-72b at full width and 2 of
+    its 80 layers: 4 prompts of 96 embeds with a 1x8x8 image span
+    prefilled and decoded 16 steps on embeds through K3 (2 calls a step)
+    within ``FAMILY_DECODE_TOL`` of its M-RoPE forward; its training at
+    the smoke config, 3 DFXP steps card against CPU (a full-width layer's
+    training state does not fit the card).
 
 The ``kernels`` JSON gives each attention kernel's device time per call
 inside the profiled serving step (``in_step_ms_per_call``) beside its
@@ -411,6 +437,17 @@ def k3_plain(a):
         window=a["window"])
 
 
+def sdpa_decode(a):
+    """K3's function in one library call on an f32 case: the boolean
+    mask and the K/V layout built outside the timed call."""
+    from repro_torch.kernels.attn import ref
+    valid = ref.valid_mask(a["pos"], a["q_pos"], window=a["window"],
+                           causal=True)[:, None, None, :]
+    k, v = a["k"].permute(0, 2, 1, 3), a["v"].permute(0, 2, 1, 3)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        a["q"], k, v, attn_mask=valid, scale=a["scale"])
+
+
 def k4(a):
     """K4 (flash-prefill) on a :func:`cases.prefill_case`'s arguments."""
     from repro_torch.kernels.attn import ops
@@ -434,14 +471,6 @@ def phase_kernels():
     dev = torch.device("cuda")
     B, W, K, G, HD, C = 4, 400, 8, 4, 128, 128
     NBLK = 8                    # paged: 464-token max_len over 64-row pages
-
-    def sdpa_decode(a):
-        # the same function in one library call: f32 K/V, boolean mask
-        valid = ref.valid_mask(a["pos"], a["q_pos"], window=a["window"],
-                               causal=True)[:, None, None, :]
-        k, v = a["k"].permute(0, 2, 1, 3), a["v"].permute(0, 2, 1, 3)
-        return lambda: torch.nn.functional.scaled_dot_product_attention(
-            a["q"], k, v, attn_mask=valid, scale=a["scale"])
 
     def sdpa_prefill(a):
         # f32 history + self K/V concatenated and the joint mask built
@@ -1179,35 +1208,79 @@ def time_row(name, kernel, fn, plain, copies, cost, library=None,
     return row
 
 
+def k1_call(a):
+    """K1 (fused quantize) on a :func:`dfxp.cases.quantize_case`."""
+    from repro_torch.kernels.dfxp import ops
+    return ops.dfxp_quantize(a["x"], a["e"], width=a["width"])
+
+
+def k1_plain(a):
+    from repro_torch.kernels.dfxp.ref import dfxp_quantize_ref
+    return dfxp_quantize_ref(a["x"], a["e"], width=a["width"])
+
+
+def k1_eager(a):
+    from repro_torch.core.quant import fixed_round
+    return fixed_round(a["x"], a["width"], a["e"])
+
+
+def k1_library(a):
+    """One PyTorch call of the same rounding (no overflow counts)."""
+    q = 2 ** (a["width"] - 1)
+    return torch.fake_quantize_per_tensor_affine(
+        a["x"], 2.0 ** a["e"], 0, -q, q - 1)
+
+
+def k2_call(a):
+    """K2 (quantized matmul) on a :func:`qmatmul.cases.qmm_case`."""
+    from repro_torch.kernels.qmatmul import ops
+    return ops.qmm(a["a"], a["b"], a["e_a"], a["e_b"], kind=a["kind"],
+                   width_a=a["width_a"], width_b=a["width_b"])
+
+
+def k2_plain(a):
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+    return qmatmul_ref(a["a"], a["b"], a["e_a"], a["e_b"], kind=a["kind"],
+                       width_a=a["width_a"], width_b=a["width_b"])
+
+
+def k2_plain64(a):
+    """K2's plain version in float64: the same rounded operands, their
+    product summed in double precision."""
+    from repro_torch.kernels.qmatmul.ref import round_operand
+    qa = round_operand(a["a"], a["e_a"], a["width_a"]).double()
+    qb = round_operand(a["b"], a["e_b"], a["width_b"]).double()
+    if a["kind"] == "nt":
+        qb = qb.t()
+    elif a["kind"] == "tn":
+        qa = qa.t()
+    return torch.matmul(qa, qb)
+
+
+def k2_library(a):
+    """``torch.matmul`` on the operands rounded outside the timed call."""
+    from repro_torch.kernels.qmatmul.ref import round_operand
+    if "_q" not in a:
+        a["_q"] = (round_operand(a["a"], a["e_a"], a["width_a"]),
+                   round_operand(a["b"], a["e_b"], a["width_b"]))
+    qa, qb = a["_q"]
+    if a["kind"] == "nt":
+        qb = qb.t()
+    elif a["kind"] == "tn":
+        qa = qa.t()
+    return torch.matmul(qa, qb)
+
+
 def phase_train_kernels():
     """K1 bit-exact and K2 within tolerance against their plain versions
     on card tensors; timings and bounds at the main path's shapes and at
     llama3-8B's."""
-    from repro_torch.core.quant import fixed_round
     from repro_torch.kernels.dfxp import cases as qc
-    from repro_torch.kernels.dfxp import ops as k1
     from repro_torch.kernels.attn.cases import H100_TF32_FLOPS
-    from repro_torch.kernels.dfxp.ref import dfxp_quantize_ref
     from repro_torch.kernels.qmatmul import cases as mc
     from repro_torch.kernels.qmatmul import ops as k2
     from repro_torch.kernels.qmatmul.ref import qmatmul_ref, round_operand
     dev = torch.device("cuda")
-
-    def k1_call(a):
-        return k1.dfxp_quantize(a["x"], a["e"], width=a["width"])
-
-    def k1_plain(a):
-        return dfxp_quantize_ref(a["x"], a["e"], width=a["width"])
-
-    def k1_eager(a):
-        return fixed_round(a["x"], a["width"], a["e"])
-
-    def k1_library(a):
-        # one PyTorch call of the same rounding (no overflow counts)
-        q = 2 ** (a["width"] - 1)
-        return torch.fake_quantize_per_tensor_affine(
-            a["x"], 2.0 ** a["e"], 0, -q, q - 1)
-
     k1_cases = {
         "64x1200 f32 (maxout pre-activation site)": dict(shape=(64, 1200)),
         "784x1200 f32 (maxout fc0 weight)": dict(shape=(784, 1200), e=-11.0,
@@ -1349,27 +1422,6 @@ def phase_train_kernels():
             raise SystemExit(f"K2 {kind} [{R},{C}] D={D}: two calls differ")
         log(f"K2 {kind} [{R},{C}] D={D} plan {k2.plan(R, C, D)}: two calls "
             f"bit-identical")
-
-    def k2_call(a):
-        return k2.qmm(a["a"], a["b"], a["e_a"], a["e_b"], kind=a["kind"],
-                      width_a=a["width_a"], width_b=a["width_b"])
-
-    def k2_plain(a):
-        return qmatmul_ref(a["a"], a["b"], a["e_a"], a["e_b"],
-                           kind=a["kind"], width_a=a["width_a"],
-                           width_b=a["width_b"])
-
-    def k2_library(a):
-        # torch.matmul on the operands rounded outside the timed call
-        if "_q" not in a:
-            a["_q"] = (round_operand(a["a"], a["e_a"], a["width_a"]),
-                       round_operand(a["b"], a["e_b"], a["width_b"]))
-        qa, qb = a["_q"]
-        if a["kind"] == "nt":
-            qb = qb.t()
-        elif a["kind"] == "tn":
-            qa = qa.t()
-        return torch.matmul(qa, qb)
 
     k2_rows = {}
     for tag, (kind, R, C, D), n in (
@@ -1759,35 +1811,41 @@ LM_CLI = ("import sys; sys.path.insert(0, sys.argv.pop(1)); "
           "from repro_torch.launch.train import main; main(sys.argv[1:])")
 
 
-def lm_site_launches(cfg, B: int, S: int):
+def lm_site_launches(cfg, B: int, S: int, S_src: int = 0):
     """(K1, K2) launches of one fused DFXP step of a token-in LM of dense
-    (attn, swiglu ffn) and MoE (attn, moe) blocks, from its rounding
-    sites: every ``tape.dot`` (4 an attention block, 3 a SwiGLU FFN, and
-    the head) is one K2 forward, dgrad and wgrad, and rounds its weight's
-    statistics once (K1); an expert bank (3 a MoE block, ``[E, D, F]``)
-    and the embedding table round once at ``tape.weight``; every
-    activation site (qkv, k, v, out, res of attention; pre, out, res of
-    an FFN; dispatch ``[E, C, D]``, pre ``[E, C, F]``, expert_out, out,
-    res of a MoE block at its capacity ``C``; emb/out; head/logits)
+    (attn, swiglu or gelu ffn), MoE (attn, moe) and encoder-decoder
+    (an encoder of attn, ffn over ``S_src`` source frames; attn, xattn,
+    ffn decoder layers) blocks, from its rounding sites: every
+    ``tape.dot`` (4 an attention or cross-attention block, 3 a SwiGLU
+    FFN, 2 a gelu one, and the head) is one K2 forward, dgrad and wgrad,
+    and rounds its weight's statistics once (K1); an expert bank (3 a MoE
+    block, ``[E, D, F]``) and the embedding table round once at
+    ``tape.weight``; every activation site (qkv, k, v, out, res of
+    attention, k and v of cross-attention over the source; pre, out, res
+    of an FFN; dispatch ``[E, C, D]``, pre ``[E, C, F]``, expert_out,
+    out, res of a MoE block at its capacity ``C``; emb/out; head/logits)
     rounds its value forward and its cotangent backward.  K1 takes a site
     of at least ``MIN_SIZE`` elements."""
     from repro_torch.models import moe
     from repro_torch.models import transformer as T
-    N, d = B * S, cfg.d_model
+    d = cfg.d_model
     q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     weights, acts, dots = [], [], 1
     for stage in T.build_stages(cfg):
         n = stage.count
+        N = B * (S_src if stage.name == "enc" else S)
         for blk in stage.blocks:
-            if blk.kind == "attn":
+            if blk.kind in ("attn", "xattn"):
+                Nk = B * S_src if blk.kind == "xattn" else N
                 weights += [d * q, d * kv, d * kv, q * d] * n
-                acts += [N * q, N * kv, N * kv, N * d, N * d] * n
+                acts += [N * q, Nk * kv, Nk * kv, N * d, N * d] * n
                 dots += 4 * n
-            elif blk.kind == "ffn" and cfg.ffn_kind == "swiglu":
+            elif blk.kind == "ffn" and cfg.ffn_kind in ("swiglu", "gelu"):
                 f = cfg.d_ff
-                weights += [d * f, d * f, f * d] * n
+                n_w = 3 if cfg.ffn_kind == "swiglu" else 2
+                weights += ([d * f] * (n_w - 1) + [f * d]) * n
                 acts += [N * f, N * d, N * d] * n
-                dots += 3 * n
+                dots += n_w * n
             elif blk.kind == "moe" and not cfg.shared_expert:
                 E, F = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
                 C = moe._capacity(N, cfg.moe_spec)
@@ -1795,7 +1853,9 @@ def lm_site_launches(cfg, B: int, S: int):
                 acts += [E * C * d, E * C * F, E * C * d, N * d, N * d] * n
             else:
                 raise NotImplementedError(f"no site count for {blk.kind}")
-    weights += [cfg.vocab_size * d] * 2
+    N = B * S
+    weights += [cfg.vocab_size * d] * (2 if cfg.input_mode == "tokens"
+                                       else 1)
     acts += [N * d, N * cfg.vocab_size]
     k1 = sum(n >= MIN_SIZE for n in weights) \
         + 2 * sum(n >= MIN_SIZE for n in acts)
@@ -1944,7 +2004,16 @@ def phase_train_lm():
        flip at cursor 11, a 4-step NaN burst at 13): exit 0, every
        attempt resolved, a rollback, a bit flip and a tear logged;
     4. one step profiled, one synchronous checkpoint and one restore
-       timed, the peak memory, the init's seconds."""
+       timed, the peak memory, the init's seconds.
+
+    The solo, killed and resumed runs write the §5 numerics timeline
+    (``--numerics-log``, every ``--update-interval`` = 20 committed
+    steps): the solo run's records at steps 20, 40 and 60, one per
+    tensor class, with controller moves; at step 60 the final state's
+    exponents, at step 20 those of the killed run's last committed
+    checkpoint; the killed run's step-20 record and the resumed run's
+    at 40 and 60 equal the solo run's but their clock (:func:`numerics_check`);
+    the resume stays bit for bit with the tap on."""
     import shutil
     import tempfile
     from repro_torch.checkpoint import CheckpointManager
@@ -1975,11 +2044,14 @@ def phase_train_lm():
         # the resume is from 20 whatever a 0.77 GB write takes
         argv = LM_ARGV + LM_DFXP + ["--steps", "60", "--ckpt-every", "10",
                                     "--keep", "1"]
+        logs = {k: f"{tmp}/numerics_{k}.jsonl"
+                for k in ("solo", "kill", "resume")}
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         reset_all_launches()
         t0 = time.perf_counter()
-        solo, state = _lm_in_process(argv + ["--ckpt-dir", solo_dir])
+        solo, state = _lm_in_process(argv + ["--ckpt-dir", solo_dir,
+                                             "--numerics-log", logs["solo"]])
         res["solo_wall_s"] = time.perf_counter() - t0
         launches = train_launches()
         res["launches"] = launches
@@ -2023,10 +2095,13 @@ def phase_train_lm():
         # -- 2. crash and resume ---------------------------------------------
         crash = argv + ["--ckpt-dir", f"{tmp}/crash"]
         t0 = time.perf_counter()
-        code, out, err = lm_cli(crash + ["--kill-at", "30"], 600)
+        code, out, err = lm_cli(crash + ["--kill-at", "30", "--numerics-log",
+                                         logs["kill"]], 600)
         code = 128 - code if code < 0 else code     # a signal's shell code
         killed = code == 137
-        code2, out2, err2 = lm_cli(crash, 600)
+        s20, at20 = _ckpt_leaves(f"{tmp}/crash")
+        code2, out2, err2 = lm_cli(crash + ["--numerics-log", logs["resume"]],
+                                   600)
         res["crash_resume_s"] = time.perf_counter() - t0
         resumed = _lm_parse(out2)
         same_loss = (resumed["summary"] is not None and
@@ -2049,6 +2124,14 @@ def phase_train_lm():
             log(err[-2000:] + err2[-2000:])
             raise SystemExit("the LM trainer's crash and resume is not "
                              "bit-exact")
+        if s20 != 20:
+            raise SystemExit(f"the killed LM run's last checkpoint is at "
+                             f"{s20}, not 20")
+        res["numerics"] = numerics_check(
+            logs, {k[len("train/scale/exps/"):]: v for k, v in a.items()
+                   if k.startswith("train/scale/exps/")},
+            {k[len("train/scale/exps/"):]: v for k, v in at20.items()
+             if k.startswith("train/scale/exps/")})
         shutil.rmtree(f"{tmp}/crash", ignore_errors=True)
 
         # -- 3. chaos at full width ------------------------------------------
@@ -2120,6 +2203,62 @@ def phase_train_lm():
             f"{res['ckpt_restore_s']:.2f}s; init {res['init_s']:.2f}s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def _class_exps(exps: dict) -> dict:
+    """Per tensor class: (groups, min, max, mean) of a state's exponents
+    (stacked groups count each layer), as ``train_records`` sums them."""
+    from repro_torch.core.tape import tensor_class
+    by = {}
+    for g, e in exps.items():
+        by.setdefault(tensor_class(g), []).extend(
+            np.asarray(e, np.float64).reshape(-1).tolist())
+    return {c: (len(v), min(v), max(v), sum(v) / len(v))
+            for c, v in by.items()}
+
+
+def numerics_check(logs: dict, exps_last: dict, exps_first: dict, *,
+                   interval: int = 20, steps: int = 60) -> dict:
+    """The LM trainer's numerics timelines (``logs``: solo, kill, resume
+    JSONL paths; a record every ``interval`` of ``steps`` committed steps,
+    the kill after the first record and the resume from there) against
+    the states they describe (``exps_last``: the solo run's final
+    checkpoint's exponents; ``exps_first``: the killed run's last
+    committed checkpoint's, at step ``interval``)."""
+    from repro_torch.obs import count_moves, read_jsonl
+    recs = {k: read_jsonl(p) for k, p in logs.items()}
+    want_steps = list(range(interval, steps + 1, interval))
+
+    def by_step(rs, step):
+        return [{k: v for k, v in r.items() if k != "t"} for r in rs
+                if r["step"] == step]
+
+    solo = recs["solo"]
+    agree = {}
+    for step, want in ((steps, _class_exps(exps_last)),
+                       (interval, _class_exps(exps_first))):
+        got = {r["class"]: (r["n_groups"], r["exp_min"], r["exp_max"],
+                            r["exp_mean"]) for r in solo
+               if r["step"] == step}
+        agree[step] = got == want
+    same_kill = by_step(recs["kill"], interval) == by_step(solo, interval)
+    same_resume = all(by_step(recs["resume"], s) == by_step(solo, s)
+                      for s in want_steps[1:])
+    n_cls = len(_class_exps(exps_last))
+    res = {"records": len(solo), "steps": sorted({r["step"] for r in solo}),
+           "controller_moves": count_moves(solo),
+           "state_exponents_agree": agree, "kill_first_equal": same_kill,
+           "resume_rest_equal": same_resume,
+           "resume_steps": sorted({r["step"] for r in recs["resume"]})}
+    log(f"LM numerics timeline: {json.dumps(res)}")
+    if not (res["steps"] == want_steps
+            and len(solo) == len(want_steps) * n_cls
+            and res["controller_moves"] > 0 and all(agree.values())
+            and same_kill and same_resume
+            and res["resume_steps"] == want_steps[1:]):
+        raise SystemExit("the LM trainer's numerics timeline failed its "
+                         "checks")
     return res
 
 
@@ -2387,7 +2526,7 @@ def phase_prng_launches(eng, seng):
 
 FAMILY_ARCHS = ("llama3_8b", "qwen3_14b", "phi3_medium_14b", "gemma3_27b",
                 "llama4_maverick_400b", "granite_moe_1b", "mamba2_370m",
-                "zamba2_1p2b")
+                "zamba2_1p2b", "seamless_m4t_medium", "qwen2_vl_72b")
 FAMILY_SERVE = ["--num-requests", "6", "--slots", "4", "--prompt-len",
                 "96,200,384", "--max-new", "16", "--cache-bits", "8",
                 "--fused-decode", "--device", "cuda"]
@@ -2440,11 +2579,14 @@ def register_cut(arch: str, layers: int) -> str:
 
 
 def attn_calls(cfg) -> tuple:
-    """(attention sub-block applications, the windowed ones among them)
-    of one token step: each stage's count times its attention blocks."""
+    """(self-attention sub-block applications, the windowed ones among
+    them) of one token step: each decoder stage's count times its
+    attention blocks (an encoder does not run at decode)."""
     from repro_torch.models import transformer as T
     n = w = 0
     for stage in T.build_stages(cfg):
+        if not stage.decoder:
+            continue
         for blk in stage.blocks:
             if blk.kind == "attn":
                 n += stage.count
@@ -2539,11 +2681,15 @@ def phase_family_kernels():
 
 
 def phase_families_parity():
-    """Smoke size, each of the eight token-in archs: the card (K3/K4 over
-    an f32 pool) against the CPU (plain versions), float32, a 40-token
-    prompt (past gemma3-smoke's window of 16) — three chunks of 16 where
-    the family chunks, the whole prompt inserted into the pool where it
-    does not — then 4 decode steps; logits within ``TOL``."""
+    """Smoke size, each of the ten archs: the card (K3/K4 over an f32
+    pool) against the CPU (plain versions), float32, a 40-token prompt
+    (past gemma3-smoke's window of 16) — three chunks of 16 where the
+    family chunks, the whole prompt inserted into the pool where it does
+    not — then 4 decode steps; logits within ``TOL``.  The two models
+    the engine does not serve decode from their prefill cache through
+    K3 on its f32 rings: seamless-smoke with 24 source frames, and
+    qwen2vl-smoke on embeds whose M-RoPE positions carry an image span
+    (``image_span_positions``), decoding embeds."""
     from repro_torch import configs
     from repro_torch.core.policy import PrecisionPolicy
     from repro_torch.core.scale import ScaleState
@@ -2555,10 +2701,14 @@ def phase_families_parity():
     res = {}
     for arch in FAMILY_ARCHS:
         cfg = configs.get_smoke(arch)
-        chunked = cfg.family == "dense" and not cfg.num_experts
+        chunked = (cfg.family == "dense" and not cfg.num_experts
+                   and cfg.input_mode == "tokens")
         toks = torch.randint(0, cfg.vocab_size, (1, 44), generator=g)
         logits = {}
-        for dev in ("cuda", "cpu"):
+        if arch in ENCDEC_ARCHS:
+            logits = {dev: encdec_parity_logits(cfg, toks, dev)
+                      for dev in ("cuda", "cpu")}
+        for dev in (() if logits else ("cuda", "cpu")):
             params = _to(T.init_params(cfg, 7, device="cpu"), dev)
             exps = ScaleState.create(T.group_shapes(cfg), -6.0,
                                      device=dev).exps
@@ -2592,9 +2742,10 @@ def phase_families_parity():
             logits[dev] = torch.stack(out)
         err = float((logits["cuda"] - logits["cpu"]).abs().max())
         res[arch] = err
-        log(f"family parity {cfg.name} card vs cpu ({'chunked' if chunked
-            else 'whole-prompt'}): logits {tuple(logits['cpu'].shape)} "
-            f"max_abs_err {err:.3e}")
+        how = ("chunked" if chunked else "ring decode" if arch in
+               ENCDEC_ARCHS else "whole-prompt")
+        log(f"family parity {cfg.name} card vs cpu ({how}): logits "
+            f"{tuple(logits['cpu'].shape)} max_abs_err {err:.3e}")
         if not (torch.isfinite(logits["cuda"]).all() and err < TOL):
             raise SystemExit(f"{cfg.name} on the card disagrees with the "
                              f"CPU")
@@ -2880,6 +3031,550 @@ def phase_families_serve():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the encoder-decoder (seamless-m4t-medium) and the embeds-input M-RoPE
+# model (qwen2-vl-72b), which the engine does not serve (token-in decoders
+# only): trained through make_train_step, decoded from their prefill cache
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCHS = ("seamless_m4t_medium", "qwen2_vl_72b")
+# seamless-m4t-medium trained at full width and depth through
+# make_train_step (neither package's trainer CLI feeds src_embeds):
+# SyntheticLM(256256, 64, 8, seed=0).batch(i) and src_embeds [8, 96, 1024]
+# = 0.1 * default_rng(i).standard_normal, SGD lr 0.01, DFXP 10/12 with 5
+# calibration steps (fused matmul, K1), and float32; 96 source frames
+# against 64 target tokens
+SEAMLESS_B, SEAMLESS_S, SEAMLESS_SRC, SEAMLESS_STEPS = 8, 64, 96, 10
+# The reference's losses at steps 1-10 of the same recipe at 1 encoder +
+# 1 decoder layer of the 12 + 12 ("seamless-m4t-medium-l1e1"), jax 0.9.0 on
+# a CPU: `python tools/ref_encdec_train.py` (the port on the CPU at the
+# same recipe, `--port`: float32 equal to 4 decimals at every step; DFXP
+# 7e-4 off at step 1 and 2.2e-3 at step 10, flipped rounding ties).
+REF_SEAMLESS = {
+    "dfxp": [12.6625, 12.6472, 12.6335, 12.6801, 12.6683, 12.6011, 12.6626,
+             12.6869, 12.681, 12.6882],
+    "float32": [12.6613, 12.6452, 12.6334, 12.6785, 12.6683, 12.5954,
+                12.6627, 12.6869, 12.6777, 12.6884]}
+REF_SEAMLESS_GROUPS = 151
+# bounds on |card - reference| at steps 1 and 10, set before the card run
+# from the CPU port's gap above, as GRANITE_TOL: float32 1e-3 / 1e-2,
+# DFXP 1e-2 / 3e-2
+SEAMLESS_TOL = {"float32": (1e-3, 1e-2), "dfxp": (1e-2, 3e-2)}
+# decode: 4 sequences of 64-token prompts over 96 source frames (seamless),
+# 4 of 96 embeds with a 1x8x8 image span (qwen2-vl), then 16 decode steps
+DECODE_STEPS = 16
+QWEN_LAYERS = 2        # of 80: 3.00B parameters, 12.0 GB in f32
+
+
+def image_span_positions(b: int, s: int, n0: int, gh: int, gw: int):
+    """M-RoPE positions ``[3, b, s]`` (numpy int32): ``n0`` text tokens on
+    equal streams, a 1 x gh x gw patch grid (temporal ``n0``, height
+    ``n0 + row``, width ``n0 + col``), then text again on equal streams
+    from ``n0 + max(gh, gw)``."""
+    pos = np.zeros((3, s), np.int32)
+    pos[:, :n0] = np.arange(n0)
+    r, c = np.divmod(np.arange(gh * gw), gw)
+    pos[0, n0:n0 + gh * gw] = n0
+    pos[1, n0:n0 + gh * gw] = n0 + r
+    pos[2, n0:n0 + gh * gw] = n0 + c
+    rest = s - n0 - gh * gw
+    pos[:, n0 + gh * gw:] = n0 + max(gh, gw) + np.arange(rest)
+    return np.broadcast_to(pos[:, None], (3, b, s)).copy()
+
+
+def _normal(shape, seed: int, scale: float = 0.1):
+    """``scale * default_rng(seed).standard_normal(shape)`` in float32."""
+    x = np.random.default_rng(seed).standard_normal(shape) * scale
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def ring_decode(cfg, params, prompt: dict, inputs, dev):
+    """float32 prefill of ``prompt`` [B, S] (or [B, S, D] embeds), then one
+    decode step per entry of ``inputs`` (``None``: the greedy token of the
+    last logits; else that [B, 1, D] embeds) at positions ``S + j``, K3
+    (``RawKVCodec(fused_decode=True)``) on the prefill's f32 rings.
+    Returns (logits [B, 1 + steps, V], the inputs fed, seconds)."""
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    pol = PrecisionPolicy("float32")
+    codec = L.RawKVCodec(fused_decode=True)
+    key = "tokens" if cfg.input_mode == "tokens" else "embeds"
+    B, S = prompt[key].shape[:2]
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg, _, cache = T.prefill(cfg, pol, params, prompt, {},
+                                 max_cache_len=S + len(inputs))
+        out, fed = [lg], []
+        for j, x in enumerate(inputs):
+            if x is None:
+                x = torch.argmax(lg, dim=-1).to(torch.int32)
+            fed.append(x)
+            pos = torch.full((B,), S + j, dtype=torch.int32, device=dev)
+            lg, _, cache = T.decode_step(cfg, pol, params, cache, x, pos, {},
+                                         kv_codec=codec)
+            out.append(lg)
+        logits = torch.stack(out, dim=1)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return logits, fed, time.perf_counter() - t0
+
+
+def encdec_parity_logits(cfg, toks, dev):
+    """Smoke parity of seamless-smoke (tokens, 24 source frames) or
+    qwen2vl-smoke (embeds, image-span positions): prefill 40 and decode 4
+    (teacher-forced) on ``dev``; the logits on the CPU."""
+    from repro_torch.models import transformer as T
+    params = _to(T.init_params(cfg, 7, device="cpu"), dev)
+    if cfg.input_mode == "tokens":
+        prompt = {"tokens": toks[:, :40],
+                  "src_embeds": _normal((1, 24, cfg.d_model), 11)}
+        inputs = [toks[:, 40 + j].to(torch.int32) for j in range(4)]
+    else:
+        emb = _normal((1, 44, cfg.d_model), 12)
+        prompt = {"embeds": emb[:, :40], "positions": torch.from_numpy(
+            image_span_positions(1, 40, 6, 4, 4))}
+        inputs = [emb[:, 40 + j:41 + j] for j in range(4)]
+    logits, _, _ = ring_decode(cfg, params, _to(prompt, dev),
+                               [x.to(dev) for x in inputs], dev)
+    return logits[0].cpu()
+
+
+def encdec_batch(cfg, i: int, dev="cuda"):
+    """Training batch ``i`` of the seamless recipe (``SEAMLESS_*``)."""
+    from repro_torch.data import SyntheticLM
+    b = SyntheticLM(cfg.vocab_size, SEAMLESS_S, SEAMLESS_B, seed=0).batch(i)
+    out = {k: torch.from_numpy(v) for k, v in b.items()}
+    out["src_embeds"] = _normal((SEAMLESS_B, SEAMLESS_SRC, cfg.d_model), i)
+    return _to(out, dev)
+
+
+def train_direct(cfg, row: str, steps: int, batch_fn, *, calibrate: int = 5,
+                 opt_kind: str = "sgd", lr: float = 0.01):
+    """``make_train_step`` on the card with the trainer's recipe and key
+    tree: ``row`` (dfxp: 10/12, controller interval 20, fused matmul and
+    K1, exponents calibrated on ``calibrate`` batches from
+    ``init_params(PRNGKey(0))``; or float32), weights from
+    ``fold_in(PRNGKey(0), 1)``, ``steps`` steps of ``batch_fn(i)``.  K1
+    and K2 counted from 0 around the steps alone.  Returns (result,
+    final state)."""
+    import dataclasses
+    from repro_torch.core import prng
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.core.quant import enable_pallas_quantize
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.opt import OptConfig, adamw_init, sgd_init
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.calibrate import calibrate as run_calibration
+    gs = T.group_shapes(cfg)
+    opt = OptConfig(kind=opt_kind, lr=lr, lr_decay_steps=1000)
+    pol = PrecisionPolicy(row, comp_width=10, update_width=12,
+                          update_interval=20, fused_matmul=row == "dfxp")
+    key = prng.PRNGKey(0, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    enable_pallas_quantize(True)
+    try:
+        init = -8.0
+        if pol.dynamic:
+            obs = dataclasses.replace(pol, arithmetic="observe")
+            init = run_calibration(
+                lambda p, b, s, e: T.loss_fn(cfg, obs, p, b, e, s),
+                T.init_params(cfg, key, device="cuda"), gs, pol, opt,
+                (batch_fn(i) for i in range(calibrate)), steps=calibrate)
+        params = T.init_params(cfg, prng.fold_in(key, 1), device="cuda")
+        state = init_train_state(
+            params, (sgd_init if opt_kind == "sgd" else adamw_init)(params),
+            gs, pol, init_exp=init)
+        del params
+        step = make_train_step(
+            lambda p, b, s, e: T.loss_fn(cfg, pol, p, b, e, s), gs, pol,
+            opt)
+        batches = [batch_fn(i) for i in range(steps)]
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t1 = time.perf_counter()
+        losses = []
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(m["loss"])
+        losses = torch.stack(losses).tolist()
+        steps_s = time.perf_counter() - t1
+        launches = train_launches()
+    finally:
+        enable_pallas_quantize(False)
+    res = {"row": row, "groups": len(init) if pol.dynamic else None,
+           "losses": losses, "launches": launches, "steps_wall_s": steps_s,
+           "wall_s": time.perf_counter() - t0,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated() - base}
+    return res, state
+
+
+def decode_vs_forward(cfg, params, prompt: dict, inputs, n_attn: int):
+    """:func:`ring_decode` on the card with K3 counted from 0 around it
+    (``n_attn`` self-attention calls a step), then the float32 forward
+    over the prompt and the fed inputs (M-RoPE: each fed embedding at
+    ``S + j`` on all three streams, as the decode positions are); the
+    decode's logits against the forward's at positions ``S-1 ..
+    S+steps-1``, within ``FAMILY_DECODE_TOL``."""
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.kernels.attn import ops
+    from repro_torch.models import transformer as T
+    reset_all_launches()
+    logits, fed, secs = ring_decode(cfg, params, prompt, inputs, "cuda")
+    launches = dict(ops.LAUNCHES)
+    steps = len(inputs)
+    key = "tokens" if cfg.input_mode == "tokens" else "embeds"
+    B, S = prompt[key].shape[:2]
+    full = dict(prompt)
+    if key == "tokens":
+        full["tokens"] = torch.cat([prompt["tokens"]] + [
+            x[:, None].to(prompt["tokens"].dtype) for x in fed], dim=1)
+    else:
+        full["embeds"] = torch.cat([prompt["embeds"]] + fed, dim=1)
+        if "positions" in prompt:
+            tail = torch.arange(S, S + steps, dtype=torch.int32,
+                                device="cuda").expand(3, B, steps)
+            full["positions"] = torch.cat([prompt["positions"], tail], 2)
+    with torch.no_grad():
+        want, _, _ = T.forward(cfg, PrecisionPolicy("float32"), params, full,
+                               {}, {})
+    want = want[:, S - 1:S + steps]
+    err = float((logits - want).abs().max())
+    scale = float(want.abs().max())
+    want_launches = {n: 0 for n in launches}
+    want_launches["flash_decode"] = n_attn * steps
+    res = {"decode_steps": steps, "wall_s": secs,
+           "tok_per_s": B * (steps + 1) / secs, "launches": launches,
+           "expected_launches": want_launches,
+           "decode_vs_forward_max_abs_err": err, "logits_max_abs": scale}
+    log(f"{cfg.name} prefill {B}x{S} + {steps} decode steps (K3 on f32 "
+        f"rings): {secs:.2f}s, launches {launches} expected "
+        f"{want_launches}; logits vs the forward's: max_abs_err {err:.3e} "
+        f"on logits up to {scale:.3f}")
+    if not (math.isfinite(err) and err <= FAMILY_DECODE_TOL
+            and launches == want_launches
+            and torch.isfinite(logits).all()):
+        raise SystemExit(f"{cfg.name}: decode disagrees with its forward "
+                         f"or did not run K3 as often as its layers")
+    return res
+
+
+def _n_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_n_params(v) for v in tree.values())
+    return tree.numel()
+
+
+def phase_seamless():
+    """seamless-m4t-medium at full width and depth (877M parameters):
+    trained through ``make_train_step`` (DFXP 10/12 with fused matmul and
+    K1, then float32; ``SEAMLESS_*``), every loss finite, 151 groups, K1
+    and K2 launches = the sites' arithmetic a step
+    (:func:`lm_site_launches` with the 96-frame encoder); the float32
+    run's weights prefilled (4 prompts of 64 tokens over 96 frames) and
+    decoded 16 greedy steps through K3 (12 self-attention calls a step)
+    within ``FAMILY_DECODE_TOL`` of the full forward; then the same
+    recipe at 1 + 1 layers against the reference's losses at steps 1 and
+    10 (``REF_SEAMLESS``, within ``SEAMLESS_TOL``)."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.get("seamless_m4t_medium")
+    res = {"config": cfg.name}
+
+    def batch(i):
+        return encdec_batch(cfg, i)
+
+    dfxp, state = train_direct(cfg, "dfxp", SEAMLESS_STEPS, batch)
+    res["weight_bytes"] = 4 * _n_params(state.params)
+    del state
+    torch.cuda.empty_cache()
+    k1s, k2s = lm_site_launches(cfg, SEAMLESS_B, SEAMLESS_S, SEAMLESS_SRC)
+    want = {"dfxp_quantize": SEAMLESS_STEPS * k1s,
+            "qmatmul": SEAMLESS_STEPS * k2s}
+    f32, state = train_direct(cfg, "float32", SEAMLESS_STEPS, batch)
+    res.update(dfxp=dfxp, float32=f32, expected_launches=want,
+               per_step={"dfxp_quantize": k1s, "qmatmul": k2s})
+    ok = (dfxp["groups"] == REF_SEAMLESS_GROUPS
+          and dfxp["launches"] == want
+          and not any(f32["launches"].values())
+          and all(math.isfinite(v) for r in (dfxp, f32)
+                  for v in r["losses"]))
+    log(f"seamless trained (12 + 12 layers, {res['weight_bytes'] / 1e9:.2f} "
+        f"GB): groups {dfxp['groups']}, losses dfxp {dfxp['losses']} "
+        f"float32 {f32['losses']}; launches {dfxp['launches']} expected "
+        f"{want}; peak {dfxp['peak_memory_bytes'] / 1e9:.2f} GB dfxp, "
+        f"{f32['peak_memory_bytes'] / 1e9:.2f} GB float32; "
+        f"{dfxp['steps_wall_s']:.1f}s / {f32['steps_wall_s']:.1f}s for "
+        f"{SEAMLESS_STEPS} steps")
+    if not ok:
+        raise SystemExit("seamless training failed its checks")
+
+    n = 4
+    prompt = {"tokens": encdec_batch(cfg, 0)["tokens"][:n],
+              "src_embeds": _normal((n, SEAMLESS_SRC, cfg.d_model), 100
+                                    ).cuda()}
+    res["decode"] = decode_vs_forward(
+        cfg, state.params, prompt, [None] * DECODE_STEPS,
+        attn_calls(cfg)[0])
+    del state
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, name="seamless-m4t-medium-l1e1",
+                              num_layers=1, encoder_layers=1)
+    res["ref"] = {}
+    for row in ("dfxp", "float32"):
+        r, st = train_direct(cut, row, SEAMLESS_STEPS,
+                             lambda i: encdec_batch(cut, i))
+        del st
+        got = [r["losses"][0], r["losses"][-1]]
+        ref = [REF_SEAMLESS[row][0], REF_SEAMLESS[row][-1]]
+        d = [abs(a - b) for a, b in zip(got, ref)]
+        res["ref"][row] = {"card": got, "reference": ref, "diff": d,
+                           "bound": list(SEAMLESS_TOL[row]),
+                           "groups": r["groups"]}
+        log(f"seamless 1+1 layers {row}: steps 1, 10 {got} vs the "
+            f"reference's {ref}: diff {d[0]:.2e}, {d[1]:.2e} (bounds "
+            f"{SEAMLESS_TOL[row]})")
+        if not (d[0] <= SEAMLESS_TOL[row][0] and d[1] <= SEAMLESS_TOL[row][1]):
+            raise SystemExit(f"seamless {row} training disagrees with the "
+                             f"reference's losses")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_qwen2vl():
+    """qwen2-vl-72b at full width, ``reduced: num_layers 80 -> 2``
+    (``QWEN_LAYERS``): 4 prompts of 96 embeds (16 text, a 1x8x8 image
+    span, 16 text) prefilled and decoded 16 steps on [4, 1, 8192] embeds
+    through K3 (2 calls a step), within ``FAMILY_DECODE_TOL`` of the
+    M-RoPE forward; then its training step at the smoke config, card
+    against the CPU (3 DFXP steps, fused matmul, K1 from 4096 elements:
+    exponents equal, losses within 1e-4) — one full-width layer's
+    training state does not fit the card (PERF.md)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.core.quant import enable_pallas_quantize
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(configs.get("qwen2_vl_72b"),
+                              name=f"qwen2-vl-72b-l{QWEN_LAYERS}",
+                              num_layers=QWEN_LAYERS)
+    res = {"config": cfg.name}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t0
+    res["weight_bytes"] = 4 * _n_params(params)
+    B, S = 4, 96
+    prompt = {"embeds": _normal((B, S, cfg.d_model), 20).cuda(),
+              "positions": torch.from_numpy(
+                  image_span_positions(B, S, 16, 8, 8)).cuda()}
+    inputs = [_normal((B, 1, cfg.d_model), 21 + j).cuda()
+              for j in range(DECODE_STEPS)]
+    res["decode"] = decode_vs_forward(cfg, params, prompt, inputs,
+                                      attn_calls(cfg)[0])
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - base
+    log(f"qwen2-vl ({QWEN_LAYERS} layers, {res['weight_bytes'] / 1e9:.2f} "
+        f"GB): init {res['init_s']:.1f}s, peak "
+        f"{res['peak_memory_bytes'] / 1e9:.2f} GB")
+    del params, prompt, inputs
+    torch.cuda.empty_cache()
+
+    smoke = configs.get_smoke("qwen2_vl_72b")
+
+    def batch(i, dev):
+        from repro_torch.data import SyntheticLM
+        b = SyntheticLM(smoke.vocab_size, 32, 4, seed=0).batch(i)
+        out = {"labels": torch.from_numpy(b["labels"]),
+               "embeds": _normal((4, 32, smoke.d_model), 30 + i),
+               "positions": torch.from_numpy(
+                   image_span_positions(4, 32, 6, 4, 4))}
+        return _to(out, dev)
+
+    enable_pallas_quantize(True, min_size=1 << 12)
+    try:
+        card, cpu = (_train_smoke(smoke, lambda i, d=dev: batch(i, d), dev)
+                     for dev in ("cuda", "cpu"))
+    finally:
+        enable_pallas_quantize(False)
+    diff = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
+    same = card["exps"] == cpu["exps"]
+    res["smoke_train"] = {"max_loss_diff": diff, "exponents_equal": same,
+                          "card_launches": card["launches"],
+                          "losses": card["losses"]}
+    log(f"qwen2vl-smoke 3 DFXP steps card vs cpu: max loss diff "
+        f"{diff:.3e}, exponents equal {same}, card launches "
+        f"{card['launches']}")
+    if not (diff <= 1e-4 and same and all(card["launches"].values())):
+        raise SystemExit("qwen2vl-smoke training on the card disagrees "
+                         "with the CPU")
+    return res
+
+
+def _train_smoke(cfg, batch_fn, dev):
+    """Three DFXP 10/12 steps (controller interval 2, fused matmul) of
+    ``cfg`` on ``dev`` from calibrated exponents: losses, exponents and
+    the K1/K2 launches of the steps."""
+    import dataclasses
+    from repro_torch.core import prng
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.opt import OptConfig, sgd_init
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.calibrate import calibrate
+    pol = PrecisionPolicy("dfxp", update_interval=2, fused_matmul=True)
+    obs = dataclasses.replace(pol, arithmetic="observe")
+    opt = OptConfig(kind="sgd", lr=0.01, lr_decay_steps=1000)
+    gs = T.group_shapes(cfg)
+    init = calibrate(lambda p, b, s, e: T.loss_fn(cfg, obs, p, b, e, s),
+                     T.init_params(cfg, 0, device=dev), gs, pol, opt,
+                     (batch_fn(i) for i in range(2)), steps=2)
+    params = T.init_params(cfg, prng.fold_in(prng.PRNGKey(0), 1), device=dev)
+    state = init_train_state(params, sgd_init(params), gs, pol,
+                             init_exp=init)
+    step = make_train_step(lambda p, b, s, e: T.loss_fn(cfg, pol, p, b, e, s),
+                           gs, pol, opt)
+    before = train_launches()
+    losses = []
+    for i in range(3):
+        state, m = step(state, batch_fn(i))
+        losses.append(float(m["loss"]))
+    after = train_launches()
+    return {"losses": losses,
+            "exps": {k: v.tolist() for k, v in state.scale.exps.items()},
+            "launches": {k: after[k] - before[k] for k in after}}
+
+
+def phase_encdec_kernels():
+    """K1, K2 and K3 against their plain versions at the shapes the two
+    new models give them, timed beside the bound and the library call:
+    K1 on seamless's 256256 x 1024 embedding table, its [512, 256256]
+    logits site, and qwen2-vl's 8192 x 152064 head (1.246e9 elements,
+    4.98 GB: 64-bit offsets); K2 on seamless's untied head at N = 256256
+    (forward nn, dgrad nt over the vocabulary, wgrad tn) and the
+    cross-attention's wk over 768 source rows; K3 on seamless's decoder
+    rings (K=16, G=1, hd=64) and qwen2-vl's (K=8, G=8, hd=128), f32, as
+    the decode phases run them.  K1 bit for bit; K2 within its
+    tolerance of the plain product summed in float64 (at D = 256256 the
+    float32 plain version's own error exceeds that tolerance; it is
+    reported beside); K3 within ``TOL``."""
+    from repro_torch.kernels.attn import cases
+    from repro_torch.kernels.attn.cases import H100_TF32_FLOPS
+    from repro_torch.kernels.dfxp import cases as qc
+    from repro_torch.kernels.qmatmul import cases as mc
+    from repro_torch.kernels.qmatmul import ops as k2
+    dev = torch.device("cuda")
+    out = {}
+
+    def k1_big(shape, e, scale, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn(shape, generator=g, device=dev).mul_(scale)
+        return {"x": x, "e": e, "width": 10}
+
+    for tag, make in (
+            ("k1_seamless_embed", lambda s: qc.quantize_case(
+                (256256, 1024), e=-12.0, scale=0.02, seed=s, device=dev)),
+            ("k1_seamless_logits", lambda s: qc.quantize_case(
+                (512, 256256), e=-3.0, seed=s, device=dev)),
+            ("k1_qwen2vl_head", lambda s: k1_big((8192, 152064), -12.0,
+                                                 0.02, s))):
+        a = make(0)
+        y, st = k1_call(a)
+        yr, sr = k1_plain(a)
+        torch.cuda.synchronize()
+        ok = torch.equal(y, yr) and torch.equal(st, sr)
+        log(f"{tag} {tuple(a['x'].shape)}: counts {st.tolist()} plain "
+            f"{sr.tolist()} bit-exact {ok}")
+        del y, yr
+        if not ok:
+            raise SystemExit(f"{tag}: K1 disagrees with its plain version")
+        row = time_row(f"{tag} timing", "dfxp_quantize_kernel", k1_call,
+                       k1_plain, [a], qc.quantize_cost, k1_library)
+        row["max_abs_err"] = 0.0
+        out[tag] = row
+        del a
+        torch.cuda.empty_cache()
+
+    for tag, (kind, R, C, D, wb) in (
+            ("k2_seamless_head_fwd_nn", ("nn", 512, 256256, 1024, 10)),
+            ("k2_seamless_head_dgrad_nt", ("nt", 512, 1024, 256256, 10)),
+            ("k2_seamless_head_wgrad_tn", ("tn", 1024, 256256, 512, None)),
+            ("k2_seamless_xattn_wk_nn", ("nn", 768, 1024, 1024, 10))):
+        a = mc.qmm_case(kind, R, C, D, width_b=wb, seed=9, device=dev)
+        got, plain = k2_call(a), k2_plain(a)
+        # held against the plain product in float64 (the same rounded
+        # operands): at D = 256256 the float32 plain version's own
+        # summation error passes cases.tolerance(D)
+        exact = k2_plain64(a)
+        tol = mc.tolerance(D)
+        err = float((got.double() - exact).abs().max())
+        err32 = float((plain.double() - exact).abs().max())
+        log(f"{tag} [{R},{C}] D={D} plan {k2.plan(R, C, D)}: max_abs_err "
+            f"{err:.3e} from the float64 plain product (atol "
+            f"{tol['atol']:.2e}, rtol {tol['rtol']}); the float32 plain "
+            f"version's {err32:.3e}, K2 vs it "
+            f"{float((got - plain).abs().max()):.3e}")
+        if not torch.allclose(got.double(), exact, **tol):
+            raise SystemExit(f"{tag}: K2 disagrees with its plain version")
+        del got, plain, exact
+        k2_library(a)
+        row = time_row(f"{tag} timing", "qmm_kernel", k2_call, k2_plain,
+                       [a], lambda c: (*mc.qmm_cost(c), H100_TF32_FLOPS),
+                       k2_library)
+        row.update(max_abs_err=err, float32_plain_max_abs_err=err32)
+        out[tag] = row
+        del a
+        torch.cuda.empty_cache()
+
+    fills = [80, 72, 64, 80]
+    for tag, (K, G, hd, W) in (("k3_seamless", (16, 1, 64, 80)),
+                               ("k3_qwen2vl", (8, 8, 128, 112))):
+        def make(s, K=K, G=G, hd=hd, W=W):
+            return cases.decode_case(4, W, K, G, hd, None,
+                                     fill=[min(f, W) for f in fills],
+                                     seed=s, device=dev)
+        a = make(0)
+        got, want = k3(a), k3_plain(a)
+        err = float((got - want).abs().max())
+        log(f"{tag}: max_abs_err {err:.3e} against the plain version")
+        if not (torch.isfinite(got).all() and err < TOL
+                and torch.equal(k3(a), got)):
+            raise SystemExit(f"{tag}: K3 disagrees with its plain version")
+        nbytes = sum(t.numel() * t.element_size() for t in a.values()
+                     if torch.is_tensor(t))
+        copies = [a] + [make(s) for s in range(1, max(2, -(-(120 << 20)
+                                                         // nbytes)))]
+        row = time_row(f"{tag} timing", "flash_decode_kernel", k3, k3_plain,
+                       copies, cases.decode_cost, sdpa_decode)
+        row["max_abs_err"] = err
+        out[tag] = row
+    return out
+
+
+def phases_encdec(t0) -> dict:
+    """The two models the engine does not serve, after the families'
+    phases, each freed before the next."""
+    res = {"kernels": phase_encdec_kernels()}
+    log(f"[{time.perf_counter() - t0:.0f}s] K1, K2, K3 checked at the new "
+        f"models' shapes")
+    res["seamless"] = phase_seamless()
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t0:.0f}s] seamless-m4t-medium trained and "
+        f"decoded")
+    res["qwen2vl"] = phase_qwen2vl()
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t0:.0f}s] qwen2-vl-72b decoded")
+    log("encdec: " + json.dumps(res))
+    return res
+
+
 def phases_families(t0, parity: dict) -> dict:
     """The token-in families' phases after the trainer's (``parity``: the
     smoke parity phase's result), each engine freed before the next."""
@@ -2935,6 +3630,7 @@ def main():
     log(f"[{time.perf_counter() - t0:.0f}s] LM trainer trained, crashed, "
         f"resumed and survived chaos")
     fam = phases_families(t0, fam_parity)
+    encdec = phases_encdec(t0)
     eng, st, launches, peak = phase_serve()
     log(f"[{time.perf_counter() - t0:.0f}s] main path served")
     peng, pst, plaunches, ppeak = phase_paged(eng)
@@ -2992,8 +3688,15 @@ def main():
         row["windowed_calls"] = {a: r["windowed_calls"][row["name"]]
                                  for a, r in fam_paths.items()}
         tag = "k3_" if row["name"] == "flash_decode" else "k4_"
-        row["family_cases"] = {k: v for k, v in fam["kernels"].items()
+        row["family_cases"] = {k: v for k, v in (fam["kernels"]
+                                                 | encdec["kernels"]).items()
                                if k.startswith(tag)}
+    # K3 on the decode of the two models the engine does not serve
+    rows[0]["launches_by_path"].update(
+        seamless_m4t_medium=encdec["seamless"]["decode"]["launches"][
+            "flash_decode"],
+        qwen2_vl_72b_l2=encdec["qwen2vl"]["decode"]["launches"][
+            "flash_decode"])
     # each attention kernel's device time per call inside the profiled
     # serving step (one call per layer), beside its isolated rows
     n_layers = eng.cfg.num_layers
@@ -3026,12 +3729,17 @@ def main():
             "launches_by_path": {"train_lm": lm["launches"][name],
                                  "quickstart": train["launches"][name],
                                  "granite_moe_1b_train": fam[
-                                     "granite_train"]["launches"][name]},
+                                     "granite_train"]["launches"][name],
+                                 "seamless_m4t_medium_train": encdec[
+                                     "seamless"]["dfxp"]["launches"][name]},
             "max_abs_err": k["max_abs_err"], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row.get("library_ms"), "library_note": note,
-            "main_case": main_case, "cases": k["rows"]})
+            "main_case": main_case, "cases": k["rows"],
+            "encdec_cases": {c: v for c, v in encdec["kernels"].items()
+                             if c.startswith("k1_" if name == "dfxp_quantize"
+                                             else "k2_")}})
         for key in ("f32_bound_ms", "call_device_ms", "device_ops_per_call"):
             if key in main_row:
                 rows[-1][key] = main_row[key]

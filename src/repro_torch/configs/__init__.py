@@ -1,15 +1,14 @@
-"""Architecture registry of the port: the reference's token-in decoders.
+"""Architecture registry of the port: the reference's ten architectures.
 
 ``get(name)`` → full ModelConfig; ``get_smoke(name)`` → reduced
-same-family config for CPU tests.  Eight of the reference's ten
-architectures, each ``CONFIG`` and ``SMOKE`` copied field for field from
-``repro.configs``: dense (llama3, qwen3 with qk-norm, phi3), gemma3
-(5:1 local:global windows, qk-norm, embed scale), MoE (granite, llama4
-with its shared expert), SSM (mamba2) and hybrid (zamba2's shared
-attention).  The reference's other two, ``seamless_m4t_medium`` (an
-encoder-decoder) and ``qwen2_vl_72b`` (embeds input, M-RoPE), raise
-``NotImplementedError`` (ROADMAP module item 21b); the dry-run's
-``shapes.py`` waits for item 23.  As in the reference's ``importlib``
+same-family config for CPU tests.  Each ``CONFIG`` and ``SMOKE`` is
+copied field for field from ``repro.configs``: dense (llama3, qwen3 with
+qk-norm, phi3), gemma3 (5:1 local:global windows, qk-norm, embed
+scale), MoE (granite, llama4 with its shared expert), SSM (mamba2),
+hybrid (zamba2's shared attention), the encoder-decoder
+seamless-m4t-medium (cross-attention over ``src_embeds``) and the
+embeds-input qwen2-vl-72b (M-RoPE).  The dry-run's ``shapes.py`` waits
+for item 23.  As in the reference's ``importlib``
 lookup, a module registered in ``sys.modules`` as
 ``repro_torch.configs.<name>`` (with ``CONFIG`` and ``SMOKE``) is an
 arch too: the LM example registers its inline LM_100M so.
@@ -27,12 +26,12 @@ ARCHS = (
     "qwen3_14b",
     "phi3_medium_14b",
     "gemma3_27b",
+    "seamless_m4t_medium",
     "llama4_maverick_400b",
     "granite_moe_1b",
     "mamba2_370m",
+    "qwen2_vl_72b",
 )
-
-_NOT_PORTED = ("seamless_m4t_medium", "qwen2_vl_72b")
 
 _ALIASES = {
     "zamba2-1.2b": "zamba2_1p2b",
@@ -55,10 +54,6 @@ def _module(name: str):
     registered = sys.modules.get(f"repro_torch.configs.{key}")
     if registered is not None:
         return registered
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{key} is not ported yet: the encoder-decoder and the "
-            f"embeds-input/M-RoPE models come with ROADMAP module item 21b")
     if key not in ARCHS:
         raise ValueError(f"unknown arch {name!r}: the port has {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{key}")

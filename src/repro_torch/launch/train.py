@@ -27,8 +27,13 @@ HALTED; 143 after SIGTERM/SIGINT; ``--kill-at`` dies by SIGKILL (137).
   # the default arch, granite-moe-1b (MoE every layer), at smoke size
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
 
-``--arch`` takes every registered arch; with none the trainer trains
-granite-moe-1b, as the reference's does (at full width on the card).
+``--arch`` takes every registered token-in arch (its data,
+:class:`repro_torch.data.SyntheticLM`, feeds no ``embeds`` or
+``src_embeds``, as the reference's does not); with none the trainer
+trains granite-moe-1b, as the reference's does (at full width on the
+card).  ``--numerics-log PATH`` writes the §5 controller's timeline
+(per-class exponents, overflow rates, up/down moves) as JSONL every
+``--numerics-every`` committed steps (default ``--update-interval``).
 
 Weights are the reference's from ``--seed`` (threefry), data
 :class:`repro_torch.data.SyntheticLM`.  ``--fused-matmul`` routes every
@@ -53,7 +58,7 @@ from repro_torch.core import prng
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.data import SyntheticLM
 from repro_torch.models import transformer as T
-from repro_torch.obs import MetricsRegistry, Tracer
+from repro_torch.obs import MetricsRegistry, NumericsLog, Tracer, count_moves
 from repro_torch.optim.opt import OptConfig, adamw_init, sgd_init
 from repro_torch.train import (FaultHarness, Kill, StepOutcome,
                                TrainSupervisor, chaos_plan, init_train_state)
@@ -127,9 +132,12 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--numerics-log", default="",
-                    help="the §5 numeric-health timeline (not ported yet: "
-                         "ROADMAP module item 19)")
-    ap.add_argument("--numerics-every", type=int, default=0)
+                    help="write the §5 numeric-health timeline (per-tensor-"
+                         "class exponents, overflow rates, controller "
+                         "up/down moves) as JSONL to this path")
+    ap.add_argument("--numerics-every", type=int, default=0,
+                    help="numerics sampling cadence in steps (default: the "
+                         "controller's --update-interval)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch versions)")
     args = ap.parse_args(argv)
@@ -137,9 +145,6 @@ def main(argv=None):
     if args.grad_compress_bits:
         raise NotImplementedError(
             "--grad-compress-bits is not ported yet (ROADMAP module item 22)")
-    if args.numerics_log:
-        raise NotImplementedError(
-            "--numerics-log is not ported yet (ROADMAP module item 19)")
     device = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
     policy = build_policy(args)
@@ -177,6 +182,7 @@ def main(argv=None):
     state = init_train_state(params, sgd_init(params) if
                              args.optimizer == "sgd" else adamw_init(params),
                              gs, policy, init_exp=init_exp)
+    num_log = NumericsLog(args.numerics_log) if args.numerics_log else None
     tracer = Tracer()
     metrics = MetricsRegistry()
 
@@ -205,6 +211,7 @@ def main(argv=None):
         runaway_ovf=args.runaway_ovf or None,
         microbatches=args.microbatches,
         faults=harness, tracer=tracer, metrics=metrics,
+        numerics_log=num_log, numerics_every=args.numerics_every,
         bundle_dir=bundle_dir)
 
     # --- resume -------------------------------------------------------------
@@ -252,6 +259,11 @@ def main(argv=None):
                 json.dump({"harness": harness.summary(),
                            "run": summary}, f, indent=2, default=str)
             print(f"fault log written to {args.fault_log}")
+    if num_log is not None:
+        print(f"numerics: {len(num_log.records)} records, "
+              f"{count_moves(num_log.records)} controller moves -> "
+              f"{args.numerics_log}")
+        num_log.close()
     if sup.halted:
         print(f"HALTED: diagnostic bundle at {bundle_dir}", file=sys.stderr)
         return sys.exit(3)

@@ -6,7 +6,8 @@ stage's shared blocks (zamba2) unstacked under ``"shared"``
 (``repro.models.transformer.init_params``) — and returns the same tree of
 torch tensors on the requested device, after checking every leaf against
 the port's own shapes (a tied model has no ``head`` leaf in either
-package).  The CPU tests use it to hand one package's weights to the
+package, an embeds-input model no ``embed`` leaf; an encoder-decoder
+adds its ``enc`` stage and ``enc_norm``).  The CPU tests use it to hand one package's weights to the
 other; :func:`repro_torch.models.transformer.init_params` itself draws
 the reference's numbers from the same threefry key, on the device.
 ``maxout_params_from_jax`` does the same for the maxout networks

@@ -1,12 +1,13 @@
 """Shared neural-net layers, quantization-aware (tape-threaded).
 
-The port of ``repro.models.layers`` for the token-in decoders: every weighted
+The port of ``repro.models.layers``: every weighted
 sum goes through ``tape.dot`` (weight re-quantized to the computation
 width at use time, f32 accumulation) and every group boundary through
 ``tape.act``.  With a float32 policy all of it is the identity.
 
 Attention comes in a training shape and three serving shapes:
-  * ``attention_train`` — naive masked scores (the training path);
+  * ``attention_train`` — naive masked scores (the training path, and
+    cross-attention against an encoder's memory);
   * ``attention_prefill`` — whole-prompt online softmax over KV chunks;
   * ``attention_prefill_chunk`` — one prompt chunk against the KV pool;
   * ``attention_decode`` — one token against the KV pool.
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,7 +57,7 @@ def init_dense(key: Tensor, d_in: int, d_out: int,
 
 
 # ---------------------------------------------------------------------------
-# rotary embeddings
+# rotary embeddings (standard + M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device) -> Tensor:
@@ -65,14 +66,29 @@ def rope_freqs(head_dim: int, theta: float, device) -> Tensor:
         torch.tensor(theta, dtype=torch.float32, device=device)))
 
 
-def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
-    """``x``: [B, S, H, hd]. ``positions``: [B, S] absolute positions."""
-    if positions.ndim != 2:
-        raise NotImplementedError("M-RoPE position streams are not ported "
-                                  "(ROADMAP module item 21b)")
+def mrope_streams(hd: int, sections: Tuple[int, ...]) -> list:
+    """The position stream of each of the ``hd/2`` frequency dims: dims
+    of section ``i`` take stream ``i``; the reference's ``jnp.repeat(...,
+    total_repeat_length=hd // 2)`` cuts a longer list and repeats the
+    last stream into a shorter one's tail."""
+    ids = [i for i, n in enumerate(sections) for _ in range(n)][:hd // 2]
+    return ids + [ids[-1]] * (hd // 2 - len(ids))
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float,
+               mrope_sections: Tuple[int, ...] = ()) -> Tensor:
+    """``x``: [B, S, H, hd]. ``positions``: [B, S], or [3, B, S] for
+    M-RoPE (qwen2-vl): the frequency dims are split into (temporal,
+    height, width) sections, each rotated by its own position stream
+    (``mrope_sections``, default one section of ``hd/2``)."""
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)                    # [hd/2]
-    angle = positions.to(torch.float32)[..., None] * freqs     # [B, S, hd/2]
+    if positions.ndim == 3:                                    # M-RoPE
+        ids = mrope_streams(hd, tuple(mrope_sections) or (hd // 2,))
+        pos = positions[torch.tensor(ids, device=positions.device)]
+        angle = pos.to(torch.float32).permute(1, 2, 0) * freqs  # [B, S, hd/2]
+    else:
+        angle = positions.to(torch.float32)[..., None] * freqs  # [B, S, hd/2]
     cos = torch.cos(angle)[:, :, None, :]
     sin = torch.sin(angle)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
@@ -92,6 +108,7 @@ class AttnSpec:
     head_dim: int
     qk_norm: bool = False
     rope_theta: float = 1e4
+    mrope_sections: Tuple[int, ...] = ()
     causal: bool = True
 
     @property
@@ -130,8 +147,8 @@ def _qkv(params, spec: AttnSpec, x: Tensor, positions, tape: QTape,
     if spec.qk_norm:
         q = rmsnorm(q, params["q_norm"])
         k = rmsnorm(k, params["k_norm"])
-    q = apply_rope(q, positions, spec.rope_theta)
-    k = apply_rope(k, positions, spec.rope_theta)
+    q = apply_rope(q, positions, spec.rope_theta, spec.mrope_sections)
+    k = apply_rope(k, positions, spec.rope_theta, spec.mrope_sections)
     q = tape.act(f"{prefix}/qkv", q)
     k = tape.act(f"{prefix}/k", k)
     v = tape.act(f"{prefix}/v", v)
@@ -162,20 +179,46 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor,
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def _first_stream(positions: Tensor) -> Tensor:
+    """The positions the masks compare: M-RoPE's temporal stream."""
+    return positions if positions.ndim == 2 else positions[0]
+
+
 def attention_train(params, spec: AttnSpec, x: Tensor, positions: Tensor,
                     tape: QTape, prefix: str, window=None,
-                    kv_source: Optional[Tensor] = None) -> Tensor:
-    """Training-path self-attention (naive masked scores): ``x`` [B, S,
-    D] at ``positions`` [B, S]; ``wo`` through ``tape.dot`` and the
-    ``out`` site, as the reference's.  The q·k and p·v products are plain
-    ``einsum``s, as the reference leaves them to XLA."""
-    if kv_source is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_source) is not ported yet: it comes with "
-            "the encoder-decoder family (ROADMAP module item 21)")
+                    kv_source: Optional[Tensor] = None,
+                    kv_positions: Optional[Tensor] = None) -> Tensor:
+    """Training-path attention (naive masked scores): ``x`` [B, S, D] at
+    ``positions`` [B, S] (or M-RoPE's [3, B, S]); ``wo`` through
+    ``tape.dot`` and the ``out`` site, as the reference's.  The q·k and
+    p·v products are plain ``einsum``s, as the reference leaves them to
+    XLA.
+
+    ``kv_source`` [B, Sk, D] makes it cross-attention: q from ``x``, k
+    and v from ``kv_source`` (the ``qkv``, ``k`` and ``v`` sites), no
+    RoPE and no causal mask, keys at ``kv_positions`` (default
+    ``arange(Sk)``)."""
     B, S, _ = x.shape
-    q, k, v = _qkv(params, spec, x, positions, tape, prefix)
-    mask = _mask(positions, positions, window, spec.causal)
+    if kv_source is None:
+        q, k, v = _qkv(params, spec, x, positions, tape, prefix)
+        k_pos, causal = positions, spec.causal
+    else:
+        Sk = kv_source.shape[1]
+        q = tape.dot(f"{prefix}/wq", x, params["wq"]).reshape(
+            B, S, spec.num_heads, spec.head_dim)
+        k = tape.dot(f"{prefix}/wk", kv_source, params["wk"]).reshape(
+            B, Sk, spec.num_kv_heads, spec.head_dim)
+        v = tape.dot(f"{prefix}/wv", kv_source, params["wv"]).reshape(
+            B, Sk, spec.num_kv_heads, spec.head_dim)
+        q = tape.act(f"{prefix}/qkv", q)
+        k = tape.act(f"{prefix}/k", k)
+        v = tape.act(f"{prefix}/v", v)
+        k_pos = kv_positions
+        if k_pos is None:
+            k_pos = torch.arange(Sk, device=x.device).expand(B, Sk)
+        causal = False
+    mask = _mask(_first_stream(positions), _first_stream(k_pos), window,
+                 causal)
     o = _sdpa(q, k, v, mask, 1.0 / math.sqrt(spec.head_dim))
     y = tape.dot(f"{prefix}/wo", o.reshape(B, S, spec.q_dim), params["wo"])
     return tape.act(f"{prefix}/out", y)
@@ -191,7 +234,7 @@ def attention_prefill(params, spec: AttnSpec, x: Tensor, positions: Tensor,
     K, hd = spec.num_kv_heads, spec.head_dim
     G = spec.num_heads // K
     scale = 1.0 / math.sqrt(hd)
-    q_pos = positions
+    q_pos = _first_stream(positions)
 
     n_chunks = -(-S // chunk)
     pad = n_chunks * chunk - S

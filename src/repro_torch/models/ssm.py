@@ -71,12 +71,18 @@ class SSMSpec:
 
 
 def _linspace(start: float, stop: float, num: int, device) -> Tensor:
-    """``jnp.linspace(start, stop, num)`` in float32: ``start * (1 - s) +
-    stop * s`` with ``s = i / (num - 1)``, the endpoint set exactly
-    (equal to jax's for ``num <= 32``)."""
+    """``jnp.linspace(start, stop, num)`` in float32 as XLA compiles it:
+    ``r = f32(1 / (num - 1))``, then ``fma(i, f32(stop * r), f32(start *
+    f32(1 - f32(i * r))))`` for ``i < num - 1`` (the fused multiply-add
+    as a float64 product and sum rounded once to float32), the endpoint
+    set exactly."""
     div = num - 1
-    s = torch.arange(div, dtype=torch.float32, device=device) / float(div)
-    out = start * (1.0 - s) + stop * s
+    f32 = torch.float32
+    r = torch.tensor(1.0 / div, dtype=f32, device=device)
+    i = torch.arange(div, dtype=f32, device=device)
+    lo = start * (1.0 - i * r)             # float32 products, each rounded
+    hi = (stop * r).to(torch.float64)
+    out = (i.to(torch.float64) * hi + lo.to(torch.float64)).to(f32)
     return torch.cat([out, torch.full((1,), stop, device=device)])
 
 

@@ -1,10 +1,10 @@
-"""Decoder LM of the port: ``repro.models.transformer`` for token-in models.
+"""The port's LM: ``repro.models.transformer``, decoders and encoder-decoder.
 
 A model is a sequence of **stages**; each stage repeats a *super-block*
 (an ordered tuple of sub-blocks) ``count`` times over layer-stacked
 parameters ``[count, ...]``.  The reference's ``lax.scan`` over layers is
-a Python loop here that stacks each layer's statistics.  Every token-in
-decoder family of the reference:
+a Python loop here that stacks each layer's statistics.  Every family of
+the reference:
 
   * dense (llama3/qwen3/phi3, the example's LM_100M): ``(attn, ffn) × L``;
   * gemma3's 5:1 local:global: ``5×(windowed attn, ffn) + (attn, ffn)``
@@ -13,12 +13,18 @@ decoder family of the reference:
   * MoE (granite every layer, llama4 every 2nd): ``(attn, ffn|moe)``;
   * SSM (mamba2): ``(mamba,) × L``;
   * hybrid (zamba2): ``N×mamba + shared attn + shared ffn``, the shared
-    blocks' weights stored once (``"shared"``), a ``dec_tail`` of mamba.
+    blocks' weights stored once (``"shared"``), a ``dec_tail`` of mamba;
+  * encoder-decoder (seamless): an ``enc`` stage ``(attn non-causal,
+    ffn)`` over ``src_embeds``, then ``(attn, xattn, ffn)`` decoder
+    layers whose cross-attention reads the normed encoder output;
+  * embeds input (qwen2-vl): ``embeds`` [B, S, D] in place of tokens,
+    an untied head, M-RoPE's three position streams ``[3, B, S]``.
 
 Parameters keep the reference's pytree: ``{"stages": {"dec": {"stacked":
 {"0:attn": {...}, "1:ffn": {...}}, "shared": {...}}}, "embed", "head",
-"final_norm"}`` with ``[count, d_in, d_out]`` weights (no ``head`` when
-the embeddings are tied: the head contracts against the table), so
+"final_norm", "enc_norm"}`` with ``[count, d_in, d_out]`` weights (no
+``head`` when the embeddings are tied: the head contracts against the
+table; no ``embed`` for an embeds-input model), so
 :func:`repro_torch.models.convert.params_from_jax` is a leaf-for-leaf
 copy, and :func:`init_params` draws the reference's numbers from the
 same threefry key.  Caches keep the reference's ``[n_layer, B, ...]``
@@ -63,19 +69,13 @@ Tensor = torch.Tensor
 # config
 # ---------------------------------------------------------------------------
 
-_ITEM_21B = ("the encoder-decoder family and embeds-input models are not "
-             "ported yet (ROADMAP module item 21b)")
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The reference's ``ModelConfig`` (``transformer.py:47-107``), field
-    for field.  The encoder-decoder and embeds-input fields
-    (``encoder_layers``, ``input_mode``, ``mrope_sections``) raise
-    unless left at their defaults."""
+    for field."""
 
     name: str = "model"
-    family: str = "dense"          # dense|moe|ssm|hybrid (encdec: 21b)
+    family: str = "dense"          # dense|moe|ssm|hybrid|encdec
     num_layers: int = 4
     d_model: int = 256
     num_heads: int = 4
@@ -110,19 +110,20 @@ class ModelConfig:
     # enc-dec
     encoder_layers: int = 0
     # io
-    input_mode: str = "tokens"     # tokens (embeds: 21b)
+    input_mode: str = "tokens"     # tokens|embeds
     tie_embeddings: bool = True
-
-    def __post_init__(self):
-        if (self.encoder_layers or self.family == "encdec"
-                or self.input_mode != "tokens" or self.mrope_sections):
-            raise NotImplementedError(f"{self.name}: {_ITEM_21B}")
 
     @property
     def attn_spec(self) -> L.AttnSpec:
         return L.AttnSpec(self.d_model, self.num_heads, self.num_kv_heads,
                           self.head_dim, qk_norm=self.qk_norm,
-                          rope_theta=self.rope_theta)
+                          rope_theta=self.rope_theta,
+                          mrope_sections=self.mrope_sections)
+
+    @property
+    def tied(self) -> bool:
+        """The head contracts against the embedding table."""
+        return self.tie_embeddings and self.input_mode == "tokens"
 
     @property
     def ssm_spec(self) -> S.SSMSpec:
@@ -140,7 +141,7 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SubBlock:
-    kind: str                      # attn|ffn|moe|mamba
+    kind: str                      # attn|xattn|ffn|moe|mamba
     window: int = 0                # 0 = global
     shared: bool = False           # one weight for every repetition
     causal: bool = True
@@ -152,12 +153,16 @@ class Stage:
     name: str
     count: int
     blocks: Tuple[SubBlock, ...]
+    decoder: bool = True           # runs on the decode path
 
 
 def build_stages(cfg: ModelConfig) -> Tuple[Stage, ...]:
-    """The reference's stages (``transformer.py:125-168``) for the
-    token-in decoders."""
+    """The reference's stages (``transformer.py:125-168``)."""
     stages = []
+    if cfg.encoder_layers:
+        stages.append(Stage("enc", cfg.encoder_layers,
+                            (SubBlock("attn", causal=False),
+                             SubBlock("ffn")), decoder=False))
     Ld = cfg.num_layers
     if cfg.family == "ssm":
         stages.append(Stage("dec", Ld, (SubBlock("mamba"),)))
@@ -189,8 +194,11 @@ def build_stages(cfg: ModelConfig) -> Tuple[Stage, ...]:
         stages.append(Stage("dec", reps, tuple(blocks)))
         assert rem == 0, "num_layers must divide moe_period"
     else:
-        stages.append(Stage("dec", Ld, (SubBlock("attn", window=cfg.window),
-                                        SubBlock("ffn"))))
+        blocks = [SubBlock("attn", window=cfg.window)]
+        if cfg.encoder_layers:
+            blocks.append(SubBlock("xattn"))
+        blocks.append(SubBlock("ffn"))
+        stages.append(Stage("dec", Ld, tuple(blocks)))
     return tuple(stages)
 
 
@@ -212,7 +220,7 @@ def _init_block(key: Tensor, cfg: ModelConfig, blk: SubBlock) -> dict:
     draws the stacked layers, one key each; a shared block one key)."""
     p = {"norm": torch.ones(key.shape[:-1] + (cfg.d_model,),
                             dtype=torch.float32, device=key.device)}
-    if blk.kind == "attn":
+    if blk.kind in ("attn", "xattn"):
         p.update(L.init_attn(key, _block_attn_spec(cfg, blk)))
     elif blk.kind == "ffn":
         if cfg.ffn_kind == "swiglu":
@@ -236,8 +244,8 @@ def init_params(cfg: ModelConfig, key=0, *, device="cuda") -> dict:
     ``PRNGKey(int)``) with the reference's key tree: ``split`` into
     ``len(stages) + 3`` keys, ``fold_in(keys[stage], i)`` per sub-block,
     ``split`` over its stacked layers (a shared block takes the folded
-    key itself); the embedding from ``keys[-3]``, an untied head from
-    ``keys[-2]``.
+    key itself); the embedding (token input only) from ``keys[-3]``, an
+    untied head from ``keys[-2]``.
 
     Each leaf is drawn where it lives and large ones in row blocks
     (:func:`prng.normal_blocked`), so a full-width model never exists on
@@ -258,12 +266,16 @@ def init_params(cfg: ModelConfig, key=0, *, device="cuda") -> dict:
                 stacked[bkey] = _init_block(prng.split(k, stage.count), cfg,
                                             blk)
         params["stages"][stage.name] = {"stacked": stacked, "shared": shared}
-    params["embed"] = L.init_embed(keys[-3], cfg.vocab_size, cfg.d_model)
-    if not cfg.tie_embeddings:
+    if cfg.input_mode == "tokens":
+        params["embed"] = L.init_embed(keys[-3], cfg.vocab_size, cfg.d_model)
+    if not cfg.tied:
         params["head"] = L.init_dense(keys[-2], cfg.d_model, cfg.vocab_size,
                                       scale=0.02)
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=torch.float32,
                                       device=key.device)
+    if cfg.encoder_layers:
+        params["enc_norm"] = torch.ones((cfg.d_model,), dtype=torch.float32,
+                                        device=key.device)
     return params
 
 
@@ -273,6 +285,7 @@ def init_params(cfg: ModelConfig, key=0, *, device="cuda") -> dict:
 
 _SITES = {
     "attn": (("wq", "wk", "wv", "wo"), ("qkv", "k", "v", "out", "res")),
+    "xattn": (("wq", "wk", "wv", "wo"), ("qkv", "k", "v", "out", "res")),
     "ffn": {
         "swiglu": (("w_gate", "w_up", "w_down"), ("pre", "out", "res")),
         "gelu": (("w_in", "w_out"), ("pre", "out", "res")),
@@ -312,7 +325,8 @@ def group_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
             for s in a_sites:
                 groups[f"a:{pfx}/{s}"] = shape
                 groups[f"g:{pfx}/{s}"] = shape
-    groups["w:emb/w"] = ()
+    if cfg.input_mode == "tokens":
+        groups["w:emb/w"] = ()
     for g in ("a:emb/out", "g:emb/out", "w:head/w", "a:head/logits",
               "g:head/logits"):
         groups[g] = ()
@@ -355,17 +369,39 @@ def _ring_cache(k: Tensor, v: Tensor, cap: int) -> dict:
 def _apply_block(cfg: ModelConfig, blk: SubBlock, pfx: str, bp, x,
                  positions, tape: QTape, mode: str, cache_in=None,
                  max_cache_len: int = 0, kv_codec=None, n_valid=None,
-                 append_mask=None):
-    """Apply one sub-block (pre-norm residual). Returns (x, cache_out)."""
+                 append_mask=None, memory=None):
+    """Apply one sub-block (pre-norm residual). Returns (x, cache_out).
+
+    ``memory`` is the encoder's normed output, which an ``xattn`` block
+    attends; its decode cache is static, written once at prefill (so
+    decode returns no new entry for it)."""
     h = L.rmsnorm(x, bp["norm"])
     cache_out = None
     window = blk.window if blk.window > 0 else None
     if mode == "chunk" and blk.kind not in ("attn", "ffn"):
         # chunked prefill is attention-family only: MoE capacity and SSM
         # state couple a whole prompt (the engine keeps those on the
-        # whole-prompt path)
+        # whole-prompt path), and xattn needs an encoder pass
         raise ValueError(f"chunked prefill does not support {blk.kind!r}")
-    if blk.kind == "attn":
+    if blk.kind == "xattn":
+        spec = _block_attn_spec(cfg, blk)
+        if mode == "decode":
+            y = _xattn_decode(bp, spec, h, cache_in, tape, pfx)
+        else:
+            y = L.attention_train(bp, spec, h, positions, tape, pfx,
+                                  window=window, kv_source=memory)
+        if mode == "prefill":
+            # the cross-attention KV is static over decode: cache it once
+            # (the reference computes wk/wv of memory a second time here,
+            # so their weight sites record twice at prefill)
+            B, Sk = memory.shape[:2]
+            K, hd = spec.num_kv_heads, spec.head_dim
+            cache_out = {
+                "k": tape.dot(f"{pfx}/wk", memory, bp["wk"]).reshape(
+                    B, Sk, K, hd),
+                "v": tape.dot(f"{pfx}/wv", memory, bp["wv"]).reshape(
+                    B, Sk, K, hd)}
+    elif blk.kind == "attn":
         spec = _block_attn_spec(cfg, blk)
         if mode == "train":
             y = L.attention_train(bp, spec, h, positions, tape, pfx,
@@ -407,6 +443,24 @@ def _apply_block(cfg: ModelConfig, blk: SubBlock, pfx: str, bp, x,
     return x, cache_out
 
 
+def _xattn_decode(bp, spec: L.AttnSpec, h: Tensor, cache: dict,
+                  tape: QTape, pfx: str) -> Tensor:
+    """Cross-attention of one decode token against the static cache
+    (reference ``transformer.py:393-409``): plain einsums, the scale as a
+    division by ``sqrt(hd)``, and of the activation sites only ``out``."""
+    B = h.shape[0]
+    K, hd = spec.num_kv_heads, spec.head_dim
+    q = tape.dot(f"{pfx}/wq", h, bp["wq"])
+    qg = q.reshape(B, 1, K, spec.num_heads // K, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, cache["k"])
+    s = s / float(np.float32(math.sqrt(hd)))
+    p = torch.softmax(s.to(torch.float32), dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, cache["v"].to(torch.float32))
+    o = o.reshape(B, 1, spec.q_dim).to(h.dtype)
+    y = tape.dot(f"{pfx}/wo", o, bp["wo"])
+    return tape.act(f"{pfx}/out", y)
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a layer-stacked dict (views, no copies)."""
     return {k: (_layer(t, i) if isinstance(t, dict) else t[i])
@@ -425,7 +479,7 @@ def _unbind(tree, n: int):
 
 def _run_stage(cfg, policy, stage: Stage, sp, x, positions, scales,
                mode: str, cache=None, max_cache_len: int = 0, kv_codec=None,
-               n_valid=None, append_mask=None, sinks=None):
+               n_valid=None, append_mask=None, sinks=None, memory=None):
     """Run one stage layer by layer. Returns (x, stats, cache_out).
 
     Decode and chunk modes write each layer's new cache entry back into
@@ -462,7 +516,7 @@ def _run_stage(cfg, policy, stage: Stage, sp, x, positions, scales,
                                  positions, tape, mode, ci,
                                  max_cache_len=max_cache_len,
                                  kv_codec=kv_codec, n_valid=n_valid,
-                                 append_mask=append_mask)
+                                 append_mask=append_mask, memory=memory)
             if co is None:
                 continue
             if ci is None:
@@ -482,19 +536,55 @@ def _run_stage(cfg, policy, stage: Stage, sp, x, positions, scales,
     return x, stats, cache
 
 
-def _embed_tokens(cfg, policy, params, tokens, tape):
-    x = L.embed(params["embed"], tokens, tape)
+def _embed(cfg, policy, params, tokens_or_embeds, tape):
+    """The decoder's input: token ids through the table, or ``embeds``
+    [B, S, D] through the ``emb/out`` site."""
+    if cfg.input_mode == "tokens":
+        x = L.embed(params["embed"], tokens_or_embeds, tape)
+    else:
+        x = tape.act("emb/out", tokens_or_embeds)
     if cfg.embed_scale:
         x = x * float(np.float32(math.sqrt(cfg.d_model)))
     return x.to(getattr(torch, policy.compute_dtype))
 
 
+def _positions(batch, x: Tensor) -> Tensor:
+    """``batch["positions"]`` ([B, S], or M-RoPE's [3, B, S]), default
+    ``arange(S)`` on every row."""
+    positions = batch.get("positions")
+    if positions is None:
+        B, S = x.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+    return positions
+
+
+def _encode(cfg, policy, params, batch, scales, sinks, stats):
+    """The encoder stage over ``batch["src_embeds"]`` [B, Ssrc, D] (train
+    mode, also under prefill), then ``enc_norm``: the decoder's
+    ``memory``, ``None`` for a decoder-only model."""
+    if not cfg.encoder_layers:
+        return None
+    src = batch["src_embeds"]
+    B, Ss = src.shape[:2]
+    mpos = torch.arange(Ss, dtype=torch.int32, device=src.device).expand(B, Ss)
+    memory, st, _ = _run_stage(cfg, policy, build_stages(cfg)[0],
+                               params["stages"]["enc"], src, mpos, scales,
+                               "train", sinks=sinks)
+    stats.update(st)
+    return L.rmsnorm(memory, params["enc_norm"])
+
+
 def _head(cfg, params, x, tape):
     """Final norm and the vocabulary projection (tied: the table)."""
     x = L.rmsnorm(x, params["final_norm"])
-    if cfg.tie_embeddings:
+    if cfg.tied:
         return L.lm_head(params["embed"], x, tape, tied=True)
     return L.lm_head(params["head"], x, tape, tied=False)
+
+
+def _decoder_stages(cfg):
+    return [st for st in build_stages(cfg) if st.decoder]
 
 
 def forward(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
@@ -504,7 +594,9 @@ def forward(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
     [B, S, V], stats, None)``; ``mode="hidden"`` returns the final-normed
     hidden states instead of logits (the caller fuses head and loss).
 
-    ``batch``: ``tokens`` [B, S] and optional ``positions`` [B, S].
+    ``batch``: ``tokens`` [B, S] (or ``embeds`` [B, S, D] for an
+    embeds-input model), optional ``positions`` ([B, S], or [3, B, S]
+    for M-RoPE), and ``src_embeds`` [B, Ssrc, D] for an encoder-decoder.
     ``sinks``: the ``g:`` groups' zero sinks (``[count, 3]`` per stacked
     group), whose gradients are the backward statistics."""
     if mode not in ("train", "hidden"):
@@ -512,18 +604,15 @@ def forward(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
                          f"{mode!r} (serving: prefill/decode_step/"
                          f"prefill_chunk_step)")
     tape = QTape(policy, scales, sinks)      # the embed and head sites
-    tokens = batch["tokens"]
-    x = _embed_tokens(cfg, policy, params, tokens, tape)
-    B, S = tokens.shape
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=x.device).expand(B, S)
+    x = _embed(cfg, policy, params, batch[
+        "tokens" if cfg.input_mode == "tokens" else "embeds"], tape)
+    positions = _positions(batch, x)
     stats: Dict[str, Tensor] = {}
-    for stage in build_stages(cfg):
+    memory = _encode(cfg, policy, params, batch, scales, sinks, stats)
+    for stage in _decoder_stages(cfg):
         x, st, _ = _run_stage(cfg, policy, stage,
                               params["stages"][stage.name], x, positions,
-                              scales, "train", sinks=sinks)
+                              scales, "train", sinks=sinks, memory=memory)
         stats.update(st)
     if mode == "hidden":
         x = L.rmsnorm(x, params["final_norm"])
@@ -563,7 +652,7 @@ def loss_fn(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
     hidden, stats, _ = forward(cfg, policy, params, batch, scales, sinks,
                                mode="hidden")
     tape = QTape(policy, scales, sinks)
-    table = params["embed"] if cfg.tie_embeddings else params["head"]
+    table = params["embed"] if cfg.tied else params["head"]
     w = tape.weight("head/w", table).to(hidden.dtype)
     B, S, D = hidden.shape
     if S % ce_chunk:
@@ -574,7 +663,7 @@ def loss_fn(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
     head_sink = sinks.get("g:head/logits")
 
     def body(xch: Tensor, lch: Tensor):
-        logits = (torch.einsum("bsd,vd->bsv", xch, w) if cfg.tie_embeddings
+        logits = (torch.einsum("bsd,vd->bsv", xch, w) if cfg.tied
                   else torch.einsum("bsd,dv->bsv", xch, w))
         logits, st = qbound_site(logits, fmt, fmt, a_e, g_e, head_sink,
                                  want_stats=True)
@@ -596,45 +685,53 @@ def loss_fn(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
 def prefill(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
             scales, *, max_cache_len: int):
     """Whole-prompt prefill: returns (last-position logits [B, V], stats,
-    decode cache ``{stage: {bkey: {"k","v","pos"}}}``)."""
+    decode cache ``{stage: {bkey: {"k","v","pos"}}}``).  ``batch`` as
+    :func:`forward`'s; an encoder-decoder's cache also holds its
+    cross-attention K/V (``{"k","v"}`` over the source) and
+    ``"enc_memory"``."""
     tape = QTape(policy, scales)
-    tokens = batch["tokens"]
-    x = _embed_tokens(cfg, policy, params, tokens, tape)
-    B, S = tokens.shape
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=x.device).expand(B, S)
+    x = _embed(cfg, policy, params, batch[
+        "tokens" if cfg.input_mode == "tokens" else "embeds"], tape)
+    positions = _positions(batch, x)
     stats: Dict[str, Tensor] = {}
+    memory = _encode(cfg, policy, params, batch, scales, {}, stats)
     cache_all = {}
-    for stage in build_stages(cfg):
+    for stage in _decoder_stages(cfg):
         x, st, cache_out = _run_stage(cfg, policy, stage,
                                       params["stages"][stage.name], x,
                                       positions, scales, "prefill",
-                                      max_cache_len=max_cache_len)
+                                      max_cache_len=max_cache_len,
+                                      memory=memory)
         stats.update(st)
         cache_all[stage.name] = cache_out
     # decode only needs the last position: skip the full-seq head matmul
     logits = _head(cfg, params, x[:, -1:, :], tape)
     stats.update(tape.stats)
+    if memory is not None:
+        cache_all["enc_memory"] = memory
     return logits[:, -1, :], stats, cache_all
 
 
 def decode_step(cfg: ModelConfig, policy, params, cache, tokens, pos,
                 scales, kv_codec=None, append_mask=None):
-    """One decoding step. ``tokens``: [B] ids; ``pos``: int32 [B], each
-    slot's own position.  ``append_mask`` (bool [B]) drops the cache
-    append for masked-off rows.  Returns (logits [B, V], stats, cache) —
-    ``cache`` updated in place."""
+    """One decoding step. ``tokens``: [B] ids, or [B, 1, D] embeds for an
+    embeds-input model; ``pos``: int32 [B], each slot's own position (one
+    stream: after an M-RoPE prefill all three streams advance together,
+    as the reference's 2-D decode positions do).  ``append_mask`` (bool
+    [B]) drops the cache append for masked-off rows.  Returns (logits
+    [B, V], stats, cache) — ``cache`` updated in place."""
     tape = QTape(policy, scales)
-    x = _embed_tokens(cfg, policy, params, tokens[:, None], tape)
+    x = _embed(cfg, policy, params, tokens[:, None]
+               if cfg.input_mode == "tokens" else tokens, tape)
     positions = pos.to(torch.int32).reshape(-1, 1)
+    memory = cache.get("enc_memory") if cfg.encoder_layers else None
     stats: Dict[str, Tensor] = {}
-    for stage in build_stages(cfg):
+    for stage in _decoder_stages(cfg):
         x, st, _ = _run_stage(cfg, policy, stage,
                               params["stages"][stage.name], x, positions,
                               scales, "decode", cache=cache[stage.name],
-                              kv_codec=kv_codec, append_mask=append_mask)
+                              kv_codec=kv_codec, append_mask=append_mask,
+                              memory=memory)
         stats.update(st)
     logits = _head(cfg, params, x, tape)
     stats.update(tape.stats)
@@ -649,17 +746,19 @@ def prefill_chunk_step(cfg: ModelConfig, policy, params, cache, tokens, p0,
     zero-padded.  Each layer attends the chunk against its written history
     plus the chunk's own K/V causally, then writes the chunk K/V through
     ``kv_codec``.  Returns (last-valid-position logits [B, V], stats,
-    cache) — ``cache`` updated in place.
+    cache) — ``cache`` updated in place.  Token-in models only.
     """
+    if cfg.input_mode != "tokens":
+        raise ValueError("chunked prefill serves token-in models")
     tape = QTape(policy, scales)
-    x = _embed_tokens(cfg, policy, params, tokens, tape)
+    x = _embed(cfg, policy, params, tokens, tape)
     B, C = tokens.shape
     p0 = torch.as_tensor(p0, dtype=torch.int32, device=x.device)
     n_valid = torch.as_tensor(n_valid, dtype=torch.int32, device=x.device)
     positions = p0[:, None] + torch.arange(C, dtype=torch.int32,
                                            device=x.device)[None, :]
     stats: Dict[str, Tensor] = {}
-    for stage in build_stages(cfg):
+    for stage in _decoder_stages(cfg):
         x, st, _ = _run_stage(cfg, policy, stage,
                               params["stages"][stage.name], x, positions,
                               scales, "chunk", cache=cache[stage.name],
@@ -674,14 +773,16 @@ def prefill_chunk_step(cfg: ModelConfig, policy, params, cache, tokens, p0,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device="cpu") -> dict:
+               src_len: int = 0, device="cpu") -> dict:
     """Zero decode cache for ``batch`` sequences of capacity ``max_len``:
     per attention sub-block a ring of ``min(window, max_len)`` slots
-    (``max_len`` for a global one), per mamba sub-block its conv window
+    (``max_len`` for a global one), per cross-attention sub-block the K/V
+    of ``src_len`` source positions, per mamba sub-block its conv window
     and f32 state, each with a leading dim of the stage's count (a shared
-    block keeps one entry a repetition)."""
+    block keeps one entry a repetition); an encoder-decoder's
+    ``"enc_memory"`` [batch, src_len, d_model]."""
     cache: dict = {}
-    for stage in build_stages(cfg):
+    for stage in _decoder_stages(cfg):
         sc: dict = {}
         n = stage.count
         for i, blk in enumerate(stage.blocks):
@@ -695,6 +796,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                     "pos": torch.full((n, batch, cap), -1, dtype=torch.int32,
                                       device=device),
                 }
+            elif blk.kind == "xattn":
+                K, hd = cfg.num_kv_heads, cfg.head_dim
+                sc[bkey] = {
+                    "k": torch.zeros((n, batch, src_len, K, hd),
+                                     device=device),
+                    "v": torch.zeros((n, batch, src_len, K, hd),
+                                     device=device)}
             elif blk.kind == "mamba":
                 s = cfg.ssm_spec
                 sc[bkey] = {
@@ -704,4 +812,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                                           s.state), device=device),
                 }
         cache[stage.name] = sc
+    if cfg.encoder_layers:
+        cache["enc_memory"] = torch.zeros((batch, src_len, cfg.d_model),
+                                          device=device)
     return cache

@@ -1,9 +1,8 @@
 """Metrics registry: counters, gauges, log-bucketed histograms.
 
-Stdlib only and host-side; the port's copy of the instruments that
-``repro_torch.serve.metrics`` records into (the reference keeps them in
-``repro.obs.metrics``, with JSONL and Prometheus outputs that the port
-does not have yet).
+Dependency-free (stdlib only) and host-side; the port's copy of
+``repro.obs.metrics``, which ``repro_torch.serve.metrics`` and the
+trainer record into.  Three instrument types:
 
 * :class:`Counter` — monotonically increasing total;
 * :class:`Gauge` — last-set value, with a high-water mark (``peak``);
@@ -11,11 +10,23 @@ does not have yet).
   Bucket ``i`` covers ``[lo * base**i, lo * base**(i+1))``; values below
   ``lo`` land in an underflow bucket, values at/above the last edge in an
   overflow bucket.  ``sum``/``count``/``min``/``max`` ride along.
+
+A :class:`MetricsRegistry` is a named collection with three outputs:
+
+* :meth:`snapshot` — a JSON-able dict of every instrument's state;
+* :meth:`snapshot_jsonl` — appends one timestamped snapshot line to a
+  file;
+* :meth:`prometheus_text` — the Prometheus text exposition format,
+  served by :func:`start_http_server` over a stdlib ``http.server``
+  endpoint (``curl localhost:PORT/metrics``).
 """
 from __future__ import annotations
 
+import json
 import math
-from typing import Dict, List
+import threading
+import time
+from typing import Dict, List, Optional
 
 
 class Counter:
@@ -106,9 +117,37 @@ class Histogram:
             else:
                 self.counts[i + 1] += 1
 
+    def quantile(self, q: float) -> float:
+        """Bucket-resolution quantile estimate (geometric-mid of the
+        target bucket; exact min/max for q=0/1)."""
+        if not self.count:
+            return 0.0
+        if q <= 0:
+            return self.min
+        if q >= 1:
+            return self.max
+        target = q * self.count
+        acc = 0
+        for i, c in enumerate(self.counts):
+            acc += c
+            if acc >= target:
+                if i == 0:
+                    return min(self.lo, self.max)
+                if i == len(self.counts) - 1:
+                    return self.max
+                return math.sqrt(self.edges[i - 1] * self.edges[i])
+        return self.max
+
+    def state(self) -> dict:
+        return {"type": "histogram", "lo": self.lo, "base": self.base,
+                "edges": list(self.edges), "counts": list(self.counts),
+                "sum": self.sum, "count": self.count,
+                "min": self.min if self.count else None,
+                "max": self.max if self.count else None}
+
 
 class MetricsRegistry:
-    """Named instrument collection."""
+    """Named instrument collection with JSONL + Prometheus outputs."""
 
     def __init__(self):
         self._m: Dict[str, object] = {}
@@ -133,3 +172,99 @@ class MetricsRegistry:
                   n_buckets: int = 24, base: float = 2.0) -> Histogram:
         return self._get(Histogram, name, help, lo=lo, n_buckets=n_buckets,
                          base=base)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._m
+
+    # -- outputs ----------------------------------------------------------
+    def snapshot(self) -> dict:
+        out: Dict[str, object] = {}
+        for name, m in sorted(self._m.items()):
+            if isinstance(m, Counter):
+                out[name] = {"type": "counter", "value": m.value}
+            elif isinstance(m, Gauge):
+                out[name] = {"type": "gauge", "value": m.value,
+                             "peak": m.peak}
+            else:
+                out[name] = m.state()
+        return out
+
+    def snapshot_jsonl(self, path_or_file, extra: Optional[dict] = None,
+                       ) -> None:
+        """Append one ``{"t": ..., **extra, "metrics": snapshot}`` line."""
+        rec = {"t": time.time()}
+        if extra:
+            rec.update(extra)
+        rec["metrics"] = self.snapshot()
+        line = json.dumps(rec) + "\n"
+        if hasattr(path_or_file, "write"):
+            path_or_file.write(line)
+        else:
+            with open(path_or_file, "a") as f:
+                f.write(line)
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition format (histograms cumulative)."""
+        lines: List[str] = []
+        for name, m in sorted(self._m.items()):
+            if isinstance(m, Counter):
+                lines += [f"# HELP {name} {m.help}".rstrip(),
+                          f"# TYPE {name} counter",
+                          f"{name} {_fmt(m.value)}"]
+            elif isinstance(m, Gauge):
+                lines += [f"# HELP {name} {m.help}".rstrip(),
+                          f"# TYPE {name} gauge",
+                          f"{name} {_fmt(m.value)}",
+                          f"{name}_peak {_fmt(m.peak)}"]
+            else:
+                lines += [f"# HELP {name} {m.help}".rstrip(),
+                          f"# TYPE {name} histogram"]
+                cum = m.counts[0]
+                for e, c in zip(m.edges[1:], m.counts[1:-1]):
+                    cum += c
+                    lines.append(f'{name}_bucket{{le="{_fmt(e)}"}} {cum}')
+                lines.append(f'{name}_bucket{{le="+Inf"}} {m.count}')
+                lines += [f"{name}_sum {_fmt(m.sum)}",
+                          f"{name}_count {m.count}"]
+        return "\n".join(lines) + "\n"
+
+
+def _fmt(v: float) -> str:
+    return repr(int(v)) if float(v).is_integer() else repr(float(v))
+
+
+def start_http_server(registry: MetricsRegistry, port: int = 0,
+                      host: str = "127.0.0.1"):
+    """Serve ``registry.prometheus_text()`` at ``/metrics`` (stdlib only).
+
+    Runs a daemon thread; returns the ``HTTPServer`` (read the bound port
+    from ``server.server_address[1]`` — ``port=0`` picks an ephemeral
+    one; call ``server.shutdown()`` to stop).
+    """
+    from http.server import BaseHTTPRequestHandler, HTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):   # noqa: N802 (stdlib API name)
+            if self.path.rstrip("/") not in ("", "/metrics"):
+                self.send_error(404)
+                return
+            body = registry.prometheus_text().encode()
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):   # keep the serve CLI's stdout clean
+            pass
+
+    server = HTTPServer((host, port), Handler)
+    t = threading.Thread(target=server.serve_forever, daemon=True,
+                         name="repro-torch-obs-metrics")
+    t.start()
+    return server
+
+
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "start_http_server"]

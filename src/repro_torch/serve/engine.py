@@ -53,8 +53,11 @@ their NaN/Inf flags (``sampler.guard_logits``).  A flagged slot resolves
 every in-flight request ``TIMED_OUT`` (a queued preempted one
 ``PREEMPTED``) with its harvested tokens.
 
-Not in this slice: admission control and deadlines, fault injection,
-tracing and numerics logging, meshes.
+The engine serves token-in decoders; it refuses an encoder-decoder or
+an embeds-input model, as the reference's does.  Not here yet:
+admission control and deadlines, fault injection, tracing, the numerics
+sampling (:func:`repro_torch.serve.kv_pool.numerics_snapshot` is what
+it samples), meshes.
 """
 from __future__ import annotations
 
@@ -145,6 +148,8 @@ class ServeEngine:
                  *, max_slots: int, max_len: int,
                  options: Optional[EngineOptions] = None, device=None):
         opts = options or EngineOptions()
+        if cfg.input_mode != "tokens" or cfg.encoder_layers:
+            raise ValueError("ServeEngine serves token-in decoder models")
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         self.device = resolve_device(device)

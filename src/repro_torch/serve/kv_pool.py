@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -537,6 +537,47 @@ def slot_overflow_rates(pool: dict, n_slots: int) -> Tensor:
                 ovf = ovf + t[..., 0].sum(dim=0)
                 tot = tot + t[..., 2].sum(dim=0)
     return ovf / torch.clamp(tot, min=1.0)
+
+
+def numerics_snapshot(pool: dict, n_slots: int) -> dict:
+    """Per-layer/per-slot §5 exponents and overflow counters of the
+    packed pool: the serve-side sample of
+    :func:`repro_torch.obs.numerics.serve_records`.  For every packed
+    attention entry, keyed ``"stage/bkey"``, f32 ``[n_layers, n_slots]``
+    tensors:
+
+    * ``k_e`` / ``v_e`` — the shared exponents.  A paged pool keeps them
+      per page; each slot reports its newest mapped page's (the one its
+      appends quantize against);
+    * ``ovf`` / ``half`` / ``tot`` — cumulative append counters
+      (overflowed, would-overflow-at-half-range, quantized) summed over
+      K and V, gathered through the block tables for a paged pool.
+
+    Empty for float32 pools.  The caller fetches it to the host in one
+    transfer per sample."""
+    out: Dict[str, dict] = {}
+    for sname, sc in pool.items():
+        for bkey, e in sc.items():
+            if not isinstance(e, dict) or "k_m" not in e \
+                    or "tot_k" not in e:
+                continue
+            if "bt" in e:                  # paged: through the block table
+                bt = e["bt"].long()                        # [n, B, nblocks]
+                # newest mapped page per slot (page 0 is the null page)
+                last = torch.clamp((bt != 0).sum(-1) - 1, min=0)
+                newest = torch.gather(bt, 2, last[..., None])[..., 0]
+                k_e = torch.gather(e["k_e"], 1, newest)
+                v_e = torch.gather(e["v_e"], 1, newest)
+                cnt = (_by_slot(e["tot_k"], bt)
+                       + _by_slot(e["tot_v"], bt)).sum(2)   # [n, B, 3]
+            else:                          # slot-major: per slot directly
+                k_e, v_e = e["k_e"], e["v_e"]
+                cnt = e["tot_k"] + e["tot_v"]
+            out[f"{sname}/{bkey}"] = {
+                "k_e": k_e[:, :n_slots], "v_e": v_e[:, :n_slots],
+                "ovf": cnt[:, :n_slots, 0], "half": cnt[:, :n_slots, 1],
+                "tot": cnt[:, :n_slots, 2]}
+    return out
 
 
 def slot_totals(pool: dict, slot: int) -> Tensor:

@@ -14,8 +14,8 @@
   with the *advanced* data cursor, so the poisoned window is not
   replayed;
 * ``HALTED`` — rollback failed twice: a diagnostic bundle (outcome log,
-  summary, fault log, Chrome trace) is written and the run stops
-  resolving instead of raising.
+  summary, fault log, Chrome trace, numerics JSONL tail) is written and
+  the run stops resolving instead of raising.
 
 Bit-exact resume is the checkpoint contract: the saved tree holds the
 :class:`~repro_torch.train.state.TrainState` (parameters, optimizer
@@ -23,8 +23,8 @@ state, DFXP exponents and the pre-reset §5 ``acc`` windows, step), the
 error-feedback state (``{}`` until ROADMAP item 22), the base threefry
 key and the data cursor.  Train N steps solo == train K, crash, restore,
 train N - K, bit for bit: the per-step key is ``fold_in(base, cursor)``,
-both checkpointed.  The reference's ``numerics_log`` hooks come with
-ROADMAP item 19 and its ``compress_bits`` with item 22; each raises.
+both checkpointed.  The reference's ``compress_bits`` comes with
+ROADMAP item 22 and raises.
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ import dataclasses
 import enum
 import json
 import os
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -40,6 +41,7 @@ from repro_torch.checkpoint import CheckpointError, CheckpointManager
 from repro_torch.core import prng
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.numerics import train_records
 from repro_torch.optim.opt import OptConfig
 
 from .state import TrainState
@@ -101,6 +103,11 @@ class TrainSupervisor:
       :class:`repro_torch.obs.MetricsRegistry` (``train_steps_<outcome>``,
       ``train_ckpt_commits``, ``train_ckpt_errors``,
       ``train_rollback_failures``);
+    * ``numerics_log`` — a :class:`repro_torch.obs.NumericsLog`: every
+      ``numerics_every`` committed steps (default the controller's
+      ``update_interval``) the step's numerics tap becomes per-class
+      records (:func:`repro_torch.obs.train_records`), one read-back of
+      the exponents and windows each time;
     * ``bundle_dir`` — where the HALTED diagnostic bundle lands.
     """
 
@@ -123,9 +130,6 @@ class TrainSupervisor:
             raise NotImplementedError(
                 "compress_bits (error-feedback gradient compression) is not "
                 "ported yet (ROADMAP module item 22)")
-        if numerics_log is not None or numerics_every:
-            raise NotImplementedError(
-                "numerics_log is not ported yet (ROADMAP module item 19)")
         self.state = state
         self.batch_fn = batch_fn
         self.rng = prng.as_key(rng, state.step.device)
@@ -135,12 +139,15 @@ class TrainSupervisor:
         self.policy = policy
         self.faults = faults
         self.tracer = tracer
+        self.numerics_log = numerics_log
+        self.numerics_every = numerics_every or policy.update_interval
         self.bundle_dir = bundle_dir
         self.ef: dict = {}
         self._step_fn = make_train_step(
             loss_fn, group_shapes, policy, opt_cfg,
             microbatches=microbatches, grad_transform=grad_transform,
-            supervise=True, runaway_ovf=runaway_ovf)
+            numerics_tap=numerics_log is not None, supervise=True,
+            runaway_ovf=runaway_ovf)
 
         self.cursor = 0                     # next data position
         self.outcomes: List[StepRecord] = []
@@ -247,6 +254,7 @@ class TrainSupervisor:
             self._consec_skips = 0
             self.losses.append(loss)
             rec = StepRecord(cursor, StepOutcome.OK, flags, loss)
+            self._log_numerics(metrics)
             if (self.manager is not None and self.ckpt_every
                     and self.cursor % self.ckpt_every == 0):
                 self.commit(sync=False)
@@ -349,9 +357,10 @@ class TrainSupervisor:
                        if self.faults is not None else {}),
         }
 
-    def write_bundle(self, path: Optional[str] = None) -> Optional[str]:
-        """Write the diagnostic bundle: outcome log, summary, fault log
-        and the Chrome trace."""
+    def write_bundle(self, path: Optional[str] = None,
+                     numerics_tail: int = 50) -> Optional[str]:
+        """Write the diagnostic bundle: outcome log, summary, fault log,
+        the Chrome trace and the numerics JSONL tail."""
         path = path or self.bundle_dir
         if path is None:
             return None
@@ -365,6 +374,10 @@ class TrainSupervisor:
                 json.dump(self.faults.summary(), f, indent=2)
         if self.tracer is not None:
             self.tracer.export(os.path.join(path, "trace.json"))
+        if self.numerics_log is not None:
+            with open(os.path.join(path, "numerics_tail.jsonl"), "w") as f:
+                for r in self.numerics_log.tail(numerics_tail):
+                    f.write(json.dumps(r) + "\n")
         return path
 
     # -- internals ---------------------------------------------------------
@@ -373,3 +386,24 @@ class TrainSupervisor:
             self.faults.log_supervisor_event(kind, **kw)
         elif self.tracer is not None:
             self.tracer.instant(f"train:{kind}", tid="train", **kw)
+
+    def _log_numerics(self, metrics) -> None:
+        if self.numerics_log is None:
+            return
+        if len(self.losses) % self.numerics_every:
+            return
+        # one read-back: every exponent and window, flattened together
+        tap = metrics["numerics"]
+        parts = [(part, g, t) for part in ("prev_exps", "exps", "acc")
+                 for g, t in tap[part].items()]
+        flat = torch.cat([t.detach().reshape(-1).to(torch.float32)
+                          for _, _, t in parts]).tolist() if parts else []
+        host: Dict[str, dict] = {"prev_exps": {}, "exps": {}, "acc": {}}
+        i = 0
+        for part, g, t in parts:
+            host[part][g] = flat[i:i + t.numel()]
+            i += t.numel()
+        for rec in train_records(host["prev_exps"], host["exps"],
+                                 host["acc"], step=int(self.state.step),
+                                 t=time.perf_counter()):
+            self.numerics_log.record(rec)

@@ -133,13 +133,25 @@ def _unflatten(template, leaves):
 
 
 def _split(batch: dict, n: int):
-    """``n`` microbatches of a batch dict along axis 0."""
-    B = next(iter(batch.values())).shape[0]
+    """``n`` microbatches of a batch dict along its batch axis: axis 0,
+    or axis 1 for a leaf that leads with another (M-RoPE's positions
+    ``[3, B, S]``), as the reference's ``to_micro``."""
+    for key in ("labels", "y", "tokens", "x"):
+        if key in batch:
+            B = batch[key].shape[0]
+            break
+    else:
+        raise ValueError("cannot infer batch axis for microbatching")
     if B % n:
         raise ValueError(f"batch {B} does not split into {n} microbatches")
     m = B // n
-    return [{k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-            for i in range(n)]
+
+    def part(v, i):
+        if v.shape[0] == B:
+            return v[i * m:(i + 1) * m]
+        return v[:, i * m:(i + 1) * m]
+
+    return [{k: part(v, i) for k, v in batch.items()} for i in range(n)]
 
 
 def loss_and_grads(loss_fn: Callable, params, batch, sinks, exps):
@@ -174,7 +186,11 @@ def make_train_step(
     """Build ``step(state, batch, rng=None) -> (state, metrics)``.
 
     ``metrics`` holds device tensors: ``loss`` (mean over microbatches),
-    ``grad_norm`` (before clipping) and ``step``.  ``rng`` (a threefry
+    ``grad_norm`` (before clipping) and ``step``; with ``numerics_tap``
+    also ``numerics``: the exponents before (``prev_exps``) and after
+    (``exps``) the controller, and ``acc``, the §5 window the decision
+    was made from (before its reset), for
+    :func:`repro_torch.obs.numerics.train_records`.  ``rng`` (a threefry
     key, :mod:`repro_torch.core.prng`) keys the stochastic storage
     rounding of ``policy.stochastic_rounding`` only, as in the reference;
     the loss function draws its own dropout keys.
@@ -199,13 +215,10 @@ def make_train_step(
       runaway-only trip (the §5 controller must see the overflow window
       to move out of it).
     """
-    for flag, item, what in ((numerics_tap, 19, "numerics_tap"),
-                             (grad_transform is not None
-                              or ef_transform is not None, 22,
-                              "grad_transform/ef_transform")):
-        if flag:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP module item {item})")
+    if grad_transform is not None or ef_transform is not None:
+        raise NotImplementedError(
+            "grad_transform/ef_transform is not ported yet (ROADMAP module "
+            "item 22)")
     if supervise and policy.storage == "packed" and opt_cfg.kind != "sgd":
         # the step returns adamw's moments in f32 where the state held them
         # packed, and the discard selects between the two; the reference's
@@ -336,8 +349,10 @@ def make_train_step(
 
             # ---- 7. scale controller -------------------------------------
             new_scale = state.scale
+            acc_window = None
             if dyn:
                 new_scale = accumulate(new_scale, all_stats)
+                acc_window = new_scale.acc    # the pre-reset §5 window
                 apply = (state.step + 1) % policy.update_interval == 0
                 new_scale = controller_step(
                     new_scale, max_overflow_rate=policy.max_overflow_rate,
@@ -345,6 +360,11 @@ def make_train_step(
 
             metrics = {"loss": loss, "grad_norm": gnorm,
                        "step": state.step.to(torch.float32)}
+            if numerics_tap:
+                metrics["numerics"] = {
+                    "prev_exps": state.scale.exps,
+                    "exps": new_scale.exps,
+                    "acc": acc_window if acc_window is not None else {}}
             new_state = TrainState(params=new_params, opt=new_opt,
                                    scale=new_scale, step=state.step + 1)
             if not supervise:

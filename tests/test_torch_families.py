@@ -29,6 +29,7 @@ and zamba2 (hybrid: shared attention and FFN, a ``dec_tail`` stage).
   under ``float32``: logits within 1e-4 (gemma3's prompt of 40 is past
   its window of 16, so the local rings have wrapped).
 """
+import dataclasses
 import functools
 
 import jax
@@ -55,7 +56,8 @@ from repro_torch.train import init_train_state as t_init_state
 from repro_torch.train import make_train_step as t_make_step
 from repro_torch.train.state import param_group_shapes as t_param_groups
 
-ARCHS = tconfigs.ARCHS
+ARCHS = tuple(a for a in tconfigs.ARCHS     # the token-in decoders
+              if a not in ("seamless_m4t_medium", "qwen2_vl_72b"))
 B, S = 2, 32
 OPT = dict(kind="sgd", lr=0.01, lr_decay_steps=1000)
 
@@ -222,10 +224,17 @@ def test_prefill_and_decode_logits_match_reference(arch):
 
 @pytest.mark.parametrize("arch", ["seamless_m4t_medium", "qwen2_vl_72b"])
 def test_the_other_two_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="item 21b"):
-        tconfigs.get(arch)
-    with pytest.raises(NotImplementedError, match="item 21b"):
-        TT.ModelConfig(encoder_layers=2)
+    """The encoder-decoder and the embeds-input model build (their own
+    tests: ``test_torch_encdec.py``, ``test_torch_mrope.py``), but the
+    engine serves token-in decoders only and refuses them with the
+    reference's ``ValueError``, before it touches the weights."""
+    from repro_torch.serve import ServeEngine as TEngine
+    jcfg, tcfg = jconfigs.get(arch), tconfigs.get(arch)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    _, smoke = _cfgs(arch)
+    with pytest.raises(ValueError, match="token-in decoder models"):
+        TEngine(smoke, TPolicy("float32"), {}, max_slots=2, max_len=16,
+                device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["gelu", "maxout"])

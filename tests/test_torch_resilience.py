@@ -349,8 +349,6 @@ def test_supervisor_outcome_counters_in_metrics():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="item 22"):
         _sup(compress_bits=8)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        _sup(numerics_log=object())
 
 
 def test_packed_adamw_under_supervise_raises():

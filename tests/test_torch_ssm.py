@@ -136,7 +136,7 @@ def test_xla_elementwise_evaluations(fn, lo, hi):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("H", [8, 32])
+@pytest.mark.parametrize("H", [8, 32, 64])
 def test_a_log_matches_reference(H):
     want = np.asarray(jnp.log(jnp.linspace(1.0, 16.0, H, dtype=jnp.float32)))
     got = prng.log(TS._linspace(1.0, 16.0, H, "cpu")).numpy()

@@ -331,8 +331,7 @@ def test_train_step_matches_reference(name):
 
 def test_train_step_raises_on_what_is_not_ported():
     pol, cfg = TPolicy("dfxp"), topt.OptConfig()
-    for kw in (dict(numerics_tap=True),
-               dict(grad_transform=lambda g: g), dict(ef_transform=print)):
+    for kw in (dict(grad_transform=lambda g: g), dict(ef_transform=print)):
         with pytest.raises(NotImplementedError, match="item"):
             t_make_step(lambda *a: None, {}, pol, cfg, **kw)
     # the supervised step is ported (tests/test_torch_resilience.py)
