@@ -28,8 +28,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    eight token-in archs (17a) and paged for llama3 (engine logits with
    prefix sharing, and a tight arena that preempts);
 5. the main path: ``repro_torch.launch.serve`` at full llama3-8B width
-   and 16 of its 32 layers (``LLAMA_LAYERS``), DFXP-10, int8 pool, fused decode, chunked prefill (6 requests, 4
-   slots, 16 tokens each); every request must end OK and both kernels
+   and 12 of its 32 layers (``LLAMA_LAYERS``), DFXP-10, int8 pool, fused
+   decode, chunked prefill (6 requests, 4 slots, 16 tokens each); every request must end OK and both kernels
    must have launched, K3 once per layer per decode step;
 6. the paged main path on the same weights: P = C = 64, int8 pages,
    fused decode, 6 requests with a shared 256-token prefix and two
@@ -74,7 +74,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 14. the PRNG (before the parity phases): ``split``, ``fold_in``, bits,
     ``uniform``, ``bernoulli``, ``normal`` (16.8M draws), ``gumbel`` and
     ``categorical`` on the card equal the CPU's, and jax's constants;
-15. sampled serving at full llama3-8B width (16 layers) over a stochastic int8 pool
+15. sampled serving at full llama3-8B width (12 layers) over a stochastic int8 pool
     (top-k 40 at temperature 0.8), slot-major (C = 128) and paged
     (P = 64): every request OK with 16 tokens, K3-K6 launched as in the
     greedy runs, request 0 alone drawing what it drew in the batch, no
@@ -141,7 +141,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     prefilled and decoded 16 steps on embeds through K3 (2 calls a step)
     within ``FAMILY_DECODE_TOL`` of its M-RoPE forward; its training at
     the smoke config, 3 DFXP steps card against CPU (a full-width layer's
-    training state does not fit the card).
+    training state does not fit the card);
+19. the serve engine's robustness layer on the serving run's llama3
+    weights (no new weights): (a) a NaN in one request's logits and a
+    bit flipped in another's private page of the paged engine (K5, K6):
+    the NaN victim ``FAILED`` with its clean prefix, every untouched
+    request equal to phase 6's tokens; then, on the weights' first
+    ``ROBUST_LAYERS`` layers, (b) a seeded chaos plan with a page
+    squeeze on a short arena: drains, every request terminal, a
+    preemption, the fault log JSON; (c) a queue cap (4 of 6 submits
+    ``REJECTED``), a deadline of 0 (all ``TIMED_OUT``) and a runaway
+    threshold of -1 (all ``FAILED``) on the slot-major engine (K3, K4);
+    (d) a tracer and a numerics log on it: ``validate_trace``, a
+    ``decode_step`` span per decode step, records on the cadence with
+    the pool's exponents; (e) one decode step's device operations bare
+    (= its model step and sampler tail) and with a harness and a runaway
+    threshold; (f) the serve CLI's ``--chaos 0`` demo with every output
+    file parsed.
 
 The ``kernels`` JSON gives each attention kernel's device time per call
 inside the profiled serving step (``in_step_ms_per_call``) beside its
@@ -162,10 +178,12 @@ import torch
 
 TOL = 1e-4                      # kernel vs plain, outputs of size O(1..16)
 K6_TOL = 1e-5                   # K6 on K4's TF32 route vs plain (atol, rtol)
-# llama3-8B at full width and 16 of its 32 layers (registered as
-# "llama3_8b_l16" by phase_serve): the cut keeps the whole run, with the
-# token-in families' phases, inside its time limit
-LLAMA_LAYERS = 16
+# llama3-8B at full width and 12 of its 32 layers (registered as
+# "llama3_8b_l12" by phase_serve): the cut keeps the whole run, with the
+# token-in families' and the robustness layer's phases, inside its time
+# limit on the slower H100 hosts (at 16 layers the script took 1173 s of
+# its 1200 on one, 962 s on another)
+LLAMA_LAYERS = 12
 SERVE_ARGS = ["--arch", f"llama3_8b_l{LLAMA_LAYERS}", "--num-requests", "6", "--slots", "4",
               "--prompt-len", "96,200,384", "--max-new", "16",
               "--cache-bits", "8", "--fused-decode", "--prefill-chunk",
@@ -448,6 +466,23 @@ def sdpa_decode(a):
         a["q"], k, v, attn_mask=valid, scale=a["scale"])
 
 
+def sdpa_prefill(a):
+    """K4's function in one library call on an f32 case: the history and
+    the chunk's K/V concatenated and the joint (window) mask built
+    outside the timed call."""
+    from repro_torch.kernels.attn import cases
+    Bq, Cq, K, G, HD = a["q"].shape
+    vh, vs = cases.prefill_valid(a)
+    mask = torch.cat([vh, vs], dim=-1)                     # [B, C, W+C]
+    mask = mask.repeat_interleave(G, dim=1)[:, None]       # [B,1,CG,W+C]
+    q = a["q"].permute(0, 2, 1, 3, 4).reshape(Bq, K, Cq * G, HD)
+    kc = torch.cat([a["k"], a["k_new"]], 1).permute(0, 2, 1, 3)
+    vc = torch.cat([a["v"], a["v_new"]], 1).permute(0, 2, 1, 3)
+    kc, vc = kc.contiguous(), vc.contiguous()
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kc, vc, attn_mask=mask, scale=a["scale"])
+
+
 def k4(a):
     """K4 (flash-prefill) on a :func:`cases.prefill_case`'s arguments."""
     from repro_torch.kernels.attn import ops
@@ -471,20 +506,6 @@ def phase_kernels():
     dev = torch.device("cuda")
     B, W, K, G, HD, C = 4, 400, 8, 4, 128, 128
     NBLK = 8                    # paged: 464-token max_len over 64-row pages
-
-    def sdpa_prefill(a):
-        # f32 history + self K/V concatenated and the joint mask built
-        # outside the timed call
-        Bq, Cq = a["q"].shape[:2]
-        vh, vs = cases.prefill_valid(a)
-        mask = torch.cat([vh, vs], dim=-1)                     # [B, C, W+C]
-        mask = mask.repeat_interleave(G, dim=1)[:, None]       # [B,1,CG,W+C]
-        q = a["q"].permute(0, 2, 1, 3, 4).reshape(Bq, K, Cq * G, HD)
-        kc = torch.cat([a["k"], a["k_new"]], 1).permute(0, 2, 1, 3)
-        vc = torch.cat([a["v"], a["v_new"]], 1).permute(0, 2, 1, 3)
-        kc, vc = kc.contiguous(), vc.contiguous()
-        return lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, kc, vc, attn_mask=mask, scale=a["scale"])
 
     def k5(a):
         return ops.flash_decode_paged(
@@ -2520,6 +2541,343 @@ def phase_prng_launches(eng, seng):
 
 
 # ---------------------------------------------------------------------------
+# the serve engine's robustness and observability layer: fault injection,
+# admission control, deadlines, the §5 runaway sentinel, the tracer and
+# the numerics log, on the serving run's llama3-8B weights
+# ---------------------------------------------------------------------------
+
+ROBUST_NEW = 8              # new tokens a request in these phases
+ROBUST_LAYERS = 4           # phases b-e: the serving weights' first layers
+# the chaos sweep: its seed, and an arena of 11 usable pages (full
+# residency is 32): the four slots' concurrent demand exhausts it, and
+# the allocator's arithmetic (the same at any width: it reads lengths,
+# not values) preempts 4 times
+CHAOS_SEED, CHAOS_PAGES = 7, 12
+NUMERICS_EVERY = 4          # the traced run's numerics cadence, steps
+
+
+def _first_layers(tree, n: int):
+    """The stages' stacked leaves cut to their first ``n`` layers: views
+    of the same tensors, no new weights."""
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def _robust_engine(eng, page: int = 0, layers: int = ROBUST_LAYERS,
+                   **opts):
+    """A new engine on ``eng``'s weights (the first ``layers`` of them)
+    and geometry: DFXP-10, fused attention, an int8 pool, 4 slots, room
+    for 16 new tokens; slot-major with C = 128, or paged with P = C =
+    ``page``.  Returns it with the serving runs' six prompts."""
+    import dataclasses
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.serve import EngineOptions, ServeEngine
+    cfg, params = eng.cfg, eng.params
+    if layers != cfg.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        params = {**params,
+                  "stages": _first_layers(params["stages"], layers)}
+    prompts = _serve_prompts(cfg, page)
+    pol = PrecisionPolicy("dfxp", fused_decode=True,
+                          prefill_chunk=page or 128, page_size=page)
+    e = ServeEngine(cfg, pol, params, max_slots=4,
+                    max_len=max(map(len, prompts)) + 16,
+                    options=EngineOptions(cache_bits=8, **opts),
+                    device="cuda")
+    return e, prompts
+
+
+def _attn_launches(e, decode_kernel: str, prefill_kernel: str) -> dict:
+    """The run's attention-kernel launches (counted from 0 around it),
+    held to its arithmetic: the decode kernel once per layer per decode
+    step, the prefill kernel once per layer per chunk, no other kernel,
+    and both launched."""
+    from repro_torch.kernels.attn import ops
+    st = e.stats()
+    launches = dict(ops.LAUNCHES)
+    want = {name: 0 for name in launches}
+    want[decode_kernel] = e.cfg.num_layers * st["decode_steps"]
+    want[prefill_kernel] = e.cfg.num_layers * st["prefill_chunks"]
+    if launches != want or not (launches[decode_kernel]
+                                and launches[prefill_kernel]) \
+            or any(train_launches().values()):
+        raise SystemExit(f"launches {launches}, expected {want}")
+    return launches
+
+
+def _statuses(e, uids) -> list:
+    out = [e.status(u) for u in uids]
+    if any(s is None for s in out):
+        raise SystemExit(f"a request has no terminal status: {out}")
+    return [s.value for s in out]
+
+
+def phase_faults(eng, clean: dict) -> dict:
+    """(a) Targeted faults on the paged int8 engine (P = 64): a NaN in
+    request 1's logits at its fourth token, and a mantissa bit flipped in
+    request 3's newest private page at step 16 (K5 and K6 read it next).
+    Request 1 resolves FAILED with its three clean tokens, request 3
+    drains to a terminal status, and every request no fault touched
+    equals ``clean`` (the fault-free paged run's tokens)."""
+    from repro_torch.serve import FaultHarness, KVBitFlip, LogitNaN
+    fh = FaultHarness([LogitNaN(uid=1, token_idx=3),
+                       KVBitFlip(step=16, uid=3, bit=6)])
+    reset_all_launches()
+    t0 = time.perf_counter()
+    e, prompts = _robust_engine(eng, PAGE, eng.cfg.num_layers, faults=fh)
+    uids = [e.submit(p, max_new=ROBUST_NEW) for p in prompts]
+    e.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _attn_launches(e, "flash_decode_paged", "flash_prefill_paged")
+    status = _statuses(e, uids)
+    toks = [e.results[u].tolist() for u in uids]
+    spared = [u for u in uids if u not in (1, 3)]
+    out = {"wall_s": wall, "statuses": status, "launches": launches,
+           "events": fh.log,
+           "nan_victim_prefix_equal": toks[1] == clean[1][:3],
+           "spared_equal": all(toks[u] == clean[u][:ROBUST_NEW]
+                               for u in spared),
+           "flip_victim_equal": toks[3] == clean[3][:len(toks[3])]}
+    log(f"faults (paged): {json.dumps(out)}")
+    if not (status[1] == "failed" and out["nan_victim_prefix_equal"]
+            and status[3] in ("ok", "failed") and out["spared_equal"]
+            and all(status[u] == "ok" for u in spared)
+            and sorted(ev["kind"] for ev in fh.log)
+            == ["bit_flip", "logit_nan"]):
+        raise SystemExit("the targeted faults run failed its checks")
+    return out
+
+
+def phase_chaos(eng) -> dict:
+    """(b) A ``chaos_plan`` sweep (seed ``CHAOS_SEED``: logit NaNs, bit
+    flips, admission delays and a page squeeze) over the paged engine on
+    an arena of ``CHAOS_PAGES`` pages: ``run()`` drains, every request
+    ends terminal, at least one is preempted, and the harness log
+    round-trips through JSON."""
+    from repro_torch.serve import FaultHarness, chaos_plan
+    fh = FaultHarness(chaos_plan(CHAOS_SEED, list(range(6)),
+                                 n_steps=4 * ROBUST_NEW, squeeze_pages=4),
+                      seed=CHAOS_SEED)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    e, prompts = _robust_engine(eng, PAGE, faults=fh, n_pages=CHAOS_PAGES)
+    uids = [e.submit(p, max_new=ROBUST_NEW) for p in prompts]
+    e.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _attn_launches(e, "flash_decode_paged", "flash_prefill_paged")
+    summary = fh.summary()
+    st = e.stats()
+    out = {"wall_s": wall, "statuses": _statuses(e, uids),
+           "launches": launches, "event_counts": summary["event_counts"],
+           "preemptions": st["preemptions"],
+           "drained": not (e._queue or e._prefilling or e._active.any()),
+           **{k: st[k] for k in ("requests_failed", "prefill_chunks",
+                                 "pages_allocated", "page_evictions")}}
+    log(f"chaos (paged, {CHAOS_PAGES} pages): {json.dumps(out)}")
+    if not (out["drained"] and st["preemptions"] >= 1
+            and json.loads(json.dumps(summary)) == summary):
+        raise SystemExit("the chaos sweep failed its checks")
+    return out
+
+
+def phase_admission(eng) -> dict:
+    """(c) Admission on the slot-major chunked engine: a queue of 2 takes
+    two of six submits and rejects four (empty results); a deadline of
+    0 ms times every queued request out before any step; a runaway
+    threshold of -1 quarantines every decoding request FAILED on its
+    first decode step."""
+    from repro_torch.serve import RequestStatus
+    reset_all_launches()
+    e, prompts = _robust_engine(eng, queue_cap=2)
+    uids = [e.submit(p, max_new=ROBUST_NEW) for p in prompts]
+    rejected = [u for u in uids if e.status(u) is RequestStatus.REJECTED]
+    e.run()
+    torch.cuda.synchronize()
+    launches = _attn_launches(e, "flash_decode", "flash_prefill")
+    cap = {"statuses": _statuses(e, uids), "rejected_at_submit": rejected,
+           "requests_rejected": e.stats()["requests_rejected"],
+           "launches": launches}
+    ok = (rejected == uids[2:] and cap["requests_rejected"] == 4
+          and cap["statuses"] == ["ok"] * 2 + ["rejected"] * 4
+          and all(e.results[u].size == 0 for u in rejected)
+          and all(e.results[u].size == ROBUST_NEW for u in uids[:2]))
+
+    e, _ = _robust_engine(eng, deadline_ms=0.0)
+    uids = [e.submit(p, max_new=ROBUST_NEW) for p in prompts]
+    e.run()
+    st = e.stats()
+    dl = {"statuses": _statuses(e, uids),
+          "requests_timed_out": st["requests_timed_out"],
+          "decode_steps": st["decode_steps"]}
+    ok &= (dl["statuses"] == ["timed_out"] * 6 and st["decode_steps"] == 0
+           and all(e.results[u].size == 0 for u in uids))
+
+    reset_all_launches()
+    e, _ = _robust_engine(eng, runaway_ovf=-1.0)
+    uids = [e.submit(p, max_new=ROBUST_NEW) for p in prompts[:2]]
+    e.run()
+    torch.cuda.synchronize()
+    launches = _attn_launches(e, "flash_decode", "flash_prefill")
+    run = {"statuses": _statuses(e, uids),
+           "tokens": [e.results[u].size for u in uids],
+           "requests_failed": e.stats()["requests_failed"],
+           "launches": launches}
+    ok &= (run["statuses"] == ["failed"] * 2 and run["tokens"] == [1, 1])
+    out = {"queue_cap": cap, "deadline_0": dl, "runaway": run}
+    log(f"admission (slot-major): {json.dumps(out)}")
+    if not ok:
+        raise SystemExit("the admission run failed its checks")
+    return out
+
+
+def phase_observed(eng) -> dict:
+    """(d) A tracer and a numerics log on the chunked int8 run, stepped
+    by hand: the trace passes ``validate_trace`` with one
+    ``decode_step`` span per decode step, and every numerics record
+    falls on the ``NUMERICS_EVERY`` cadence with the exponents the
+    pool's ``k_e`` holds for its slot at that step."""
+    from repro_torch.obs import NumericsLog, Tracer, validate_trace
+    tracer, num = Tracer(), NumericsLog()
+    reset_all_launches()
+    e, prompts = _robust_engine(eng, tracer=tracer, numerics_log=num,
+                                numerics_every=NUMERICS_EVERY)
+    uids = [e.submit(p, max_new=ROBUST_NEW) for p in prompts]
+    t0 = time.perf_counter()
+    bad = []
+    while e._queue or e._prefilling or e._active.any():
+        n = len(num.records)
+        e.step()
+        for rec in num.records[n:]:
+            stage, bkey = rec["entry"].split("/", 1)
+            k_e = e._pool[stage][bkey]["k_e"][:, rec["slot"]].tolist()
+            if rec["step"] != e._step_idx or rec["k_e"] != k_e:
+                bad.append(rec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _attn_launches(e, "flash_decode", "flash_prefill")
+    st = e.stats()
+    trace = tracer.to_chrome()
+    validate_trace(trace)
+    spans = [ev for ev in trace["traceEvents"]
+             if ev["name"] == "decode_step" and ev["ph"] == "X"]
+    steps = sorted({rec["step"] for rec in num.records})
+    out = {"wall_s": wall, "statuses": _statuses(e, uids),
+           "launches": launches, "trace_events": len(trace["traceEvents"]),
+           "decode_step_spans": len(spans),
+           "decode_steps": st["decode_steps"],
+           "numerics_records": len(num.records), "sampled_steps": steps,
+           "records_off_the_pool": len(bad)}
+    log(f"observed (slot-major, traced): {json.dumps(out)}")
+    if not (len(spans) == st["decode_steps"] > 0 and num.records
+            and not bad and all(s % NUMERICS_EVERY == 0 for s in steps)
+            and out["statuses"] == ["ok"] * 6):
+        raise SystemExit("the traced run failed its checks")
+    return out
+
+
+def phase_robust_ops(eng, greedy_ops: int) -> dict:
+    """(e) Device operations of one engine decode step (4 slots at
+    position 300, greedy, the chunked int8 pool) with none of the new
+    options, and with a fault harness and a runaway threshold.  The bare
+    step must issue exactly the model's step and the sampler's tail
+    (``_sample`` on its logits, the host copies of the tokens, positions
+    and append mask), as before the options existed; the options must
+    add operations (``tools/serve_step_ops.py`` splits them by option).
+    ``greedy_ops`` (the model's step and the sampler,
+    :func:`phase_prng_launches`, at the serving run's depth) is printed
+    beside them: that count moves by a few operations run to run."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import FaultHarness
+    out = {"decode_step_and_sample": greedy_ops,
+           "layers": ROBUST_LAYERS}
+    for tag, opts in (("bare", {}),
+                      ("harness_and_runaway", {"faults": FaultHarness([]),
+                                               "runaway_ovf": 1.0})):
+        e, _ = _robust_engine(eng, **opts)
+        e._pos[:] = 300
+        e._active[:] = True
+        nan_mask = np.zeros(e.max_slots, bool) if "faults" in opts else None
+        out[tag] = device_ops(
+            lambda e=e, m=nan_mask: e._decode_impl(e._dev(e._active), m))
+        if tag == "bare":
+            def tail(e=e):
+                with torch.no_grad():
+                    logits, _, e._pool = T.decode_step(
+                        e.cfg, e.policy, e.params, e._pool, e._dev(e._tok),
+                        e._dev(e._pos), e.exps, kv_codec=e.codec,
+                        append_mask=e._dev(e._active))
+                    e._sample(logits)
+            out["model_step_and_tail"] = device_ops(tail)
+        del e
+    out["added_by_options"] = out["harness_and_runaway"] - out["bare"]
+    log(f"engine decode step device operations: {json.dumps(out)}")
+    if out["bare"] != out["model_step_and_tail"] or \
+            not out["added_by_options"] > 0:
+        raise SystemExit("an engine decode step without the options issues "
+                         "other device operations than its model step and "
+                         "sampler tail, or an option adds none")
+    return out
+
+
+def phase_cli_chaos() -> dict:
+    """(f) The serve CLI's bare chaos demo on the card (``--arch
+    llama3_8b --chaos 0``: the smoke config, an int8 pool, pages of 4 on
+    a short arena, a controller cadence of 4) with every output file:
+    each parses, the trace passes ``validate_trace``, and every request
+    ends terminal."""
+    import os
+    import tempfile
+    from repro_torch.launch import serve
+    from repro_torch.obs import read_jsonl, validate_trace
+    with tempfile.TemporaryDirectory() as d:
+        f = {k: os.path.join(d, k) for k in ("faults.json", "trace.json",
+                                             "numerics.jsonl",
+                                             "metrics.jsonl")}
+        t0 = time.perf_counter()
+        e = serve.main(["--arch", "llama3_8b", "--chaos", "0",
+                        "--fault-log", f["faults.json"],
+                        "--trace-out", f["trace.json"],
+                        "--numerics-log", f["numerics.jsonl"],
+                        "--metrics-out", f["metrics.jsonl"]])
+        wall = time.perf_counter() - t0
+        with open(f["faults.json"]) as fp:
+            faults = json.load(fp)
+        with open(f["trace.json"]) as fp:
+            trace = json.load(fp)
+        validate_trace(trace)
+        numerics = read_jsonl(f["numerics.jsonl"])
+        metrics = read_jsonl(f["metrics.jsonl"])
+    out = {"wall_s": wall, "arch": e.cfg.name,
+           "statuses": _statuses(e, range(4)),
+           "event_counts": faults["event_counts"],
+           "trace_events": len(trace["traceEvents"]),
+           "numerics_records": len(numerics),
+           "metrics_series": len(metrics[-1]["metrics"]),
+           "preemptions": e.stats()["preemptions"]}
+    log(f"cli chaos demo: {json.dumps(out)}")
+    if not (numerics and metrics and e.cfg.name.endswith("smoke")):
+        raise SystemExit("the CLI's chaos demo failed its checks")
+    return out
+
+
+def phases_robustness(eng, clean: dict, greedy_ops: int, t0) -> dict:
+    """Phases (a)-(f), on the serving run's weights; no new weights."""
+    out = {"faults": phase_faults(eng, clean), "chaos": phase_chaos(eng)}
+    log(f"[{time.perf_counter() - t0:.0f}s] faults and chaos served")
+    out["admission"] = phase_admission(eng)
+    out["observed"] = phase_observed(eng)
+    out["decode_ops"] = phase_robust_ops(eng, greedy_ops)
+    out["cli_chaos"] = phase_cli_chaos()
+    log(f"[{time.perf_counter() - t0:.0f}s] admission, tracing and the CLI "
+        f"chaos demo served")
+    log("robustness: " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the token-in families: MoE (granite, llama4), SSM (mamba2), hybrid
 # (zamba2), windowed and qk-norm dense (gemma3, qwen3), phi3
 # ---------------------------------------------------------------------------
@@ -2628,40 +2986,44 @@ def phase_family_kernels():
     ring of 1024 that has wrapped (window 1024) and a global one of 1216;
     K4 at gemma3's heads, a 128-row chunk at p0 = 1152 > window with 48
     valid rows over the wrapped local ring, and at p0 = 1024 over the
-    global one."""
+    global one.  ``library_ms``: SDPA on the f32 case of the same shape
+    and window mask (the yardstick of the kernel table's other rows)."""
     from repro_torch.kernels.attn import cases
 
     fills = [112, 216, 400, 300]
     gfills = [1116, 1166, 1216, 1146]
     shapes = {
         "k3_granite": ("flash_decode", k3, k3_plain, cases.decode_cost,
-                       lambda s: cases.decode_case(4, 400, 8, 2, 64, 8,
-                                                   fill=fills, seed=s)),
+                       sdpa_decode,
+                       lambda s, w=8: cases.decode_case(
+                           4, 400, 8, 2, 64, w, fill=fills, seed=s)),
         "k3_zamba2": ("flash_decode", k3, k3_plain, cases.decode_cost,
-                      lambda s: cases.decode_case(4, 400, 32, 1, 64, 8,
-                                                  fill=fills, seed=s)),
+                      sdpa_decode,
+                      lambda s, w=8: cases.decode_case(
+                          4, 400, 32, 1, 64, w, fill=fills, seed=s)),
         "k3_gemma3_local": ("flash_decode", k3, k3_plain, cases.decode_cost,
-                            lambda s: cases.decode_case(
-                                4, 1024, 16, 2, 128, 8, fill=gfills,
+                            sdpa_decode,
+                            lambda s, w=8: cases.decode_case(
+                                4, 1024, 16, 2, 128, w, fill=gfills,
                                 window=1024, seed=s)),
         "k3_gemma3_global": ("flash_decode", k3, k3_plain,
-                             cases.decode_cost,
-                             lambda s: cases.decode_case(
-                                 4, 1216, 16, 2, 128, 8, fill=gfills,
+                             cases.decode_cost, sdpa_decode,
+                             lambda s, w=8: cases.decode_case(
+                                 4, 1216, 16, 2, 128, w, fill=gfills,
                                  seed=s)),
         "k4_gemma3_local": ("flash_prefill", k4, k4_plain,
-                            cases.prefill_route_cost,
-                            lambda s: cases.prefill_case(
-                                1, 128, 1024, 16, 2, 128, 8, p0=[1152],
+                            cases.prefill_route_cost, sdpa_prefill,
+                            lambda s, w=8: cases.prefill_case(
+                                1, 128, 1024, 16, 2, 128, w, p0=[1152],
                                 n_valid=[48], window=1024, seed=s)),
         "k4_gemma3_global": ("flash_prefill", k4, k4_plain,
-                             cases.prefill_route_cost,
-                             lambda s: cases.prefill_case(
-                                 1, 128, 1216, 16, 2, 128, 8, p0=[1024],
+                             cases.prefill_route_cost, sdpa_prefill,
+                             lambda s, w=8: cases.prefill_case(
+                                 1, 128, 1216, 16, 2, 128, w, p0=[1024],
                                  n_valid=[128], seed=s)),
     }
     out = {}
-    for name, (kname, fn, plain, cost, make) in shapes.items():
+    for name, (kname, fn, plain, cost, library, make) in shapes.items():
         a = make(0)
         got, want = fn(a), plain(a)
         err = float((got - want).abs().max())
@@ -2674,9 +3036,12 @@ def phase_family_kernels():
                      if torch.is_tensor(t))
         copies = [a] + [make(s) for s in range(1, max(2, -(-(120 << 20)
                                                          // nbytes)))]
-        row = time_row(name, f"{kname}_kernel", fn, plain, copies, cost)
+        call = library(make(0, None))
+        row = time_row(name, f"{kname}_kernel", fn, plain, copies, cost,
+                       lambda _: call())
         row["max_abs_err"] = err
         out[name] = row
+        del call
     return out
 
 
@@ -3634,6 +3999,7 @@ def main():
     eng, st, launches, peak = phase_serve()
     log(f"[{time.perf_counter() - t0:.0f}s] main path served")
     peng, pst, plaunches, ppeak = phase_paged(eng)
+    clean = {u: r.tolist() for u, r in peng.results.items()}
     log(f"[{time.perf_counter() - t0:.0f}s] paged path served")
     prof = phase_profile(eng, peng)
     log(f"[{time.perf_counter() - t0:.0f}s] steps profiled")
@@ -3645,6 +4011,8 @@ def main():
     prng_ops = phase_prng_launches(eng, sampled["engine"])
     for r in (sampled, sampled_paged):
         r.pop("engine")
+    robust = phases_robustness(eng, clean,
+                               prng_ops["greedy_deterministic_pool"], t0)
 
     csrc = "src/repro_torch/kernels/attn/csrc/"
     srcs = {"flash_decode": ("src/repro/kernels/attn/attn_kernel.py:123",
@@ -3697,6 +4065,20 @@ def main():
             "flash_decode"],
         qwen2_vl_72b_l2=encdec["qwen2vl"]["decode"]["launches"][
             "flash_decode"])
+    # the robustness phases' runs: admission and the traced run (K3, K4),
+    # the targeted faults and the chaos sweep (K5, K6)
+    for row in rows[:2]:
+        row["launches_by_path"].update(
+            llama3_8b_queue_cap=robust["admission"]["queue_cap"][
+                "launches"][row["name"]],
+            llama3_8b_runaway=robust["admission"]["runaway"]["launches"][
+                row["name"]],
+            llama3_8b_traced=robust["observed"]["launches"][row["name"]])
+    for row in rows[2:4]:
+        row["launches_by_path"] = {
+            "llama3_8b_paged": row["launches"],
+            "llama3_8b_faults": robust["faults"]["launches"][row["name"]],
+            "llama3_8b_chaos": robust["chaos"]["launches"][row["name"]]}
     # each attention kernel's device time per call inside the profiled
     # serving step (one call per layer), beside its isolated rows
     n_layers = eng.cfg.num_layers

@@ -1,8 +1,8 @@
 """Counter-based threefry2x32 random numbers, as ``jax.random`` draws them.
 
 The port of the parts of ``jax.random`` that the reference uses: keys,
-``split``, ``fold_in``, raw bits, ``uniform``, ``bernoulli``, ``normal``,
-``gumbel`` and ``categorical``.  Every function takes explicit keys, keeps
+``split``, ``fold_in``, raw bits, ``uniform``, ``bernoulli``, ``randint``,
+``normal``, ``gumbel`` and ``categorical``.  Every function takes explicit keys, keeps
 no global state and runs on the device of its key, so the card and the
 CPU draw the same numbers from the same key.
 
@@ -24,8 +24,8 @@ key; a reference run on 0.4.37 matches this module only with
 ``jax.config.update("jax_threefry_partitionable", True)``.
 
 **Exactness.**  Keys, bits, ``uniform`` and ``bernoulli`` are integer
-arithmetic and one exact float conversion: bit for bit equal to
-``jax.random``.  ``normal`` (``sqrt(2) * erfinv(u)``) and ``gumbel``
+arithmetic and one exact float conversion, and ``randint`` integer
+arithmetic alone: bit for bit equal to ``jax.random``.  ``normal`` (``sqrt(2) * erfinv(u)``) and ``gumbel``
 (``-log(-log(u))``) evaluate the float32 approximations XLA's CPU backend
 evaluates — Giles' ``erfinv`` polynomial, Cephes' ``logf`` and ``log1p``
 (and, for the mamba init's ``log(expm1(exp(u)))``, Cephes' ``expf``,
@@ -185,6 +185,41 @@ def uniform(key: Tensor, shape=(), minval: float = 0.0,
 def bernoulli(key: Tensor, p: float, shape=()) -> Tensor:
     """Bool draws, true with probability ``p``: ``uniform < p`` (f32)."""
     return uniform(key, shape) < _f32(p)
+
+
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def _mulmod32(a: Tensor, m: int) -> Tensor:
+    """``a * m`` modulo ``2**32`` for ``a`` in ``[0, 2**32)`` and a
+    constant ``m`` below ``2**32``, carried in ``int64`` without
+    overflow: ``a``'s 16-bit halves times ``m`` stay below ``2**48``."""
+    hi = ((a >> 16) * m) & 0xFFFF
+    return ((hi << 16) + (a & 0xFFFF) * m) & MASK
+
+
+def randint(key: Tensor, shape, minval: int, maxval: int) -> Tensor:
+    """``jax.random.randint`` for ``int32``: integers in ``[minval,
+    maxval)``, ``[..., *shape]``; bounds outside ``int32`` raise, as
+    jax's do.
+
+    As jax draws them: two 32-bit words per element from the halves of
+    ``split(key)``, ``span = maxval - minval`` as ``uint32`` (1 when
+    ``maxval <= minval``), ``multiplier = (2**16 mod span)**2 mod span``,
+    and the offset ``((hi mod span) * multiplier + (lo mod span)) mod
+    span``, every step in ``uint32`` wraparound; ``minval`` plus the
+    offset, wrapped to ``int32``."""
+    minval, maxval = int(minval), int(maxval)
+    if not _I32_MIN <= min(minval, maxval) <= max(minval, maxval) <= _I32_MAX:
+        raise OverflowError(f"randint bounds [{minval}, {maxval}) are not "
+                            f"int32")
+    keys = split(key)
+    hi = random_bits(keys[..., 0, :], shape)
+    lo = random_bits(keys[..., 1, :], shape)
+    span = (maxval - minval) & MASK if maxval > minval else 1
+    mult = (((1 << 16) % span) ** 2 & MASK) % span
+    off = ((_mulmod32(hi % span, mult) + lo % span) & MASK) % span
+    return (((minval + off - _I32_MIN) & MASK) + _I32_MIN).to(torch.int32)
 
 
 def _fma(a: Tensor, b, c) -> Tensor:

@@ -26,20 +26,48 @@ paged pool takes the dense attention family without windows only::
 
 ``--smoke`` takes the reduced config, ``--device cpu`` runs the plain
 PyTorch versions on the CPU.  Weights are random, drawn on the device
-from ``--seed``; prompts are drawn from seeds ``1000 + i``.  A
-per-request status table prints at exit.
+from key 0 whatever ``--seed`` says (which keys the sampler and the
+cache-rounding streams), and request ``i``'s prompt is
+``randint(PRNGKey(1000 + i), (len,), 0, vocab)``: the reference's CLI
+serves the same model the same requests for the same argv.
+
+Robustness and observability: ``--queue-cap`` (reject-on-full
+admission), ``--deadline-ms`` (queued and in-flight expiry), ``--chaos
+[SEED]`` (a seeded fault-injection sweep of logit NaNs, KV bit flips,
+admission delays and page squeezes, its event log printed and written
+to ``--fault-log``), ``--trace-out`` (a Chrome-trace JSON of the engine's
+steps, requests and faults), ``--numerics-log`` / ``--numerics-every``
+(the packed pool's §5 timeline as JSONL), ``--metrics-port`` (the
+metrics registry as Prometheus text on localhost) and ``--metrics-out``
+(a final JSONL snapshot of it).  A bare ``--chaos`` on llama3_8b without
+``--smoke`` is the reference's demo: the smoke config, an int8 pool,
+pages of 4 on an arena two slots short of full residency, and a
+controller cadence of 4 steps::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --chaos 0 \\
+      --device cpu --fault-log faults.json --trace-out trace.json
+
+A per-request status table prints at exit.  Not ported: ``--profile``
+(it profiles the autotune cache, ROADMAP module item 25) and ``--mesh``,
+``--tp``, ``--cp`` (ROADMAP module item 22); each raises.
 """
 from __future__ import annotations
 
 import argparse
 import json
 
-import torch
-
 from repro_torch import configs, resolve_device
+from repro_torch.core import prng
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.models import transformer as T
-from repro_torch.serve import EngineOptions, SamplerConfig, ServeEngine
+from repro_torch.serve import (
+    CacheQuantConfig,
+    EngineOptions,
+    FaultHarness,
+    SamplerConfig,
+    ServeEngine,
+    chaos_plan,
+)
 
 
 def _parse_lens(spec: str):
@@ -47,9 +75,9 @@ def _parse_lens(spec: str):
 
 
 def prompt(i: int, length: int, vocab: int):
-    """Request ``i``'s prompt: ``length`` ids drawn from seed ``1000 + i``."""
-    g = torch.Generator().manual_seed(1000 + i)
-    return torch.randint(0, vocab, (length,), generator=g).numpy()
+    """Request ``i``'s prompt: ``length`` ids drawn from key ``1000 + i``,
+    as the reference's CLI draws them."""
+    return prng.randint(prng.PRNGKey(1000 + i), (length,), 0, vocab).numpy()
 
 
 def main(argv=None):
@@ -88,9 +116,82 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--top-k", type=int, default=40)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--queue-cap", type=int, default=0,
+                    help="admission control: bound the waiting queue; a "
+                         "submit finding it full resolves REJECTED (empty "
+                         "result, terminal status) instead of queueing. "
+                         "0 = unbounded")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-request deadline from submit; expired "
+                         "requests (queued or mid-decode) resolve "
+                         "TIMED_OUT with the tokens harvested so far. "
+                         "0 = no deadline")
+    ap.add_argument("--chaos", type=int, nargs="?", const=0, default=None,
+                    metavar="SEED",
+                    help="fault-injection sweep: drive a seeded random mix "
+                         "of logit NaNs, KV bit flips, admission delays, "
+                         "and (paged pools) a page squeeze through the "
+                         "run, then print the fault log. The engine must "
+                         "drain with terminal statuses either way")
+    ap.add_argument("--fault-log", default="",
+                    help="with --chaos: write the harness event log (JSON) "
+                         "to this path")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome-trace/Perfetto JSON of the run "
+                         "(engine-step spans, request lifecycle instants, "
+                         "fault events, queue counters) to this path")
+    ap.add_argument("--numerics-log", default="",
+                    help="write the §5 numeric-health timeline (per-layer/"
+                         "per-slot KV exponents, overflow rates, controller "
+                         "up/down moves) as JSONL to this path; packed "
+                         "pools (--cache-bits 8|16) only")
+    ap.add_argument("--numerics-every", type=int, default=0,
+                    help="numerics sampling cadence in engine steps "
+                         "(default: the cache controller's update "
+                         "interval)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    metavar="PORT",
+                    help="serve the live metrics registry as Prometheus "
+                         "text on http://127.0.0.1:PORT/metrics (0 picks "
+                         "an ephemeral port)")
+    ap.add_argument("--metrics-out", default="",
+                    help="append a final JSONL snapshot of the metrics "
+                         "registry (counters/gauges/histograms) to this "
+                         "path at exit")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile kernel dispatch (not ported yet: ROADMAP "
+                         "module item 25, the autotune cache)")
+    ap.add_argument("--mesh", default="",
+                    help="serving device mesh DATAxMODEL (not ported yet: "
+                         "ROADMAP module item 22)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="serving tensor parallelism (not ported yet: "
+                         "ROADMAP module item 22)")
+    ap.add_argument("--cp", type=int, default=1,
+                    help="serving context parallelism (not ported yet: "
+                         "ROADMAP module item 22)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch versions)")
     args = ap.parse_args(argv)
+
+    if args.profile:
+        raise NotImplementedError(
+            "--profile is not ported yet (ROADMAP module item 25)")
+    if args.mesh or args.tp != 1 or args.cp != 1:
+        raise NotImplementedError(
+            "--mesh, --tp and --cp are not ported yet (ROADMAP module "
+            "item 22)")
+    demo_chaos = args.chaos is not None and not args.smoke \
+        and args.arch == "llama3_8b"
+    if demo_chaos:
+        # the bare --chaos sweep is the reference's diagnostic demo: the
+        # smoke config over int8 pages, a tight arena (exhaustion →
+        # preemption) and a fast controller cadence
+        args.smoke = True
+        if args.cache_bits == 0:
+            args.cache_bits = 8
+        if args.page_size == 0:
+            args.page_size = 4
 
     device = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
@@ -99,14 +200,48 @@ def main(argv=None):
                              args.page_size, page_size=args.page_size)
     scfg = SamplerConfig(kind=args.sampler, temperature=args.temperature,
                          top_k=args.top_k if args.sampler == "top_k" else 0)
-    params = T.init_params(cfg, args.seed, device=device)
+    params = T.init_params(cfg, 0, device=device)
     lens = _parse_lens(args.prompt_len)
     slots = args.slots or min(args.num_requests, 4)
+
+    tracer = None
+    if args.trace_out:
+        from repro_torch.obs import Tracer
+        tracer = Tracer()
+    num_log = None
+    if args.numerics_log:
+        from repro_torch.obs import NumericsLog
+        num_log = NumericsLog(args.numerics_log)
+    cache_cfg = n_pages = None
+    if demo_chaos and args.cache_bits:
+        cache_cfg = CacheQuantConfig(width=args.cache_bits,
+                                     update_interval=4)
+        if args.page_size:
+            # roughly two slots' worth of pages short of full residency,
+            # so concurrent decode exhausts the arena and preempts
+            nblocks = -(-(max(lens) + args.max_new) // args.page_size)
+            n_pages = 1 + nblocks * max(slots - 2, 1)
+    harness = None
+    if args.chaos is not None:
+        harness = FaultHarness(
+            chaos_plan(args.chaos, list(range(args.num_requests)),
+                       n_steps=4 * args.max_new,
+                       squeeze_pages=4 if args.page_size else 0),
+            seed=args.chaos)
     opts = EngineOptions(cache_bits=args.cache_bits, sampler_cfg=scfg,
-                         seed=args.seed)
+                         cache_cfg=cache_cfg, n_pages=n_pages,
+                         seed=args.seed, queue_cap=args.queue_cap or None,
+                         deadline_ms=args.deadline_ms or None,
+                         faults=harness, tracer=tracer, numerics_log=num_log,
+                         numerics_every=args.numerics_every or None)
     eng = ServeEngine(cfg, policy, params, max_slots=slots,
                       max_len=max(lens) + args.max_new, options=opts,
                       device=device)
+    server = None
+    if args.metrics_port is not None:
+        from repro_torch.obs import start_http_server
+        server = start_http_server(eng.metrics.registry, args.metrics_port)
+        print(f"metrics: http://127.0.0.1:{server.server_address[1]}/metrics")
     uids = [eng.submit(prompt(i, lens[i % len(lens)], cfg.vocab_size),
                        max_new=args.max_new)
             for i in range(args.num_requests)]
@@ -125,6 +260,29 @@ def main(argv=None):
         tr = eng.metrics.traces[u]
         print(f"{u:>5} {st.value if st else '?':>10} {out[u].size:>7} "
               f"{tr.preempts:>9}")
+    if harness is not None:
+        print("faults:", json.dumps(harness.summary()["event_counts"]))
+        if args.fault_log:
+            with open(args.fault_log, "w") as f:
+                json.dump(harness.summary(), f, indent=2)
+            print(f"fault log written to {args.fault_log}")
+    if tracer is not None:
+        spans = len(tracer.span_names())
+        tracer.export(args.trace_out)
+        print(f"trace: {spans} spans, {len(tracer.events)} events -> "
+              f"{args.trace_out}")
+    if num_log is not None:
+        from repro_torch.obs import count_moves
+        print(f"numerics: {len(num_log.records)} records, "
+              f"{count_moves(num_log.records)} controller moves -> "
+              f"{args.numerics_log}")
+        num_log.close()
+    if args.metrics_out:
+        eng.metrics.registry.snapshot_jsonl(args.metrics_out,
+                                            {"final": True})
+        print(f"metrics snapshot appended to {args.metrics_out}")
+    if server is not None:
+        server.shutdown()
     return eng
 
 

@@ -47,23 +47,45 @@ tokens do not depend on what else is batched with it.  A paged pool
 under stochastic rounding shares no prefix pages: a shared page cannot
 replay two requests' rounding streams.
 
-Each step makes one device-to-host transfer: the sampled tokens with
-their NaN/Inf flags (``sampler.guard_logits``).  A flagged slot resolves
-``FAILED`` with its clean prefix; ``run()`` out of step budget resolves
-every in-flight request ``TIMED_OUT`` (a queued preempted one
-``PREEMPTED``) with its harvested tokens.
+Robustness layer (admission control, deadlines, quarantine)
+------------------------------------------------------------
 
-The engine serves token-in decoders; it refuses an encoder-decoder or
-an embeds-input model, as the reference's does.  Not here yet:
-admission control and deadlines, fault injection, tracing, the numerics
-sampling (:func:`repro_torch.serve.kv_pool.numerics_snapshot` is what
-it samples), meshes.
+* **admission control** — ``queue_cap`` bounds the queue: a submit
+  beyond it resolves the request ``REJECTED`` with an empty result and
+  never raises.  ``deadline_ms`` (the engine's default, overridable per
+  submit) expires queued *and* in-flight requests to ``TIMED_OUT`` with
+  whatever tokens they harvested.
+* **numeric sentinels** — every step guards its logits on the device
+  (``sampler.guard_logits``): a NaN/Inf row flags its slot, which
+  resolves ``FAILED`` with its clean prefix while its siblings' streams
+  go on untouched.  ``runaway_ovf`` adds the §5 runaway threshold: a
+  slot whose cumulative cache overflow rate
+  (``kv_pool.slot_overflow_rates``) exceeds it quarantines the same way.
+* **drain timeout** — ``run()`` out of step budget resolves every
+  in-flight request ``TIMED_OUT`` (a queued preempted one ``PREEMPTED``)
+  with its harvested tokens.
+
+Each step makes one device-to-host transfer: the sampled tokens with
+their NaN/Inf flags and, with ``runaway_ovf`` set, the slots' overflow
+rates (one float32 stack: the ids are below 2**24, so float32 holds them
+exactly).  The deterministic fault injectors that drive this layer
+(:mod:`repro_torch.serve.faults`) hook in through ``faults``; a
+``tracer`` (:class:`repro_torch.obs.Tracer`) records the step's phases,
+and a ``numerics_log`` the packed pool's §5 timeline.  With none of
+``faults``, ``runaway_ovf``, ``tracer`` and ``numerics_log`` set, a step
+issues the device operations of an engine without them.
+
+Every request ends in one terminal :class:`RequestStatus`.  The engine
+serves token-in decoders on one device; it refuses an encoder-decoder or
+an embeds-input model, as the reference's does, and has no mesh
+(ROADMAP item 22).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import enum
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -78,28 +100,32 @@ from . import kv_pool, metrics, paged, sampler
 
 
 class RequestStatus(enum.Enum):
-    """Terminal state of a request."""
+    """Terminal state of a request. The engine resolves every submitted
+    uid to exactly one of these instead of raising mid-drain."""
 
     OK = "ok"                  # finished: EOS or its max_new budget
-    TIMED_OUT = "timed_out"    # run() ran out of steps
+    REJECTED = "rejected"      # admission control: queue was full
+    TIMED_OUT = "timed_out"    # deadline expired / drain ran out of steps
     PREEMPTED = "preempted"    # evicted for pages, still queued at drain end
-    FAILED = "failed"          # quarantined: NaN/Inf logits, or page
-    #                            exhaustion with no victim
+    FAILED = "failed"          # quarantined: NaN/Inf logits, §5 runaway,
+    #                            or page exhaustion with no victim
 
 
 @dataclasses.dataclass
 class Request:
     """One generation request. ``tokens``: 1-D prompt ids.
 
-    ``carry`` holds tokens generated before a preemption (they ride along
-    as prompt suffix on requeue and lead the final result); ``n_preempt``
-    counts evictions.
+    ``deadline`` is an absolute ``serve.metrics._now`` stamp (set by the
+    engine from ``deadline_ms``); ``carry`` holds tokens generated before
+    a preemption (they ride along as prompt suffix on requeue and lead
+    the final result); ``n_preempt`` counts evictions.
     """
 
     uid: int
     tokens: np.ndarray
     max_new: int = 16
     eos_id: Optional[int] = None
+    deadline: Optional[float] = None
     carry: Tuple[int, ...] = ()
     n_preempt: int = 0
 
@@ -120,6 +146,18 @@ class EngineOptions:
     budget (default: full residency plus the null page), below which
     exhaustion preempts; a request evicted ``max_preempts`` times resolves
     ``FAILED`` at the next eviction.
+
+    ``queue_cap`` bounds the waiting queue (a submit finding it full
+    resolves ``REJECTED``; ``None`` is unbounded); ``deadline_ms`` is the
+    default per-request deadline from submit (``None``: none);
+    ``runaway_ovf`` is the §5 runaway threshold on a slot's cumulative
+    cache overflow rate (``None`` disables it).  ``faults`` takes a
+    :class:`repro_torch.serve.faults.FaultHarness`; ``tracer`` a
+    :class:`repro_torch.obs.Tracer`; ``numerics_log`` a
+    :class:`repro_torch.obs.NumericsLog` or a path for one (packed pools
+    only), sampled every ``numerics_every`` engine steps (default: the
+    pool controller's ``update_interval``).  The defaults build the bare
+    engine.
     """
 
     cache_bits: int = 0
@@ -130,7 +168,18 @@ class EngineOptions:
     prefill_chunk: Optional[int] = None
     page_size: Optional[int] = None
     n_pages: Optional[int] = None
+    queue_cap: Optional[int] = None
+    deadline_ms: Optional[float] = None
+    runaway_ovf: Optional[float] = None
     max_preempts: int = 4
+    faults: object = None
+    tracer: object = None
+    numerics_log: object = None
+    numerics_every: Optional[int] = None
+
+
+_LEGACY_ENGINE_KWARGS = frozenset(
+    f.name for f in dataclasses.fields(EngineOptions))
 
 
 class ServeEngine:
@@ -141,12 +190,28 @@ class ServeEngine:
     on ``device`` (default ``cuda``); every request needs ``prompt_len +
     max_new <= max_len``.  With ``policy.fused_decode`` the attention runs
     the hand-written flash-decode and flash-prefill kernels on the pool's
-    storage (their paged variants on a paged pool).
+    storage (their paged variants on a paged pool).  Passing the options'
+    fields as loose keyword arguments still works and warns
+    (``DeprecationWarning``), as the reference's engine does; unknown
+    keywords raise ``TypeError``.
     """
 
     def __init__(self, cfg: T.ModelConfig, policy: PrecisionPolicy, params,
                  *, max_slots: int, max_len: int,
-                 options: Optional[EngineOptions] = None, device=None):
+                 options: Optional[EngineOptions] = None, device=None,
+                 **legacy):
+        if legacy:
+            unknown = sorted(set(legacy) - _LEGACY_ENGINE_KWARGS)
+            if unknown:
+                raise TypeError(
+                    f"ServeEngine got unexpected keyword arguments "
+                    f"{unknown}")
+            warnings.warn(
+                "passing ServeEngine configuration as loose keyword "
+                "arguments is deprecated; pass options=EngineOptions(...)",
+                DeprecationWarning, stacklevel=2)
+            options = dataclasses.replace(options or EngineOptions(),
+                                          **legacy)
         opts = options or EngineOptions()
         if cfg.input_mode != "tokens" or cfg.encoder_layers:
             raise ValueError("ServeEngine serves token-in decoder models")
@@ -162,6 +227,10 @@ class ServeEngine:
         self.options = opts
         self.sampler_cfg = opts.sampler_cfg
         self.seed = opts.seed
+        self.queue_cap = opts.queue_cap
+        self.deadline_ms = opts.deadline_ms
+        self.runaway_ovf = opts.runaway_ovf
+        self._faults = opts.faults
         gs = T.group_shapes(cfg)
         self.exps = ScaleState.create(gs, opts.init_exp,
                                       device=self.device).exps
@@ -200,10 +269,30 @@ class ServeEngine:
         self._results: Dict[int, np.ndarray] = {}
         self._status: Dict[int, RequestStatus] = {}
         self._next_uid = 0
+        self._step_idx = 0
         self._budget = 1 << 62                # run() tightens this
         self._auto_budget = True
         self._ovf = np.zeros(3, np.float64)   # harvested at request finish
         self.metrics = metrics.ServeMetrics()
+
+        # observability: every hook guards on `is not None`, so with none
+        # attached a step records nothing and syncs nothing more
+        self._tracer = opts.tracer
+        if self._tracer is not None and self._faults is not None and \
+                getattr(self._faults, "tracer", None) is None:
+            self._faults.tracer = self._tracer  # injections on the trace
+        numerics_log = opts.numerics_log
+        if isinstance(numerics_log, str):
+            from repro_torch.obs import NumericsLog
+            numerics_log = NumericsLog(numerics_log)
+        self._numerics = numerics_log if self._packed else None
+        if opts.numerics_every is not None:
+            self._num_every = max(int(opts.numerics_every), 1)
+        elif self._packed:
+            self._num_every = max(int(self.cache_cfg.update_interval), 1)
+        else:
+            self._num_every = 1
+        self._num_prev: Optional[dict] = None
 
         pc = opts.prefill_chunk if opts.prefill_chunk is not None else \
             int(getattr(policy, "prefill_chunk", 0))
@@ -214,6 +303,10 @@ class ServeEngine:
         # as in the reference, whatever chunk was asked for)
         chunkable = cfg.family == "dense" and not cfg.num_experts
         self.prefill_chunk = pc if chunkable else 0
+        # MoE prefill routes with a capacity computed over the whole
+        # batch, so batching prompts would couple their routing: admit one
+        # at a time, as the reference's engine does
+        self._admit_group_cap = 1 if cfg.num_experts else max_slots
         self._pfill = np.zeros(B, np.int32)       # prefill frontier per slot
         self._pstarted = np.zeros(B, bool)        # paged: block table mapped
         self._prefilling: collections.deque = collections.deque()  # slot FIFO
@@ -238,18 +331,23 @@ class ServeEngine:
             return {}
         return {"draw": (keys, pos)}
 
-    def _sample(self, logits, draw=None):
+    def _sample(self, logits, draw=None, rate=None):
         """Shared tail: sentinel → sample, fetched as one host transfer.
         ``draw`` (from :meth:`_draw`) keys a sampled row's token on its
-        request and position."""
+        request and position.  ``rate`` (f32 [B], the slots' overflow
+        rates) rides in the same transfer and comes back third."""
         safe, bad = sampler.guard_logits(logits)
         pkeys = None
         if draw is not None:
             pkeys = sampler.position_keys(self._dev(draw[0]),
                                           self._dev(draw[1]))
         tok = sampler.sample(safe, pkeys, self.sampler_cfg)
-        out = torch.stack([tok, bad.to(torch.int32)]).cpu().numpy()
-        return out[0], out[1].astype(bool)
+        if rate is None:
+            out = torch.stack([tok, bad.to(torch.int32)]).cpu().numpy()
+            return out[0], out[1].astype(bool)
+        out = torch.stack([tok.to(torch.float32), bad.to(torch.float32),
+                           rate]).cpu().numpy()
+        return out[0].astype(np.int32), out[1] != 0, out[2]
 
     @torch.no_grad()
     def _prefill_impl(self, tokens, keys):
@@ -267,12 +365,23 @@ class ServeEngine:
                        self._dev(keys) if self._stochastic else None)
 
     @torch.no_grad()
-    def _decode_impl(self, mask=None):
+    def _decode_impl(self, mask=None, nan_mask=None):
+        """One decode step over every slot: ``(tokens, bad, rates)``,
+        ``rates`` None unless ``runaway_ovf`` is set.  ``nan_mask`` (the
+        fault harness's) poisons its rows' logits on the device, before
+        the sentinel, as a real blowup would reach it."""
         logits, _, self._pool = T.decode_step(
             self.cfg, self.policy, self.params, self._pool,
             self._dev(self._tok), self._dev(self._pos), self.exps,
             kv_codec=self.codec, append_mask=mask)
-        return self._sample(logits, **self._draw(self._keys, self._pos + 1))
+        if nan_mask is not None:
+            logits = torch.where(self._dev(nan_mask)[:, None], torch.nan,
+                                 logits)
+        draw = self._draw(self._keys, self._pos + 1)
+        if self.runaway_ovf is None:
+            return (*self._sample(logits, **draw), None)
+        rate = kv_pool.slot_overflow_rates(self._pool, self.max_slots)
+        return self._sample(logits, rate=rate, **draw)
 
     @torch.no_grad()
     def _chunk_impl(self, tokens, slot: int, p0: int, n_valid: int):
@@ -295,9 +404,15 @@ class ServeEngine:
 
     # -- request lifecycle ---------------------------------------------------
     def submit(self, prompt, max_new: int = 16,
-               eos_id: Optional[int] = None) -> int:
-        """Queue one request; returns its uid.  Malformed requests (empty
-        prompt, zero budget, over capacity) raise."""
+               eos_id: Optional[int] = None,
+               deadline_ms: Optional[float] = None) -> int:
+        """Queue one request; returns its uid.
+
+        Malformed requests (empty prompt, zero budget, over capacity)
+        raise: those are caller bugs, not load.  A full queue resolves the
+        request ``REJECTED`` at once (empty result, no exception);
+        ``deadline_ms`` (default: the engine's) stamps an expiry the
+        scheduler enforces."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -310,7 +425,20 @@ class ServeEngine:
         uid = self._next_uid
         self._next_uid += 1
         self.metrics.on_submit(uid, prompt.size)
-        self._queue.append(Request(uid, prompt, max_new, eos_id))
+        if self._tracer is not None:
+            self._tracer.instant("submit", tid="requests", uid=uid,
+                                 prompt_len=int(prompt.size))
+        if self.queue_cap is not None and len(self._queue) >= self.queue_cap:
+            self._results[uid] = np.zeros(0, np.int32)
+            self._status[uid] = RequestStatus.REJECTED
+            self.metrics.on_reject(uid)
+            if self._tracer is not None:
+                self._tracer.instant("reject", tid="requests", uid=uid)
+            return uid
+        dl = deadline_ms if deadline_ms is not None else self.deadline_ms
+        deadline = metrics._now() + dl / 1e3 if dl is not None else None
+        self._queue.append(Request(uid, prompt, max_new, eos_id,
+                                   deadline=deadline))
         self.metrics.observe_queue_depth(len(self._queue))
         return uid
 
@@ -354,6 +482,10 @@ class ServeEngine:
             self._pstarted[slot] if self._paged else self._pfill[slot] > 0)
         if self._packed and started:
             self._ovf += kv_pool.slot_totals(self._pool, slot).cpu().numpy()
+        if self._tracer is not None:
+            self._tracer.instant("finish", tid="requests", uid=req.uid,
+                                 slot=slot, status=status.value,
+                                 new_tokens=len(self._gen[slot]))
         self._release_slot(slot)
 
     def _finish_queued(self, req: Request, status: RequestStatus) -> None:
@@ -361,6 +493,9 @@ class ServeEngine:
         self._results[req.uid] = np.asarray(list(req.carry), np.int32)
         self._status[req.uid] = status
         self.metrics.on_finish(req.uid, status.value)
+        if self._tracer is not None:
+            self._tracer.instant("finish", tid="requests", uid=req.uid,
+                                 status=status.value)
 
     def _maybe_finish(self, slot: int, tok: int) -> bool:
         """Finish the slot if its budget is spent or ``tok`` is its EOS."""
@@ -383,6 +518,17 @@ class ServeEngine:
         instead (the thrash bound).
         """
         req = self._reqs[victim]
+        if self._tracer is None:
+            self._preempt_impl(victim, req)
+            return
+        self._tracer.begin("preempt", uid=req.uid, slot=victim,
+                           n_preempt=req.n_preempt)
+        try:
+            self._preempt_impl(victim, req)
+        finally:
+            self._tracer.end()
+
+    def _preempt_impl(self, victim: int, req: Request) -> None:
         if req.n_preempt >= self.max_preempts:
             self._finish(victim, RequestStatus.FAILED)
             return
@@ -390,6 +536,7 @@ class ServeEngine:
         tokens = np.concatenate(
             [req.tokens, np.asarray(gen, np.int32)]) if gen else req.tokens
         nr = Request(req.uid, tokens, req.max_new - len(gen), req.eos_id,
+                     deadline=req.deadline,
                      carry=tuple(req.carry) + tuple(gen),
                      n_preempt=req.n_preempt + 1)
         self._release_slot(victim)
@@ -452,19 +599,50 @@ class ServeEngine:
                     self._finish(slot, RequestStatus.FAILED)
                     return False
 
+    # -- deadlines -----------------------------------------------------------
+    def _expire_queue(self) -> None:
+        if not self._queue:
+            return
+        now = metrics._now()
+        kept: collections.deque = collections.deque()
+        for r in self._queue:
+            if r.deadline is not None and now > r.deadline:
+                self._finish_queued(r, RequestStatus.TIMED_OUT)
+            else:
+                kept.append(r)
+        self._queue = kept
+
+    def _expire_inflight(self) -> None:
+        stamped = [s for s in range(self.max_slots)
+                   if self._reqs[s] is not None
+                   and self._reqs[s].deadline is not None]
+        if not stamped:
+            return
+        now = metrics._now()
+        for s in stamped:
+            if self._reqs[s] is not None and now > self._reqs[s].deadline:
+                self._finish(s, RequestStatus.TIMED_OUT)
+
     # -- admission -----------------------------------------------------------
     def _mark_admitted(self, slot: int, req: Request) -> None:
         self._admit_counter += 1
         self._seq[slot] = self._admit_counter
         self.metrics.on_admit(req.uid)
+        if self._tracer is not None:
+            self._tracer.instant("admitted", tid="requests", uid=req.uid,
+                                 slot=slot)
 
     def _admit(self) -> None:
         """Fill free slots from the queue, grouping equal prompt lengths."""
         free = list(np.where(~self._active)[0])
         while self._queue and free:
+            if self._faults is not None and not self._faults.admit_ok(
+                    self._queue[0].uid, self._step_idx):
+                break
             plen = self._queue[0].tokens.size
+            cap = min(len(free), self._admit_group_cap)
             group: List[Request] = []
-            while (self._queue and len(group) < len(free)
+            while (self._queue and len(group) < cap
                    and self._queue[0].tokens.size == plen):
                 group.append(self._queue.popleft())
             slots = [int(free.pop(0)) for _ in group]
@@ -491,8 +669,14 @@ class ServeEngine:
         """Assign queued requests to free slots immediately (no grouping,
         no prefill compute yet — chunks run one per engine step)."""
         free = [s for s in range(self.max_slots) if self._reqs[s] is None]
-        while self._queue and free:
-            r = self._queue.popleft()
+        i = 0
+        while self._queue and free and i < len(self._queue):
+            r = self._queue[i]
+            if self._faults is not None and not self._faults.admit_ok(
+                    r.uid, self._step_idx):
+                i += 1          # held back: later requests may still admit
+                continue
+            del self._queue[i]
             s = free.pop(0)
             self._reqs[s] = r
             self._pfill[s] = 0
@@ -553,11 +737,33 @@ class ServeEngine:
     def step(self) -> None:
         """Admit what fits, run one prefill chunk (chunked mode), then
         decode one token on every active slot."""
+        self._step_idx += 1
+        tr = self._tracer
+        if self._faults is not None:
+            self._faults.on_step(self)
+        self._expire_queue()
+        if tr is not None:
+            tr.begin("admit", queued=len(self._queue))
         if self.prefill_chunk:
             self._admit_chunked()
-            self._step_prefill_chunk()
         else:
             self._admit()
+        if tr is not None:
+            tr.end()
+        if self.prefill_chunk:
+            if tr is None or not self._prefilling:
+                self._step_prefill_chunk()
+            else:
+                s = self._prefilling[0]
+                tr.begin("prefill_chunk", uid=self._reqs[s].uid, slot=int(s),
+                         p0=int(self._pfill[s]))
+                try:
+                    self._step_prefill_chunk()
+                finally:
+                    tr.end()
+        nan_mask = None
+        if self._faults is not None and self._active.any():
+            nan_mask = self._faults.nan_mask(self)
         if self._paged:
             # each active slot appends one row at _pos this step: a fresh
             # page at a block boundary, a fork if still shared; exhaustion
@@ -566,10 +772,23 @@ class ServeEngine:
                 s = int(s)
                 if self._active[s]:   # an earlier preemption may clear it
                     self._ensure_blocks_safe(s, int(self._pos[s]), 1)
-        if not self._active.any():
-            return
+        if self._active.any():
+            self._decode(nan_mask)
+        self._expire_inflight()
+        if tr is not None:
+            tr.counter("queue", {"queue_depth": len(self._queue),
+                                 "active_slots": int(self._active.sum())})
+        if self._numerics is not None and \
+                self._step_idx % self._num_every == 0:
+            self._sample_numerics()
+
+    def _decode(self, nan_mask) -> None:
+        """Decode one token on every active slot and harvest it."""
+        tr = self._tracer
+        if tr is not None:
+            tr.begin("decode_step", n_active=int(self._active.sum()))
         mask = self._dev(self._active) if self.prefill_chunk else None
-        nxt, bad = self._decode_impl(mask)
+        nxt, bad, rate = self._decode_impl(mask, nan_mask)
         self.metrics.on_decode_step()
         for s in np.where(self._active)[0]:
             s = int(s)
@@ -578,12 +797,53 @@ class ServeEngine:
                 # quarantine the request, keep siblings untouched
                 self._finish(s, RequestStatus.FAILED)
                 continue
+            if rate is not None and rate[s] > self.runaway_ovf:
+                # §5 overflow runaway: the controller lost the race
+                self._finish(s, RequestStatus.FAILED)
+                continue
             tok = int(nxt[s])
             self._gen[s].append(tok)
             self._pos[s] += 1
             self._tok[s] = tok
             self.metrics.on_token(self._reqs[s].uid)
             self._maybe_finish(s, tok)
+        if tr is not None:
+            tr.end()
+
+    def _sample_numerics(self) -> None:
+        """One §5 numeric-health sample: the packed pool's exponents and
+        overflow counters (``kv_pool.numerics_snapshot``) fetched in one
+        transfer, diffed against the previous sample into per-slot
+        records (controller up/down moves).  Runs only on the sampling
+        cadence with a ``numerics_log`` attached."""
+        from repro_torch.obs import serve_records
+        with torch.no_grad():
+            snap = kv_pool.numerics_snapshot(self._pool, self.max_slots)
+            leaves = [(e, n, t) for e, d in snap.items()
+                      for n, t in d.items()]
+            flat = torch.cat([t.reshape(-1).to(torch.float32)
+                              for _, _, t in leaves]).cpu().numpy()
+        host: Dict[str, dict] = {}
+        i = 0
+        for e, n, t in leaves:
+            host.setdefault(e, {})[n] = flat[i:i + t.numel()].reshape(
+                tuple(t.shape))
+            i += t.numel()
+        uids = {s: self._reqs[s].uid for s in range(self.max_slots)
+                if self._reqs[s] is not None and self._active[s]}
+        if uids:
+            recs = serve_records(host, self._num_prev, step=self._step_idx,
+                                 t=metrics._now(), slot_uids=uids)
+            for rec in recs:
+                self._numerics.record(rec)
+            if self._tracer is not None and recs:
+                rates = [r for rec in recs for r in rec["ovf_rate"]]
+                exps = [e for rec in recs for e in rec["k_e"]]
+                self._tracer.counter(
+                    "numerics", {"ovf_rate_max": max(rates),
+                                 "k_e_mean": sum(exps) / len(exps)},
+                    tid="numerics")
+        self._num_prev = host
 
     def _drain_timeout(self) -> None:
         """Out of steps: resolve everything in flight instead of raising.
@@ -629,6 +889,13 @@ class ServeEngine:
         return dict(self._results)
 
     # -- introspection -------------------------------------------------------
+    def reset_metrics(self) -> None:
+        """Start a fresh measurement window (latency, throughput,
+        overflow): aggregates otherwise span the engine's lifetime, host
+        idle time between ``run()`` calls included."""
+        self.metrics = metrics.ServeMetrics()
+        self._ovf = np.zeros(3, np.float64)
+
     def cache_stats(self) -> dict:
         """Append overflow rate over finished requests + in-flight slots."""
         live = kv_pool.overflow_summary(self._pool, self._active)

@@ -4,8 +4,9 @@ Host-side and allocation-free on the hot path: the engine calls the
 ``on_*`` hooks with ``time.perf_counter`` stamps; ``summary()`` reduces to
 the numbers a serving dashboard wants — TTFT, queue wait, aggregate
 decode throughput — plus the packed pool's cumulative cache overflow rate
-(see ``kv_pool.overflow_summary``) and the terminal-status counters
-(timed out, preempted, failed, queue-depth high-water mark).
+(see ``kv_pool.overflow_summary``) and the robustness counters the
+admission-control/preemption/quarantine layer feeds (rejected, timed
+out, preempted, failed, queue-depth high-water mark).
 
 Timestamps come from ``time.perf_counter()`` — monotonic, so TTFT and
 queue-wait survive NTP steps and wall-clock slews (stamps are deltas
@@ -14,8 +15,10 @@ against other stamps from the same process, never absolute times).
 Every hook also records into a :class:`repro_torch.obs.metrics.MetricsRegistry`
 (``self.registry``): counters for the robustness events, a queue-depth
 gauge, and log-bucketed histograms (TTFT, queue wait, inter-decode-step
-latency, per-request tok/s).  ``summary()`` aggregates from the
-per-request traces.
+latency, per-request tok/s) — the series ``launch.serve --metrics-port``
+exposes as Prometheus text and ``--metrics-out`` snapshots as JSONL.
+``summary()`` still aggregates from the per-request traces, so its
+schema and values are unchanged by the registry.
 """
 from __future__ import annotations
 
@@ -55,9 +58,10 @@ class RequestTrace:
 class ServeMetrics:
     """Collects request traces; ``summary()`` aggregates them.
 
-    Event counts live in ``self.registry``; ``decode_steps``,
-    ``timed_out``, ``preemptions``, ``failed`` and ``queue_depth_peak``
-    are read-only views over it.
+    Event counts live in ``self.registry`` (shared with the CLI's
+    Prometheus endpoint when one is passed in); the legacy attribute
+    names (``decode_steps``, ``rejected``...) remain as read-only
+    properties over the registry.
     """
 
     def __init__(self, registry: Optional[MetricsRegistry] = None):
@@ -71,12 +75,14 @@ class ServeMetrics:
             "serve_requests_submitted", "requests entered via submit()")
         self._c_finished = r.counter(
             "serve_requests_finished", "requests resolved OK")
+        self._c_rejected = r.counter(
+            "serve_requests_rejected", "admission control bounces")
         self._c_timed_out = r.counter(
             "serve_requests_timed_out", "deadline / drain expiries")
-        self._c_preempt = r.counter(
-            "serve_preemptions", "page-pressure eviction events")
         self._c_failed = r.counter(
             "serve_requests_failed", "quarantined / exhausted requests")
+        self._c_preempt = r.counter(
+            "serve_preemptions", "page-pressure eviction events")
         self._c_tokens = r.counter(
             "serve_new_tokens", "generated tokens across requests")
         self._c_steps = r.counter(
@@ -101,6 +107,10 @@ class ServeMetrics:
         return int(self._c_steps.value)
 
     @property
+    def rejected(self) -> int:
+        return int(self._c_rejected.value)
+
+    @property
     def timed_out(self) -> int:
         return int(self._c_timed_out.value)
 
@@ -111,7 +121,7 @@ class ServeMetrics:
 
     @property
     def failed(self) -> int:
-        # quarantined (numeric sentinel) + page exhaustion with no victim
+        # quarantined (numeric sentinel) + OOM
         return int(self._c_failed.value)
 
     @property
@@ -165,8 +175,15 @@ class ServeMetrics:
             if span > 0:
                 self._h_tps.observe(tr.new_tokens / span)
 
+    def on_reject(self, uid: int) -> None:
+        """Admission control bounced the request (queue full)."""
+        tr = self.traces[uid]
+        tr.t_finish = _now()
+        tr.status = "rejected"
+        self._c_rejected.inc()
+
     def on_preempt(self, uid: int) -> None:
-        """The request lost its slot and pages and went back to the queue."""
+        """The request lost its slot/pages and went back to the queue."""
         self.traces[uid].preempts += 1
         self._c_preempt.inc()
 
@@ -193,6 +210,7 @@ class ServeMetrics:
         out = {
             "requests_submitted": len(self.traces),
             "requests_finished": len(finished_ok),
+            "requests_rejected": self.rejected,
             "requests_timed_out": self.timed_out,
             "requests_failed": self.failed,
             "preemptions": self.preemptions,
