@@ -28,7 +28,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    eight token-in archs (17a) and paged for llama3 (engine logits with
    prefix sharing, and a tight arena that preempts);
 5. the main path: ``repro_torch.launch.serve`` at full llama3-8B width
-   and 12 of its 32 layers (``LLAMA_LAYERS``), DFXP-10, int8 pool, fused
+   and 4 of its 32 layers (``LLAMA_LAYERS``), DFXP-10, int8 pool, fused
    decode, chunked prefill (6 requests, 4 slots, 16 tokens each); every request must end OK and both kernels
    must have launched, K3 once per layer per decode step;
 6. the paged main path on the same weights: P = C = 64, int8 pages,
@@ -71,10 +71,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     against a row of other widths (checked too); then 20 conv-maxout
     steps at the conv defaults;
 13. one profiled full-width DFXP training step, dropout on and off;
-14. the PRNG (before the parity phases): ``split``, ``fold_in``, bits,
-    ``uniform``, ``bernoulli``, ``normal`` (16.8M draws), ``gumbel`` and
-    ``categorical`` on the card equal the CPU's, and jax's constants;
-15. sampled serving at full llama3-8B width (12 layers) over a stochastic int8 pool
+14. the PRNG (while 2 builds: it runs no kernel): ``split``,
+    ``fold_in``, bits, ``uniform``, ``bernoulli``, ``normal`` (16.8M
+    draws), ``gumbel`` and ``categorical`` on the card equal the CPU's,
+    and jax's constants;
+15. sampled serving at full llama3-8B width (4 layers) over a stochastic int8 pool
     (top-k 40 at temperature 0.8), slot-major (C = 128) and paged
     (P = 64): every request OK with 16 tokens, K3-K6 launched as in the
     greedy runs, request 0 alone drawing what it drew in the batch, no
@@ -157,7 +158,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     the pool's exponents; (e) one decode step's device operations bare
     (= its model step and sampler tail) and with a harness and a runaway
     threshold; (f) the serve CLI's ``--chaos 0`` demo with every output
-    file parsed.
+    file parsed;
+20. the distributed layer (``repro_torch.dist``, ``launch/mesh.py``):
+    after 3, K3-K6 as a rank of a TP = 2 mesh calls them (4 of llama3's
+    8 kv heads, int8) against their plain versions, timed; then, in a
+    world of two gloo ranks on the card (the weights passed by CUDA
+    IPC): TP = 2 over the slot-major and the paged pool (K3-K6) and CP =
+    2 over a 2048-slot window on the serving weights' first
+    ``SHARD_LAYERS`` layers, granite-moe-1b expert-parallel (12 of its
+    24 layers) with plain and int8 ``all_to_all``: each rank's tokens,
+    kv heads, window and launches held to an unsharded engine's; LM_100M
+    trained with ``--grad-compress-bits 8`` (K1 a step = the uncompressed
+    step's + one per leaf of at least ``MIN_SIZE`` elements; a kill at 5
+    and a bit-exact resume, the residuals included); the serve CLI's
+    ``--smoke --tp 2`` spawning its own world (started after 15, it runs
+    beside the robustness and sharded phases), its tokens = the run
+    without ``--tp``.
 
 The ``kernels`` JSON gives each attention kernel's device time per call
 inside the profiled serving step (``in_step_ms_per_call``) beside its
@@ -178,12 +194,13 @@ import torch
 
 TOL = 1e-4                      # kernel vs plain, outputs of size O(1..16)
 K6_TOL = 1e-5                   # K6 on K4's TF32 route vs plain (atol, rtol)
-# llama3-8B at full width and 12 of its 32 layers (registered as
-# "llama3_8b_l12" by phase_serve): the cut keeps the whole run, with the
-# token-in families' and the robustness layer's phases, inside its time
-# limit on the slower H100 hosts (at 16 layers the script took 1173 s of
-# its 1200 on one, 962 s on another)
-LLAMA_LAYERS = 12
+# llama3-8B at full width and 4 of its 32 layers (registered as
+# "llama3_8b_l4" by phase_serve): the cut keeps the whole run, with the
+# token-in families', the robustness layer's and the sharded phases,
+# inside its time limit on the slower H100 hosts (at 16 layers the script
+# took 1173 s of its 1200 on one, 962 s on another; at 12, 871 s; at 8
+# with the sharded phases, 1041 s)
+LLAMA_LAYERS = 4
 SERVE_ARGS = ["--arch", f"llama3_8b_l{LLAMA_LAYERS}", "--num-requests", "6", "--slots", "4",
               "--prompt-len", "96,200,384", "--max-new", "16",
               "--cache-bits", "8", "--fused-decode", "--prefill-chunk",
@@ -424,6 +441,19 @@ def phase_build():
     # arrays
     log(f"  dfxp_quantize: {2 * 8 * 4} bytes of static shared memory per "
         f"block")
+
+
+def phase_build_and_prng() -> dict:
+    """:func:`phase_build` in a thread (its ``nvcc`` processes) while
+    :func:`phase_prng`, which runs no kernel of the repo, checks the
+    PRNG here; a failed build fails the run after the check ends."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        built = pool.submit(phase_build)
+        try:
+            return phase_prng()
+        finally:
+            built.result()
 
 
 def prefill_smem(hd: int, W: int, C: int) -> int:
@@ -776,6 +806,117 @@ def phase_kernels():
         rows=prefill_paged_rows,
         max_abs_err=max(errs["flash_prefill_paged"]))
     return results
+
+
+class _TPRank:
+    """The ambient mesh of rank 0 of a 2-way TP serving mesh, for timing
+    one rank's kernel calls in this process (no world: the kernels take
+    no collective)."""
+
+    shape = {"data": 1, "model": 2}
+
+    @staticmethod
+    def axis_index(axes) -> int:
+        return 0
+
+
+def phase_tp_kernels() -> dict:
+    """K3-K6 as one rank of the TP = 2 serving runs calls them: the int8
+    pool's 4 of llama3's 8 kv heads (the rank's slice), the queries of
+    all 8 heads cut to the rank's inside the wrapper, the split plan of
+    the whole 8.  Each against its plain version on the rank's slice,
+    and timed at the main path's shapes (K3 B=4, W=400; K4 B=1, C=128,
+    p0=256; K5 B=4, P=64, 8 blocks; K6 C=64, p0=384)."""
+    from repro_torch.kernels.attn import cases, ops, ref
+    from repro_torch.launch.mesh import use_mesh
+    dev = torch.device("cuda")
+    B, W, K, G, HD, C, NBLK = 4, 400, 4, 4, 128, 128, 8
+
+    def tp(fn, make, **dims):
+        """(case maker, call): each case also carries its queries (and
+        chunk K/V) over all 8 heads, the rank's 0..3 the case's own,
+        built outside the timed call; the call runs ``fn`` on them under
+        rank 0's mesh."""
+        def make_whole(seed):
+            a = make(seed)
+            a["whole"] = {n: torch.cat([a[n], torch.zeros_like(a[n])], d)
+                          for n, d in dims.items()}
+            return a
+
+        def call(a):
+            with use_mesh(_TPRank):
+                return fn(dict(a, **a["whole"]))
+        return make_whole, call
+
+    def k5(a):
+        return ops.flash_decode_paged(
+            a["q"], a["k"], a["v"], a["bt"], a["pos"], a["q_pos"],
+            a["k_exp"], a["v_exp"], width=8, scale=a["scale"],
+            tp_axis="model")
+
+    def k5_plain(a):
+        return ref.paged_decode_attention_ref(
+            a["q"], a["k"], a["v"], a["bt"], a["pos"], a["q_pos"],
+            k_exp=a["k_exp"], v_exp=a["v_exp"], width=8, scale=a["scale"])
+
+    def k6(a):
+        return ops.flash_prefill_paged(
+            a["q"], a["k_new"], a["v_new"], a["k"], a["v"], a["bt"],
+            a["pos"], a["p0"], a["n_valid"], a["k_exp"], a["v_exp"],
+            width=8, scale=a["scale"], tp_axis="model")
+
+    def k6_plain(a):
+        return ref.paged_prefill_attention_ref(
+            a["q"], a["k"], a["v"], a["bt"], a["pos"], a["k_new"],
+            a["v_new"], a["p0"], a["n_valid"], k_exp=a["k_exp"],
+            v_exp=a["v_exp"], width=8, scale=a["scale"])
+
+    def k3_tp(a):
+        return ops.flash_decode(a["q"], a["k"], a["v"], a["pos"],
+                                a["q_pos"], a["k_exp"], a["v_exp"], width=8,
+                                scale=a["scale"], tp_axis="model")
+
+    def k4_tp(a):
+        return ops.flash_prefill(a["q"], a["k_new"], a["v_new"], a["k"],
+                                 a["v"], a["pos"], a["p0"], a["n_valid"],
+                                 a["k_exp"], a["v_exp"], width=8,
+                                 scale=a["scale"], tp_axis="model")
+
+    kinds = {
+        "flash_decode": (
+            "flash_decode_kernel", k3_plain, cases.decode_cost, TOL,
+            tp(k3_tp, lambda s: cases.decode_case(B, W, K, G, HD, 8, seed=s,
+                                                  device=dev), q=1)),
+        "flash_prefill": (
+            "flash_prefill_kernel", k4_plain, cases.prefill_route_cost, TOL,
+            tp(k4_tp, lambda s: cases.prefill_case(
+                1, C, W, K, G, HD, 8, p0=[256], n_valid=[C], seed=s,
+                device=dev), q=2, k_new=2, v_new=2)),
+        "flash_decode_paged": (
+            "flash_decode_paged_kernel", k5_plain, cases.decode_paged_cost,
+            TOL, tp(k5, lambda s: cases.decode_paged_case(
+                B, PAGE, NBLK, K, G, HD, 8, fill=[320, 384, 448, 200],
+                seed=s, device=dev), q=1)),
+        "flash_prefill_paged": (
+            "flash_prefill_paged_kernel", k6_plain,
+            cases.prefill_paged_route_cost, K6_TOL,
+            tp(k6, lambda s: cases.prefill_paged_case(
+                1, PAGE, PAGE, NBLK, K, G, HD, 8, p0=[384], n_valid=[PAGE],
+                seed=s, device=dev), q=2, k_new=2, v_new=2))}
+    rows = {}
+    for name, (kernel, plain, cost, tol, (make, fn)) in kinds.items():
+        a = make(100)
+        out, want = fn(a), plain(a)
+        err = float((out - want).abs().max())
+        if tuple(out.shape) != tuple(want.shape) or \
+                not torch.allclose(out, want, atol=tol, rtol=tol):
+            raise SystemExit(f"{name} on a TP rank's 4 kv heads disagrees "
+                             f"with its plain version ({err})")
+        rows[name] = time_row(
+            f"{name} on a TP = 2 rank (4 of 8 kv heads, int8)", kernel, fn,
+            plain, [make(s) for s in range(24)], cost,
+            info={"max_abs_err": err, "kv_heads": K})
+    return rows
 
 
 def k6_sweep(plain, dev, nblocks, K, G, hd) -> dict:
@@ -1891,7 +2032,9 @@ def _lm_parse(text: str) -> dict:
     losses = {int(s): float(v) for s, v in
               re.findall(r"^step (\d+): loss=(\S+)$", text, re.M)}
     summ = [ln for ln in text.splitlines() if ln.startswith("summary: ")]
+    r = re.search(r"^resumed from cursor (\d+)$", text, re.M)
     return {"groups": int(m.group(1)) if m else None, "losses": losses,
+            "resumed_from": int(r.group(1)) if r else None,
             "summary": json.loads(summ[-1][9:]) if summ else None,
             "table": "     outcome  count" in text}
 
@@ -2874,6 +3017,373 @@ def phases_robustness(eng, clean: dict, greedy_ops: int, t0) -> dict:
     log(f"[{time.perf_counter() - t0:.0f}s] admission, tracing and the CLI "
         f"chaos demo served")
     log("robustness: " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sharded serving and compressed training (repro_torch.dist, launch/mesh)
+# ---------------------------------------------------------------------------
+
+WORLD = 2                   # ranks of the sharded phases, on the one card
+SHARD_LAYERS = ROBUST_LAYERS    # llama3 layers of the TP and CP phases
+CP_PROMPT, CP_MAX_LEN = 1500, 2048  # a 1,024-slot window a rank at CP = 2
+# granite-moe-1b's layers in the EP phase: 12 of its 24 (full width; the
+# cut is the run's time limit's, as LLAMA_LAYERS)
+GRANITE_EP_LAYERS = 12
+# the compressed LM run's steps; a checkpoint every 2, the kill at cursor
+# 5, where the save of 4 has begun after the save of 2 was waited for:
+# the resume is from 2 or 4
+COMPRESS_STEPS, COMPRESS_KILL = 6, 5
+
+
+def _serve_job(job: dict, tp: int = 1, cp: int = 1) -> dict:
+    """One serving job (a config, weights, policy, options, prompts) on
+    an engine; with ``tp``/``cp`` > 1 a sharded engine over the current
+    world's serve mesh (which checks every step that the ranks sampled
+    the same tokens).  Counts the attention kernels from 0 around the run.
+    Returns the tokens, statuses, launches and the pool's local shape;
+    with ``job["logits_vs"]`` (another policy) also the largest
+    difference of prompt 0's first-step logits between the job's policy
+    and that one."""
+    from repro_torch.dist import serve_pod_ctx
+    from repro_torch.kernels.attn import ops
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine
+    mesh = M.make_serve_mesh(tp=tp, cp=cp) if tp * cp > 1 else None
+    dist = serve_pod_ctx(tp=tp, cp=cp) if mesh is not None else None
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    eng = ServeEngine(job["cfg"], job["policy"], job["params"],
+                      max_slots=job["slots"], max_len=job["max_len"],
+                      options=job["options"], device="cuda", dist=dist,
+                      mesh=mesh)
+    uids = [eng.submit(p, max_new=job["max_new"]) for p in job["prompts"]]
+    eng.run()
+    torch.cuda.synchronize()
+    res = {"wall_s": time.perf_counter() - t0,
+           "tokens": [eng.results[u].tolist() for u in uids],
+           "statuses": [eng.status(u).value for u in uids],
+           "launches": dict(ops.LAUNCHES),
+           "decode_steps": eng.stats()["decode_steps"],
+           "prefill_chunks": eng.stats()["prefill_chunks"]}
+    entry = next(e for sc in eng.kv.pool.values() for e in sc.values()
+                 if "pos" in e)
+    k = entry["k_m"] if "k_m" in entry else entry["k"]
+    res["kv_heads"], res["window"] = int(k.shape[3]), int(k.shape[2])
+    if "bt" not in entry:
+        res["window"] = int(entry["pos"].shape[2])
+    if job.get("logits_vs") is not None:
+        toks = torch.as_tensor(job["prompts"][0], device="cuda")[None]
+        with M.use_mesh(mesh), torch.no_grad():
+            lg = [T.prefill(job["cfg"], pol, job["params"], {"tokens": toks},
+                            eng.exps, max_cache_len=job["max_len"],
+                            dist=dist)[0]
+                  for pol in (job["policy"], job["logits_vs"])]
+        res["first_logits_max_abs_diff"] = float((lg[0] - lg[1]).abs().max())
+        res["first_logits_max_abs"] = float(lg[1].abs().max())
+    return res
+
+
+def _shard_rank(rank: int, jobs) -> dict:
+    """A rank of the sharded phases' world: every job at its degrees.
+    The weights arrive from the parent through CUDA IPC (no copy); the
+    kernels load from the parent's build."""
+    torch.cuda.set_device(0)
+    out = {}
+    for name, job in jobs:
+        out[name] = _serve_job(job, job["tp"], job["cp"])
+        torch.cuda.empty_cache()
+    return out
+
+
+def _shard_jobs(eng):
+    """The sharded phases' jobs on the serving run's weights (the first
+    ``SHARD_LAYERS`` layers, views) and granite-moe-1b's."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.launch.serve import prompt
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import EngineOptions
+    cfg = dataclasses.replace(eng.cfg, num_layers=SHARD_LAYERS)
+    params = {**eng.params,
+              "stages": _first_layers(eng.params["stages"], SHARD_LAYERS)}
+    int8 = EngineOptions(cache_bits=8)
+    jobs = []
+    for page in (0, PAGE):
+        prompts = _serve_prompts(cfg, page)
+        jobs.append((f"tp2{'_paged' if page else ''}", dict(
+            cfg=cfg, params=params, prompts=prompts, slots=4,
+            max_len=max(map(len, prompts)) + ROBUST_NEW, max_new=ROBUST_NEW,
+            options=int8, tp=2, cp=1,
+            policy=PrecisionPolicy("dfxp", fused_decode=True,
+                                   prefill_chunk=page or 128,
+                                   page_size=page))))
+    jobs.append(("cp2", dict(
+        cfg=cfg, params=params, slots=2, max_len=CP_MAX_LEN,
+        max_new=ROBUST_NEW, options=int8, tp=1, cp=2,
+        prompts=[prompt(200 + i, CP_PROMPT + 37 * i, cfg.vocab_size)
+                 for i in range(2)],
+        policy=PrecisionPolicy("float32", prefill_chunk=128))))
+    gcfg = dataclasses.replace(configs.get("granite_moe_1b"),
+                               num_layers=GRANITE_EP_LAYERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gparams = T.init_params(gcfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"granite-moe-1b ({GRANITE_EP_LAYERS} layers) weights drawn in "
+        f"{time.perf_counter() - t0:.1f}s")
+    gpol = PrecisionPolicy("dfxp", fused_decode=True)
+    gprompts = [prompt(i, (96, 200, 384)[i % 3], gcfg.vocab_size)
+                for i in range(6)]
+    g = dict(cfg=gcfg, params=gparams, prompts=gprompts, slots=4,
+             max_len=384 + ROBUST_NEW, max_new=ROBUST_NEW, options=int8,
+             tp=2, cp=1, policy=gpol)
+    jobs.append(("ep", g))
+    # int8 lanes: statuses and the first-step logits only (no unsharded
+    # twin), so two requests of 4 tokens
+    jobs.append(("ep_a2a8", dict(
+        g, prompts=gprompts[:2], max_new=4, logits_vs=gpol,
+        policy=dataclasses.replace(gpol, a2a_compress_bits=8))))
+    return jobs
+
+
+def phase_sharded(eng) -> dict:
+    """Sharded serving in one world of ``WORLD`` ranks on the one card
+    (gloo: the ranks share it), the kernels built once by
+    :func:`phase_build` before any rank starts:
+
+    1. TP = 2 slot-major on the serving weights' first ``SHARD_LAYERS``
+       layers (DFXP-10, int8 pool, fused decode, C = 128, the six serving
+       prompts, ``ROBUST_NEW`` tokens): each rank holds 4 of the 8 kv
+       heads; its tokens equal the unsharded engine's, bit for bit, and
+       its K3 and K4 launches the unsharded run's;
+    2. the same over the paged pool (P = C = 64, the paged prompts): K5
+       and K6;
+    3. CP = 2: two slots of ~1,500-token prompts, ``max_len`` 2048 (a
+       1,024-slot window a rank), int8 pool, float32, C = 128: tokens
+       equal the unsharded run's;
+    4. EP (TP = 2) on granite-moe-1b at full width, its experts halved
+       over the ranks: greedy tokens equal the unsharded run's; a second
+       run with ``a2a_compress_bits=8`` (two of the prompts, 4 tokens)
+       resolves every request ``ok``, and its first-step logits' largest
+       difference from the uncompressed run's is printed.
+
+    Every rank checks each step that all ranks sampled the same tokens.
+    The unsharded runs are this process's, over the same weights."""
+    from repro_torch.launch import mesh as M
+    log(f"sharded phases: backend rule: {M.BACKEND_RULE}")
+    backend = M.backend_for("cuda", WORLD)
+    if backend != "gloo":
+        raise SystemExit(f"{WORLD} ranks on {torch.cuda.device_count()} "
+                         f"card(s) should take gloo, got {backend}")
+    jobs = _shard_jobs(eng)
+    t0 = time.perf_counter()
+    import os
+    ranks = M.spawn(_shard_rank, WORLD, jobs, backend=backend,
+                    timeout_s=600.0,
+                    threads=max(1, (os.cpu_count() or 1) // WORLD))
+    world_s = time.perf_counter() - t0
+    torch.cuda.ipc_collect()            # the weights the ranks mapped
+    log(f"sharded world: {WORLD} ranks ({backend}) ran {len(jobs)} jobs in "
+        f"{world_s:.1f}s")
+    out = {"world_s": world_s, "backend": backend, "jobs": {}}
+    bad = []
+    for name, job in jobs:
+        res = {"ranks": [r[name] for r in ranks]}
+        out["jobs"][name] = res
+        if name == "ep_a2a8":
+            for rank, got in enumerate(res["ranks"]):
+                log(f"{name} rank {rank}: statuses {got['statuses']}, "
+                    f"launches {got['launches']}, {got['wall_s']:.1f}s; "
+                    f"first-step logits vs the uncompressed run's max abs "
+                    f"diff {got['first_logits_max_abs_diff']:.4e} (logits "
+                    f"up to {got['first_logits_max_abs']:.3f})")
+                if any(s != "ok" for s in got["statuses"]) or not \
+                        math.isfinite(got["first_logits_max_abs_diff"]):
+                    bad.append(f"{name} rank {rank}")
+            continue
+        t0 = time.perf_counter()
+        want = _serve_job(job)
+        torch.cuda.empty_cache()
+        res.update(unsharded=want, unsharded_s=time.perf_counter() - t0)
+        for rank, got in enumerate(res["ranks"]):
+            log(f"{name} rank {rank}: kv heads {got['kv_heads']} (of "
+                f"{want['kv_heads']}), window {got['window']} (of "
+                f"{want['window']}), statuses {got['statuses']}, launches "
+                f"{got['launches']} (unsharded {want['launches']}), "
+                f"{got['wall_s']:.1f}s (unsharded {want['wall_s']:.1f}s)")
+            if any(s != "ok" for s in got["statuses"]):
+                bad.append(f"{name} rank {rank}: statuses")
+            same = got["tokens"] == want["tokens"]
+            log(f"{name} rank {rank}: tokens equal to the unsharded run's: "
+                f"{same}")
+            if not same:
+                bad.append(f"{name} rank {rank}: tokens")
+            if name.startswith("tp") and got["launches"] != want["launches"]:
+                bad.append(f"{name} rank {rank}: launches")
+            if name.startswith("tp") and not (
+                    got["kv_heads"] * 2 == want["kv_heads"]
+                    and any(got["launches"].values())):
+                bad.append(f"{name} rank {rank}: kv heads / launches")
+            if name == "cp2" and got["window"] * 2 != want["window"]:
+                bad.append(f"{name} rank {rank}: window")
+    if bad:
+        raise SystemExit(f"sharded serving failed: {bad}")
+    return out
+
+
+def phase_train_compressed(lm: dict) -> dict:
+    """The trainer CLI on LM_100M (the LM phase's argv, DFXP 10/12, K1 and
+    K2) with ``--grad-compress-bits 8``: a ``COMPRESS_STEPS``-step run
+    here whose step-1 loss equals the uncompressed run's (compression
+    acts after the gradient) and whose K1 launches a step are the
+    uncompressed step's plus one per parameter leaf of at least
+    ``MIN_SIZE`` elements (the deterministic rounding of
+    ``compress_decompress`` takes K1 under the same threshold as every
+    other site); the same argv killed at cursor ``COMPRESS_KILL`` in a
+    subprocess that runs beside the solo run (137) and resumed here ends with the solo run's final loss and
+    checkpoint, bit for bit, the error-feedback residuals (``ef/...``)
+    among its leaves."""
+    import shutil
+    import tempfile
+    from repro_torch.examples import train_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.train.state import leaves_with_path
+    train_lm.register()
+    cfg = train_lm.LM_100M
+    tmp = tempfile.mkdtemp(prefix="lm_ef_")
+    res, killed = {}, None
+    try:
+        argv = LM_ARGV + LM_DFXP + ["--steps", str(COMPRESS_STEPS),
+                                    "--ckpt-every", "2",
+                                    "--grad-compress-bits", "8"]
+        # the run to kill, in a subprocess on the card beside the solo run
+        # here (its own process: its launches do not reach these counts)
+        t0 = time.perf_counter()
+        killed = subprocess.Popen(
+            [sys.executable, "-c", LM_CLI,
+             str(Path(__file__).resolve().parent / "src"), *argv,
+             "--ckpt-dir", f"{tmp}/crash", "--kill-at", str(COMPRESS_KILL)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        reset_all_launches()
+        solo, _ = _lm_in_process(argv + ["--ckpt-dir", f"{tmp}/solo"])
+        res["solo_s"] = time.perf_counter() - t0
+        launches = train_launches()
+        k1s, k2s = lm_site_launches(cfg, 16, 128)
+        meta = T.init_params(cfg, 0, device="meta")
+        big = sum(1 for _, x in leaves_with_path(meta)
+                  if x.numel() >= MIN_SIZE)
+        n_leaves = len(leaves_with_path(meta))
+        want = {"dfxp_quantize": COMPRESS_STEPS * (k1s + big),
+                "qmatmul": COMPRESS_STEPS * k2s}
+        step1, ref1 = solo["losses"].get(1), lm["losses"]["dfxp"][0]
+        res.update(losses=solo["losses"], launches=launches,
+                   expected_launches=want, leaves=n_leaves,
+                   leaves_through_k1=big, step1=step1,
+                   uncompressed_step1=ref1)
+        log(f"compressed LM: {res['solo_s']:.1f}s, losses "
+            f"{solo['losses']}, step 1 {step1!r} vs uncompressed {ref1!r}; "
+            f"launches {launches} (expected {want}: {k1s} + {big} of "
+            f"{n_leaves} leaves a step)")
+        if not (step1 == ref1 and launches == want
+                and solo["summary"]["steps_committed"] == COMPRESS_STEPS):
+            raise SystemExit("the compressed LM run failed its checks")
+        _, err = killed.communicate(timeout=300)
+        code = killed.returncode
+        code = 128 - code if code < 0 else code     # a signal's shell code
+        t0 = time.perf_counter()
+        resumed, _ = _lm_in_process(argv + ["--ckpt-dir", f"{tmp}/crash"])
+        res["crash_resume_s"] = time.perf_counter() - t0
+        sa, a = _ckpt_leaves(f"{tmp}/solo")
+        sb, b = _ckpt_leaves(f"{tmp}/crash")
+        ef = [k for k in a if k.startswith("ef/")]
+        same = (sa == sb == COMPRESS_STEPS and a.keys() == b.keys()
+                and all(np.array_equal(a[k], b[k]) for k in a))
+        res.update(kill_exit=code, resumed_from=resumed["resumed_from"],
+                   resumed_final_loss=resumed["summary"]["final_loss"]
+                   if resumed["summary"] else None,
+                   final_loss=solo["summary"]["final_loss"],
+                   ckpt_leaves=len(a), ef_leaves=len(ef),
+                   ckpt_bit_equal=same)
+        log(f"compressed LM kill at {COMPRESS_KILL}: exit {code}, resumed "
+            f"from cursor "
+            f"{res['resumed_from']}, final loss "
+            f"{res['resumed_final_loss']!r} vs solo "
+            f"{res['final_loss']!r}; checkpoint {len(a)} leaves ({len(ef)} "
+            f"residuals) bit for bit {same}; {res['crash_resume_s']:.1f}s")
+        if not (code == 137 and same and ef and resumed["resumed_from"]
+                and any(a[k].any() for k in ef)
+                and res["resumed_final_loss"] == res["final_loss"]):
+            raise SystemExit(f"the compressed LM resume failed: "
+                             f"{err[-2000:]}")
+    finally:
+        if killed is not None and killed.poll() is None:
+            killed.kill()
+            killed.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+CLI_TP_ARGV = ["--smoke", "--num-requests", "3", "--slots", "2",
+               "--prompt-len", "6,10", "--max-new", "4"]
+
+
+def start_cli_tp():
+    """Start the serve CLI with ``--smoke --tp 2`` in a subprocess: on the
+    card it spawns its own world of two ranks (gloo, one card).  It runs
+    beside the phases that follow it; :func:`phase_cli_tp` collects it."""
+    src = str(Path(__file__).resolve().parent / "src")
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys; sys.path.insert(0, sys.argv.pop(1)); "
+         "from repro_torch.launch.serve import main; main(sys.argv[1:])",
+         src, "--tp", "2", *CLI_TP_ARGV],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_cli_tp(started) -> dict:
+    """The ``--tp 2`` CLI run of :func:`start_cli_tp` prints the tokens of
+    the run without ``--tp`` (here, in this process)."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    t0, proc = started
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve.main(CLI_TP_ARGV)
+        want = [ln for ln in buf.getvalue().splitlines()
+                if ln.startswith("sample:")]
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    got = [ln for ln in out.splitlines() if ln.startswith("sample:")]
+    res = {"exit": proc.returncode, "wall_s": time.perf_counter() - t0,
+           "sample": got, "unsharded_sample": want,
+           "spawned": "spawning 2 ranks (gloo" in out}
+    log(f"serve CLI --tp 2: {json.dumps(res)}")
+    if not (proc.returncode == 0 and got == want and len(got) == 1
+            and res["spawned"]):
+        raise SystemExit(f"the serve CLI --tp 2 failed: {out[-2000:]}"
+                         f"{err[-2000:]}")
+    return res
+
+
+def phases_dist(eng, lm: dict, t0, cli) -> dict:
+    """Sharded serving, compressed training and the CLI's --tp (``cli``,
+    from :func:`start_cli_tp`, whose subprocess runs beside them)."""
+    out = {"sharded": phase_sharded(eng)}
+    log(f"[{time.perf_counter() - t0:.0f}s] sharded serving served")
+    out["compressed"] = phase_train_compressed(lm)
+    out["cli_tp"] = phase_cli_tp(cli)
+    log(f"[{time.perf_counter() - t0:.0f}s] compressed training trained, "
+        f"CLI --tp served")
+    log("dist: " + json.dumps(out))
     return out
 
 
@@ -3970,13 +4480,12 @@ def main():
                          text=True, check=True).stdout.strip()
     log(smi)
     t0 = time.perf_counter()
-    phase_build()
-    log(f"[{time.perf_counter() - t0:.0f}s] kernels built")
+    prng_res = phase_build_and_prng()
+    log(f"[{time.perf_counter() - t0:.0f}s] kernels built, PRNG checked")
     kern = phase_kernels()
+    tp_rows = phase_tp_kernels()
     kern.update(phase_train_kernels())
     log(f"[{time.perf_counter() - t0:.0f}s] kernels checked")
-    prng_res = phase_prng()
-    log(f"[{time.perf_counter() - t0:.0f}s] PRNG checked")
     fam_parity = phase_families_parity()
     phase_parity_paged()
     tpar = phase_train_parity()
@@ -4008,11 +4517,21 @@ def main():
     sampled = phase_sampled(eng)
     sampled_paged = phase_sampled(eng, page=PAGE)
     log(f"[{time.perf_counter() - t0:.0f}s] sampled paths served")
-    prng_ops = phase_prng_launches(eng, sampled["engine"])
-    for r in (sampled, sampled_paged):
-        r.pop("engine")
-    robust = phases_robustness(eng, clean,
-                               prng_ops["greedy_deterministic_pool"], t0)
+    # the serve CLI's --tp 2 world runs from here beside the robustness
+    # and sharded phases (none of them times the card); phases_dist
+    # collects it
+    cli = start_cli_tp()
+    try:
+        prng_ops = phase_prng_launches(eng, sampled["engine"])
+        for r in (sampled, sampled_paged):
+            r.pop("engine")
+        robust = phases_robustness(eng, clean,
+                                   prng_ops["greedy_deterministic_pool"], t0)
+        dist = phases_dist(eng, lm, t0, cli)
+    finally:
+        if cli[1].poll() is None:         # stop what this run started
+            cli[1].kill()
+            cli[1].wait()
 
     csrc = "src/repro_torch/kernels/attn/csrc/"
     srcs = {"flash_decode": ("src/repro/kernels/attn/attn_kernel.py:123",
@@ -4125,6 +4644,22 @@ def main():
         for key in ("f32_bound_ms", "call_device_ms", "device_ops_per_call"):
             if key in main_row:
                 rows[-1][key] = main_row[key]
+    # the sharded runs (each counted from 0 around it): K3-K6 on each
+    # rank of the TP runs (4 of 8 kv heads), K3 on granite's EP ranks; K1
+    # and K2 on the compressed LM run
+    jobs = dist["sharded"]["jobs"]
+    for row, job in ((rows[0], "tp2"), (rows[1], "tp2"),
+                     (rows[2], "tp2_paged"), (rows[3], "tp2_paged"),
+                     (rows[0], "ep"), (rows[0], "ep_a2a8"),
+                     (rows[1], "cp2")):
+        for rank, r in enumerate(jobs[job]["ranks"]):
+            row["launches_by_path"][f"{job}_rank{rank}"] = \
+                r["launches"][row["name"]]
+    for row in rows[4:6]:
+        row["launches_by_path"]["train_lm_grad_compress_8"] = \
+            dist["compressed"]["launches"][row["name"]]
+    for row in rows[:4]:
+        row["tp_rank_case"] = tp_rows[row["name"]]
     summary = {"peak_memory_bytes": peak, "tok_per_s": st["tok_per_s"],
                "weight_init": st["weight_init"],
                "ttft_mean_s": st["ttft_mean_s"], "decode_steps":

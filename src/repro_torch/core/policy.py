@@ -6,10 +6,8 @@ computations: activations, weighted sums, and every gradient) and
 radix point after the ``fixed_int_bits``-th MSB), the float names
 reproduce §3.
 
-The serving and training fields, with the reference's meaning, defaults
-and validation (``repro.core.policy``); the distributed fields
-(``grad_compress_bits``, ``a2a_compress_bits``) join with the slice that
-ports ``repro.dist``.
+The serving, training and distributed fields, with the reference's
+meaning, defaults and validation (``repro.core.policy``).
 """
 from __future__ import annotations
 
@@ -49,6 +47,9 @@ class PrecisionPolicy:
     quantize_momentum: bool = True
     storage: str = "sim"             # sim|packed
     compute_dtype: str = "float32"   # container dtype for activations/compute
+    grad_compress_bits: int = 0      # 0=off; 8|16: DFXP gradient compression
+    #   with error feedback (repro_torch.dist.compress)
+    a2a_compress_bits: int = 0       # 0=off; 8|16: MoE all_to_all in int lanes
     fused_matmul: bool = False       # route DFXP QTape.dot through the
     #   hand-written quantized matmul K2 (forward nn, dgrad nt, wgrad tn;
     #   repro_torch.kernels.dispatch)

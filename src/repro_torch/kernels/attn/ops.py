@@ -2,9 +2,9 @@
 
 ``flash_decode``, ``flash_prefill`` and their paged variants
 ``flash_decode_paged`` and ``flash_prefill_paged`` keep the signatures of
-``repro.kernels.attn.ops`` (minus ``tp_axis``, and minus ``block_w``,
-``interpret`` and ``force_split``: the CUDA kernels tile by the warp
-width and have no interpret mode).  For tensors on the CPU they compute
+``repro.kernels.attn.ops`` (minus ``block_w``, ``interpret`` and
+``force_split``: the CUDA kernels tile by the warp width and have no
+interpret mode).  For tensors on the CPU they compute
 the plain versions in :mod:`.ref`; for tensors on the card they check
 device, dtype, shape and contiguity, launch the kernel on the current
 stream, and raise if the launch fails.  There is no fallback from one to
@@ -16,6 +16,17 @@ as the engine's allocator guarantees.
 its kernel (K3, K4, K5: and, after a split, the kernel that merges the
 splits) and nowhere else — so a run can show that its main path went
 through the kernels.
+
+Serving tensor parallelism (``tp_axis``): with ``tp_axis`` naming a live
+axis of the ambient mesh whose size divides the kv-head count ``K``
+(:func:`tp_shard`, the reference's divisibility guard), the pool's
+``k``/``v`` are this rank's ``K/tp`` contiguous kv heads; the wrapper
+takes the matching query heads (and chunk K/V) of its full-head
+arguments, runs the same kernel on the slice, and returns the rank's
+head slice — GQA never contracts across kv heads, so per-head numbers are
+untouched.  The split plan is the one of the whole ``K``, so each head's
+tiles merge in the unsharded order.  Where ``tp`` does not divide ``K``
+the pool is replicated and the call is the unsharded one.
 """
 from __future__ import annotations
 
@@ -39,6 +50,34 @@ TILE = 32          # keys per kernel tile; a page size must be a multiple
 SMS = 132          # streaming multiprocessors of an H100 SXM
 
 _DTYPE_CODE = {torch.int8: 0, torch.int16: 1, torch.float32: 2}
+
+
+def tp_shard(tp_axis: Optional[str], n_kv_heads: int):
+    """``(tp, index)``: the live TP degree of ``tp_axis`` in the ambient
+    mesh and this rank's index along it, when the axis exists, is larger
+    than 1 and divides ``n_kv_heads``; ``(0, 0)`` otherwise (the
+    unsharded call, the pool replicated by the sharding guard under the
+    same condition)."""
+    if not tp_axis:
+        return 0, 0
+    from repro_torch.launch.mesh import ambient_mesh
+    mesh = ambient_mesh()
+    if mesh is None or tp_axis not in mesh.shape:
+        return 0, 0
+    size = int(mesh.shape[tp_axis])
+    if size > 1 and n_kv_heads % size == 0:
+        return size, mesh.axis_index(tp_axis)
+    return 0, 0
+
+
+def local_heads(x: Tensor, tp_axis: Optional[str], dim: int) -> Tensor:
+    """This rank's contiguous slice of the kv-head dim ``dim`` of ``x``
+    under :func:`tp_shard`; ``x`` itself when the call is unsharded."""
+    tp, idx = tp_shard(tp_axis, x.shape[dim])
+    if not tp:
+        return x
+    n = x.shape[dim] // tp
+    return x.narrow(dim, idx * n, n).contiguous()
 
 
 def reset_launches() -> None:
@@ -92,7 +131,8 @@ def _stream(device) -> ctypes.c_void_p:
 def flash_decode(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, q_pos: Tensor,
                  k_exp=None, v_exp=None, *, width: Optional[int] = None,
                  scale: float, window: Optional[int] = None,
-                 causal: bool = True) -> Tensor:
+                 causal: bool = True, tp_axis: Optional[str] = None
+                 ) -> Tensor:
     """Single-query GQA attention over a (packed) KV ring buffer — K3.
 
     ``q``: f32 [B, K, G, hd] kv-head-major query groups · ``k``/``v``:
@@ -102,8 +142,12 @@ def flash_decode(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, q_pos: Tensor,
     Returns f32 [B, K, G, hd]; numerics are
     :func:`repro_torch.kernels.attn.ref.decode_attention_ref` (on the card
     split over the ring as :func:`ring_splits` says, and merged as
-    :func:`repro_torch.kernels.attn.ref.decode_split_ref` does).
+    :func:`repro_torch.kernels.attn.ref.decode_split_ref` does).  Under
+    ``tp_axis`` (module docstring) ``k``/``v`` hold the rank's kv heads
+    and the result is the rank's head slice.
     """
+    K_all = q.shape[1]
+    q = local_heads(q, tp_axis, 1)
     if q.device.type == "cpu":
         return R.decode_attention_ref(q, k, v, pos, q_pos, k_exp=k_exp,
                                       v_exp=v_exp, width=width, scale=scale,
@@ -124,7 +168,7 @@ def flash_decode(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, q_pos: Tensor,
     steps = _steps(B, k_exp, v_exp, width, dev)
     out = launch_decode(q, k, v, pos, q_pos, steps, width=width, scale=scale,
                         window=window, causal=causal,
-                        plan=ring_splits(B, K, W))
+                        plan=ring_splits(B, K_all, W))
     LAUNCHES["flash_decode"] += 1
     return out
 
@@ -155,7 +199,8 @@ def flash_prefill(q: Tensor, k_new: Tensor, v_new: Tensor, k: Tensor,
                   v: Tensor, pos: Tensor, p0: Tensor, n_valid: Tensor,
                   k_exp=None, v_exp=None, *, width: Optional[int] = None,
                   scale: float, window: Optional[int] = None,
-                  causal: bool = True) -> Tensor:
+                  causal: bool = True, tp_axis: Optional[str] = None
+                  ) -> Tensor:
     """Chunked-prefill GQA attention over a (packed) KV ring buffer — K4.
 
     ``q``: f32 [B, C, K, G, hd] query groups of a chunk starting at
@@ -166,7 +211,14 @@ def flash_prefill(q: Tensor, k_new: Tensor, v_new: Tensor, k: Tensor,
     :func:`repro_torch.kernels.attn.ref.prefill_attention_ref` (on the card
     on TF32 tensor cores at f32 accuracy, split as :func:`prefill_plan`
     says: :func:`repro_torch.kernels.attn.ref.prefill_tf32_emulated`).
+    Under ``tp_axis`` ``k``/``v`` hold the rank's kv heads; ``q``,
+    ``k_new`` and ``v_new`` are cut to them and the result is the rank's
+    head slice.
     """
+    K_all = q.shape[2]
+    q = local_heads(q, tp_axis, 2)
+    k_new = local_heads(k_new, tp_axis, 2)
+    v_new = local_heads(v_new, tp_axis, 2)
     if q.device.type == "cpu":
         return R.prefill_attention_ref(q, k, v, pos, k_new, v_new, p0,
                                        n_valid, k_exp=k_exp, v_exp=v_exp,
@@ -192,7 +244,7 @@ def flash_prefill(q: Tensor, k_new: Tensor, v_new: Tensor, k: Tensor,
     out = launch_prefill(q, k_new, v_new, k, v, pos, p0, n_valid, steps,
                          width=width, scale=scale, window=window,
                          causal=causal,
-                         plan=prefill_plan(B, C, W, K, G, hd))
+                         plan=prefill_plan(B, C, W, K_all, G, hd))
     LAUNCHES["flash_prefill"] += 1
     return out
 
@@ -276,7 +328,8 @@ def flash_decode_paged(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
                        pos: Tensor, q_pos: Tensor, k_exp=None, v_exp=None, *,
                        width: Optional[int] = None, scale: float,
                        window: Optional[int] = None,
-                       causal: bool = True) -> Tensor:
+                       causal: bool = True, tp_axis: Optional[str] = None
+                       ) -> Tensor:
     """Single-query GQA attention through a per-request block table — K5.
 
     ``q``: f32 [B, K, G, hd] · ``k``/``v``: [n_pages, P, K, hd] page
@@ -289,7 +342,11 @@ def flash_decode_paged(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
     :func:`repro_torch.kernels.attn.ref.paged_decode_attention_ref` (on the
     card split over the pages as :func:`decode_splits` says, and merged as
     :func:`repro_torch.kernels.attn.ref.paged_decode_split_ref` does).
+    Under ``tp_axis`` the arenas hold the rank's kv heads inside every
+    page and the result is the rank's head slice.
     """
+    K_all = q.shape[1]
+    q = local_heads(q, tp_axis, 1)
     if q.device.type == "cpu":
         return R.paged_decode_attention_ref(
             q, k, v, bt, pos, q_pos, k_exp=k_exp, v_exp=v_exp, width=width,
@@ -307,7 +364,7 @@ def flash_decode_paged(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
     steps = _steps(n_pages, k_exp, v_exp, width, dev)
     _check("steps", steps, (n_pages, 2), torch.float32, dev)
     out = torch.empty_like(q)
-    splits, pps = decode_splits(B, K, nblocks)
+    splits, pps = decode_splits(B, K_all, nblocks)
     ws = _workspace(splits, B * K * G, hd, dev)
     fn = build.library("flash_decode_paged").flash_decode_paged_launch
     rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bt), _ptr(pos), _ptr(q_pos),
@@ -327,7 +384,8 @@ def flash_prefill_paged(q: Tensor, k_new: Tensor, v_new: Tensor, k: Tensor,
                         n_valid: Tensor, k_exp=None, v_exp=None, *,
                         width: Optional[int] = None, scale: float,
                         window: Optional[int] = None,
-                        causal: bool = True) -> Tensor:
+                        causal: bool = True, tp_axis: Optional[str] = None
+                        ) -> Tensor:
     """Chunked-prefill GQA attention through a block table — K6.
 
     ``q``: f32 [B, C, K, G, hd] chunk queries starting at ``p0`` [B] ·
@@ -341,7 +399,12 @@ def flash_prefill_paged(q: Tensor, k_new: Tensor, v_new: Tensor, k: Tensor,
     the card K4's TF32 route over the pages, split as
     :func:`prefill_paged_plan` says:
     :func:`repro_torch.kernels.attn.ref.paged_prefill_tf32_emulated`).
+    Under ``tp_axis`` as :func:`flash_prefill`.
     """
+    K_all = q.shape[2]
+    q = local_heads(q, tp_axis, 2)
+    k_new = local_heads(k_new, tp_axis, 2)
+    v_new = local_heads(v_new, tp_axis, 2)
     if q.device.type == "cpu":
         return R.paged_prefill_attention_ref(
             q, k, v, bt, pos, k_new, v_new, p0, n_valid, k_exp=k_exp,
@@ -366,7 +429,7 @@ def flash_prefill_paged(q: Tensor, k_new: Tensor, v_new: Tensor, k: Tensor,
     out = launch_prefill_paged(
         q, k_new, v_new, k, v, bt, pos, p0, n_valid, steps, width=width,
         scale=scale, window=window, causal=causal,
-        plan=prefill_paged_plan(B, C, nblocks, P, K, G, hd))
+        plan=prefill_paged_plan(B, C, nblocks, P, K_all, G, hd))
     LAUNCHES["flash_prefill_paged"] += 1
     return out
 

@@ -47,18 +47,40 @@ controller cadence of 4 steps::
   PYTHONPATH=src python -m repro_torch.launch.serve --chaos 0 \\
       --device cpu --fault-log faults.json --trace-out trace.json
 
-A per-request status table prints at exit.  Not ported: ``--profile``
-(it profiles the autotune cache, ROADMAP module item 25) and ``--mesh``,
-``--tp``, ``--cp`` (ROADMAP module item 22); each raises.
+A per-request status table prints at exit.
+
+Sharded serving: ``--tp N`` shards the KV pool's kv heads over N ranks,
+``--cp N`` the decode KV window (slot-major pools only), ``--mesh
+DATAxMODEL`` names both (mutually exclusive with ``--tp``/``--cp``).
+Without a ``torch.distributed`` world in the environment (no
+``WORLD_SIZE``) the CLI spawns ``tp·cp`` ranks itself and rank 0 prints;
+under ``torchrun`` it joins the world it is given.  The backend follows
+:data:`repro_torch.launch.mesh.BACKEND_RULE` (NCCL with a card per rank,
+gloo when ranks share one or run on the CPU); greedy tokens equal the
+unsharded run's::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --tp 2 --num-requests 3 --slots 2 --prompt-len 6,10 --max-new 4
+
+Not ported: ``--profile`` (it profiles the autotune cache, ROADMAP module
+item 25); it raises.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
+import sys
+
+import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.core import prng
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.dist import MeshConfigError, serve_pod_ctx
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import transformer as T
 from repro_torch.serve import (
     CacheQuantConfig,
@@ -162,14 +184,19 @@ def main(argv=None):
                     help="profile kernel dispatch (not ported yet: ROADMAP "
                          "module item 25, the autotune cache)")
     ap.add_argument("--mesh", default="",
-                    help="serving device mesh DATAxMODEL (not ported yet: "
-                         "ROADMAP module item 22)")
+                    help="serving mesh as DATAxMODEL (e.g. 2x1, 1x4): the "
+                         "data axis shards the decode KV window (context "
+                         "parallelism), the model axis the pool's kv heads "
+                         "(tensor parallelism). Mutually exclusive with "
+                         "--tp/--cp")
     ap.add_argument("--tp", type=int, default=1,
-                    help="serving tensor parallelism (not ported yet: "
-                         "ROADMAP module item 22)")
+                    help="serving tensor parallelism: shard the KV pool's "
+                         "kv-head axis over N ranks (params replicated; "
+                         "greedy streams bit-identical to one process)")
     ap.add_argument("--cp", type=int, default=1,
-                    help="serving context parallelism (not ported yet: "
-                         "ROADMAP module item 22)")
+                    help="serving context parallelism: shard the decode KV "
+                         "window over N ranks (long-context slots; exact "
+                         "log-sum-exp merge). Slot-major pools only")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch versions)")
     args = ap.parse_args(argv)
@@ -177,10 +204,55 @@ def main(argv=None):
     if args.profile:
         raise NotImplementedError(
             "--profile is not ported yet (ROADMAP module item 25)")
-    if args.mesh or args.tp != 1 or args.cp != 1:
-        raise NotImplementedError(
-            "--mesh, --tp and --cp are not ported yet (ROADMAP module "
-            "item 22)")
+    tp, cp = args.tp, args.cp
+    if args.mesh:
+        if tp != 1 or cp != 1:
+            raise MeshConfigError("--mesh and --tp/--cp are mutually "
+                                  "exclusive")
+        try:
+            cp, tp = (int(x) for x in args.mesh.lower().split("x"))
+        except ValueError:
+            raise MeshConfigError(
+                f"--mesh {args.mesh!r} is not DATAxMODEL (e.g. 2x1, 1x4)")
+    serve_pod_ctx(tp=tp, cp=cp)          # degrees must be positive
+    n = tp * cp
+    if n > 1 and mesh_mod.world_size() == 1:
+        if "WORLD_SIZE" in os.environ:        # under torchrun: join it
+            mesh_mod.init_world(
+                int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                "env://", mesh_mod.backend_for(args.device,
+                                               int(os.environ["WORLD_SIZE"])))
+        else:                                  # spawn the world ourselves
+            backend = mesh_mod.backend_for(args.device, n)
+            print(f"spawning {n} ranks ({backend}: {mesh_mod.BACKEND_RULE})",
+                  flush=True)
+            # ranks on the CPU share its cores
+            threads = max(1, (os.cpu_count() or 1) // n) \
+                if args.device == "cpu" else 0
+            mesh_mod.spawn(_cli_rank, n,
+                           sys.argv[1:] if argv is None else list(argv),
+                           backend=backend, threads=threads)
+            return None
+    return _serve(args, tp, cp)
+
+
+def _cli_rank(rank: int, argv):
+    """One spawned rank of the CLI: rank 0 prints, the others are quiet."""
+    sink = contextlib.nullcontext() if rank == 0 else \
+        contextlib.redirect_stdout(io.StringIO())
+    with sink:
+        main(argv)
+
+
+def _serve(args, tp: int, cp: int):
+    dist = mesh = None
+    lead = True
+    if tp > 1 or cp > 1:
+        dist = serve_pod_ctx(tp=tp, cp=cp)
+        mesh = mesh_mod.make_serve_mesh(tp=tp, cp=cp)
+        lead = mesh.rank == 0
+        print(f"mesh: data={cp} (cp) x model={tp} (tp) over "
+              f"{mesh_mod.world_size()} ranks, {mesh.backend}")
     demo_chaos = args.chaos is not None and not args.smoke \
         and args.arch == "llama3_8b"
     if demo_chaos:
@@ -194,6 +266,9 @@ def main(argv=None):
             args.page_size = 4
 
     device = resolve_device(args.device)
+    if device.type == "cuda" and mesh is not None:
+        device = torch.device("cuda", mesh.rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
     policy = PrecisionPolicy(args.arithmetic, fused_decode=args.fused_decode,
                              prefill_chunk=args.prefill_chunk or
@@ -209,7 +284,7 @@ def main(argv=None):
         from repro_torch.obs import Tracer
         tracer = Tracer()
     num_log = None
-    if args.numerics_log:
+    if args.numerics_log and lead:
         from repro_torch.obs import NumericsLog
         num_log = NumericsLog(args.numerics_log)
     cache_cfg = n_pages = None
@@ -234,11 +309,14 @@ def main(argv=None):
                          deadline_ms=args.deadline_ms or None,
                          faults=harness, tracer=tracer, numerics_log=num_log,
                          numerics_every=args.numerics_every or None)
+    max_len = max(lens) + args.max_new
+    if cp > 1 and max_len % cp:
+        max_len += cp - max_len % cp   # the KV window shards evenly
     eng = ServeEngine(cfg, policy, params, max_slots=slots,
-                      max_len=max(lens) + args.max_new, options=opts,
-                      device=device)
+                      max_len=max_len, options=opts,
+                      device=device, dist=dist, mesh=mesh)
     server = None
-    if args.metrics_port is not None:
+    if args.metrics_port is not None and lead:
         from repro_torch.obs import start_http_server
         server = start_http_server(eng.metrics.registry, args.metrics_port)
         print(f"metrics: http://127.0.0.1:{server.server_address[1]}/metrics")
@@ -262,11 +340,11 @@ def main(argv=None):
               f"{tr.preempts:>9}")
     if harness is not None:
         print("faults:", json.dumps(harness.summary()["event_counts"]))
-        if args.fault_log:
+        if args.fault_log and lead:
             with open(args.fault_log, "w") as f:
                 json.dump(harness.summary(), f, indent=2)
             print(f"fault log written to {args.fault_log}")
-    if tracer is not None:
+    if tracer is not None and lead:
         spans = len(tracer.span_names())
         tracer.export(args.trace_out)
         print(f"trace: {spans} spans, {len(tracer.events)} events -> "
@@ -277,7 +355,7 @@ def main(argv=None):
               f"{count_moves(num_log.records)} controller moves -> "
               f"{args.numerics_log}")
         num_log.close()
-    if args.metrics_out:
+    if args.metrics_out and lead:
         eng.metrics.registry.snapshot_jsonl(args.metrics_out,
                                             {"final": True})
         print(f"metrics snapshot appended to {args.metrics_out}")

@@ -34,6 +34,10 @@ trains granite-moe-1b, as the reference's does (at full width on the
 card).  ``--numerics-log PATH`` writes the §5 controller's timeline
 (per-class exponents, overflow rates, up/down moves) as JSONL every
 ``--numerics-every`` committed steps (default ``--update-interval``).
+``--grad-compress-bits 8|16`` runs the gradients through error-feedback
+DFXP compression (:func:`repro_torch.dist.compress.compress_tree`, one
+process, no all-reduce, as the reference's trainer); the residuals ride
+the checkpoint, so a compressed run resumes bit for bit.
 
 Weights are the reference's from ``--seed`` (threefry), data
 :class:`repro_torch.data.SyntheticLM`.  ``--fused-matmul`` routes every
@@ -114,8 +118,8 @@ def main(argv=None):
                     help="per-tensor-class §5 overflow-rate sentinel "
                          "threshold (0 disables)")
     ap.add_argument("--grad-compress-bits", type=int, default=0,
-                    help="error-feedback gradient compression (not ported "
-                         "yet: ROADMAP module item 22)")
+                    help="run gradients through error-feedback compression "
+                         "at this width (residuals are checkpointed)")
     ap.add_argument("--chaos", nargs="?", type=int, const=0, default=None,
                     metavar="SEED",
                     help="run a seeded fault plan through the train harness "
@@ -142,9 +146,6 @@ def main(argv=None):
                     help="cuda (default) or cpu (plain PyTorch versions)")
     args = ap.parse_args(argv)
 
-    if args.grad_compress_bits:
-        raise NotImplementedError(
-            "--grad-compress-bits is not ported yet (ROADMAP module item 22)")
     device = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
     policy = build_policy(args)
@@ -209,6 +210,7 @@ def main(argv=None):
         manager=mgr, ckpt_every=args.ckpt_every,
         skip_budget=args.skip_budget,
         runaway_ovf=args.runaway_ovf or None,
+        compress_bits=args.grad_compress_bits or None,
         microbatches=args.microbatches,
         faults=harness, tracer=tracer, metrics=metrics,
         numerics_log=num_log, numerics_every=args.numerics_every,

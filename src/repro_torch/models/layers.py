@@ -297,7 +297,71 @@ def chunk_slots(p0: Tensor, n_valid: Tensor, C: int, W: int):
     return pos, keep, slot
 
 
-class RawKVCodec:
+class KVShard:
+    """Where a serve pool's storage is one rank's shard of the whole.
+
+    ``tp_axis`` names the mesh axis the kv heads are sharded over (the
+    attention wrappers' :func:`~repro_torch.kernels.attn.ops.tp_shard`
+    guard decides whether they are); ``cp_axis`` the axis a slot-major
+    ring's window is sharded over (context parallelism).  A codec is
+    handed full-head, whole-window values — every rank computes the same
+    K/V from replicated weights — quantizes them whole, so exponents and
+    §5 counters are the global ones on every rank without a collective,
+    and stores only its shard.  With neither axis set (or no ambient
+    mesh) the shard is the whole pool.
+    """
+
+    tp_axis: Optional[str] = None
+    cp_axis: Optional[str] = None
+
+    def local_heads(self, x: Tensor, dim: int) -> Tensor:
+        """This rank's kv heads of ``x`` (all ``K`` heads on ``dim``)."""
+        return attn_ops.local_heads(x, self.tp_axis, dim)
+
+    def head_shard(self, n_kv_heads: int):
+        """``(tp, index)`` of the kv-head sharding, ``(0, 0)`` if none."""
+        return attn_ops.tp_shard(self.tp_axis, n_kv_heads)
+
+    def window_shard(self, w_local: int):
+        """``(W, w0)``: the whole ring window and the first slot of this
+        rank's ``w_local`` slots (``(w_local, 0)`` when unsharded)."""
+        if not self.cp_axis:
+            return w_local, 0
+        from repro_torch.launch.mesh import ambient_mesh
+        mesh = ambient_mesh()
+        if mesh is None or self.cp_axis not in mesh.shape:
+            return w_local, 0
+        n = mesh.axis_size(self.cp_axis)
+        return w_local * n, mesh.axis_index(self.cp_axis) * w_local
+
+    def local_slots(self, slot: Tensor, w_local: int) -> Tensor:
+        """Ring slots ``slot`` of the whole window (``W`` = dropped) as
+        slots of this rank's shard; a slot held elsewhere drops
+        (``w_local``)."""
+        W, w0 = self.window_shard(w_local)
+        if W == w_local:
+            return slot
+        mine = (slot >= w0) & (slot < w0 + w_local)
+        return torch.where(mine, slot - w0, w_local)
+
+    def gather_window(self, entry: dict) -> dict:
+        """``entry`` with its window-sharded leaves (storage and ``pos``)
+        gathered whole over ``cp_axis``: the attention paths that see the
+        whole window (chunked prefill, windowed layers).  ``entry``
+        itself when the window is not sharded."""
+        W, _ = self.window_shard(entry["pos"].shape[1])
+        if W == entry["pos"].shape[1]:
+            return entry
+        from repro_torch.launch.mesh import ambient_mesh
+        mesh = ambient_mesh()
+        out = dict(entry)
+        names = ("k_m", "v_m") if "k_m" in entry else ("k", "v")
+        for n in names + ("pos",):
+            out[n] = mesh.all_gather(entry[n], self.cp_axis, dim=1)
+        return out
+
+
+class RawKVCodec(KVShard):
     """Float-container KV-cache codec: the ring buffer ``{"k","v","pos"}``.
 
     The codec protocol is the decode cache's storage contract:
@@ -313,18 +377,23 @@ class RawKVCodec:
     returns new tensors and leaves ``entry`` as it was.
     """
 
-    def __init__(self, fused_decode: bool = False):
+    def __init__(self, fused_decode: bool = False, *,
+                 tp_axis: Optional[str] = None,
+                 cp_axis: Optional[str] = None):
         self.fused_decode = bool(fused_decode)
+        self.tp_axis, self.cp_axis = tp_axis, cp_axis
 
     def append(self, entry: dict, k_new: Tensor, v_new: Tensor,
                pos: Tensor, mask: Optional[Tensor] = None) -> dict:
         """``k_new``/``v_new``: [B, K, hd]; ``pos``: [B] int32.  ``mask``
         (bool [B]) drops the append for masked-off rows entirely."""
-        W = entry["k"].shape[1]
+        Wl = entry["k"].shape[1]
+        W, _ = self.window_shard(Wl)
         slot = pos % W
         if mask is not None:
             slot = torch.where(mask, slot, W)
-        slot = slot[:, None]
+        slot = self.local_slots(slot, Wl)[:, None]
+        k_new, v_new = self.local_heads(k_new, 1), self.local_heads(v_new, 1)
         return {"k": scatter_drop(entry["k"], slot, k_new[:, None]),
                 "v": scatter_drop(entry["v"], slot, v_new[:, None]),
                 "pos": scatter_drop(entry["pos"], slot, pos[:, None])}
@@ -334,8 +403,11 @@ class RawKVCodec:
         """Write a prefill chunk's K/V ``[B, C, K, hd]`` at positions
         ``p0 + i``; ``p0 == 0`` (admission) first resets the slot's stale
         ring positions to -1."""
-        W = entry["k"].shape[1]
+        Wl = entry["k"].shape[1]
+        W, _ = self.window_shard(Wl)
         pos, _, slot = chunk_slots(p0, n_valid, k_new.shape[1], W)
+        slot = self.local_slots(slot, Wl)
+        k_new, v_new = self.local_heads(k_new, 2), self.local_heads(v_new, 2)
         pos_buf = torch.where((p0 == 0)[:, None], -1, entry["pos"])
         return {"k": scatter_drop(entry["k"], slot, k_new),
                 "v": scatter_drop(entry["v"], slot, v_new),
@@ -346,11 +418,12 @@ class RawKVCodec:
 
     def fused_attention(self, entry: dict, qg: Tensor, q_pos: Tensor, *,
                         scale: float, window=None, causal: bool = True):
-        """Flash-decode (K3) on the raw f32 ring (``width=None``)."""
+        """Flash-decode (K3) on the raw f32 ring (``width=None``); ``qg``
+        holds every kv head, the result this rank's."""
         return attn_ops.flash_decode(qg, entry["k"], entry["v"],
                                      entry["pos"], q_pos, width=None,
                                      scale=scale, window=window,
-                                     causal=causal)
+                                     causal=causal, tp_axis=self.tp_axis)
 
     def fused_prefill(self, entry: dict, qg: Tensor, k_new: Tensor,
                       v_new: Tensor, p0: Tensor, n_valid: Tensor, *,
@@ -359,16 +432,36 @@ class RawKVCodec:
         return attn_ops.flash_prefill(qg, k_new, v_new, entry["k"],
                                       entry["v"], entry["pos"], p0, n_valid,
                                       width=None, scale=scale, window=window,
-                                      causal=causal)
+                                      causal=causal, tp_axis=self.tp_axis)
 
 
 RAW_KV_CODEC = RawKVCodec()
 
 
+def _replicate_attn_out(o: Tensor, codec, n_kv_heads: int) -> Tensor:
+    """The per-head attention output ``o`` [B, S, Kl·G·hd] of this rank's
+    kv heads gathered whole over the TP axis, before the ``wo``
+    contraction.
+
+    Under serving tensor parallelism the pool — and so the per-head
+    attention output — is sharded over kv heads, while ``wo`` contracts
+    over the *full* head dimension.  Gathering here keeps that
+    contraction replicated and in one rank's order, which is what makes
+    the sharded engine's logits bit-identical to one process's (per-head
+    attention is shard-local and exact; this is the only cross-head
+    reduction).  The identity when the heads are not sharded.
+    """
+    tp, _ = attn_ops.tp_shard(getattr(codec, "tp_axis", None), n_kv_heads)
+    if not tp:
+        return o
+    from repro_torch.launch.mesh import ambient_mesh
+    return ambient_mesh().all_gather(o, codec.tp_axis, dim=-1)
+
+
 def attention_prefill_chunk(params, spec: AttnSpec, x: Tensor,
                             positions: Tensor, cache: dict, tape: QTape,
                             prefix: str, *, n_valid: Tensor, window=None,
-                            codec=None):
+                            dist=None, codec=None):
     """One chunked-prefill step: ``C`` prompt positions against the pool.
 
     ``x``: [B, C, D] at absolute positions ``positions`` [B, C]
@@ -376,7 +469,10 @@ def attention_prefill_chunk(params, spec: AttnSpec, x: Tensor,
     admission chunk).  ``n_valid`` [B] masks a ragged final chunk.  The
     chunk attends the slot's history (``0 <= pos < p0``) plus its own
     fresh K/V causally, *before* ``codec.append_chunk`` writes the chunk
-    into the pool.  Returns ``(y, cache')``.
+    into the pool.  On a sharded pool the attention runs on this rank's
+    kv heads over the whole window (a window-sharded ring is gathered
+    first) and the heads are gathered before ``wo``.  Returns
+    ``(y, cache')``.
     """
     codec = codec or RAW_KV_CODEC
     B, C, _ = x.shape
@@ -388,23 +484,26 @@ def attention_prefill_chunk(params, spec: AttnSpec, x: Tensor,
     qg = q.reshape(B, C, K, G, hd).to(torch.float32)
     kf = k_new.to(torch.float32)
     vf = v_new.to(torch.float32)
+    view = codec.gather_window(cache)
     if codec.fused_decode:
-        o = codec.fused_prefill(cache, qg, kf, vf, p0, n_valid, scale=scale,
+        o = codec.fused_prefill(view, qg, kf, vf, p0, n_valid, scale=scale,
                                 window=window, causal=spec.causal)
     else:
-        ck, cv, cpos = codec.load(cache)
-        o = AR.chunk_attend(qg, ck.to(torch.float32), cv.to(torch.float32),
-                            cpos, kf, vf, p0, n_valid, scale=scale,
-                            window=window, causal=spec.causal)
+        ck, cv, cpos = codec.load(view)
+        o = AR.chunk_attend(codec.local_heads(qg, 2), ck.to(torch.float32),
+                            cv.to(torch.float32), cpos,
+                            codec.local_heads(kf, 2),
+                            codec.local_heads(vf, 2), p0, n_valid,
+                            scale=scale, window=window, causal=spec.causal)
     cache = codec.append_chunk(cache, kf, vf, p0, n_valid)
-    o = o.reshape(B, C, spec.q_dim).to(x.dtype)
+    o = _replicate_attn_out(o.reshape(B, C, -1), codec, K).to(x.dtype)
     y = tape.dot(f"{prefix}/wo", o, params["wo"])
     return tape.act(f"{prefix}/out", y), cache
 
 
 def attention_decode(params, spec: AttnSpec, x: Tensor, positions: Tensor,
                      cache: dict, tape: QTape, prefix: str, window=None,
-                     codec=None, append_mask=None):
+                     dist=None, codec=None, append_mask=None):
     """One-token decode. ``x``: [B, 1, D] at ``positions`` int32 [B, 1]
     (every slot decodes at its own position); ``cache``: a codec-owned
     entry.
@@ -414,7 +513,15 @@ def attention_decode(params, spec: AttnSpec, x: Tensor, positions: Tensor,
     position-validity mask.  ``append_mask`` (bool [B]) drops the append
     for masked-off rows.  With ``codec.fused_decode`` the attention is the
     flash-decode kernel on the codec's storage; otherwise ``codec.load``
-    and the plain softmax.  Returns ``(y, cache')``.
+    and the plain softmax.
+
+    With ``dist.cp_decode`` (the ring window sharded over
+    ``dist.cp_axis``) the global-attention layers run
+    :func:`repro_torch.dist.cp_attention.cp_decode_attention` on this
+    rank's slots and merge the softmax statistics exactly; windowed
+    layers gather the ring first.  On a head-sharded pool the attention
+    runs on this rank's kv heads and :func:`_replicate_attn_out` gathers
+    them before ``wo``.  Returns ``(y, cache')``.
     """
     codec = codec or RAW_KV_CODEC
     B = x.shape[0]
@@ -422,24 +529,38 @@ def attention_decode(params, spec: AttnSpec, x: Tensor, positions: Tensor,
     q_pos = positions[:, 0].contiguous()
     cache = codec.append(cache, k_new[:, 0], v_new[:, 0], q_pos,
                          mask=append_mask)
-    K, hd = spec.num_kv_heads, spec.head_dim
-    G = spec.num_heads // K
+    H, K, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    G = H // K
     scale = 1.0 / math.sqrt(hd)
 
-    if codec.fused_decode:
-        qg = q.reshape(B, K, G, hd).to(torch.float32)
-        o = codec.fused_attention(cache, qg, q_pos, scale=scale,
-                                  window=window, causal=spec.causal)
-    else:
+    if (dist is not None and dist.active and dist.cp_decode and dist.cp_axis
+            and window is None):
+        from repro_torch.dist.cp_attention import cp_decode_attention
         cache_k, cache_v, cache_pos = codec.load(cache)
-        qg = q.reshape(B, 1, K, G, hd)
-        s = torch.einsum("bqkgh,bskh->bkgqs", qg, cache_k) * scale
-        valid = _mask(positions, cache_pos, window, spec.causal)  # [B, 1, W]
-        valid = valid & (cache_pos >= 0)[:, None, :]              # -1 = empty
-        s = torch.where(valid[:, None, None], s, -1e30)
-        p = torch.softmax(s.to(torch.float32), dim=-1)
-        o = torch.einsum("bkgqs,bskh->bqkgh", p, cache_v.to(torch.float32))
-    o = o.reshape(B, 1, spec.q_dim).to(x.dtype)
+        qh = codec.local_heads(q.reshape(B, 1, K, G, hd), 2)
+        Kl = qh.shape[2]
+        o = cp_decode_attention(qh.reshape(B, 1, Kl * G, hd), cache_k,
+                                cache_v, cache_pos, positions,
+                                num_heads=Kl * G, num_kv_heads=Kl,
+                                head_dim=hd, cp_axes=dist.cp_axes,
+                                local=codec.cp_axis == dist.cp_axis)
+    else:
+        view = codec.gather_window(cache)
+        if codec.fused_decode:
+            qg = q.reshape(B, K, G, hd).to(torch.float32)
+            o = codec.fused_attention(view, qg, q_pos, scale=scale,
+                                      window=window, causal=spec.causal)
+        else:
+            cache_k, cache_v, cache_pos = codec.load(view)
+            qg = codec.local_heads(q.reshape(B, 1, K, G, hd), 2)
+            s = torch.einsum("bqkgh,bskh->bkgqs", qg, cache_k) * scale
+            valid = _mask(positions, cache_pos, window, spec.causal)
+            valid = valid & (cache_pos >= 0)[:, None, :]          # -1 = empty
+            s = torch.where(valid[:, None, None], s, -1e30)
+            p = torch.softmax(s.to(torch.float32), dim=-1)
+            o = torch.einsum("bkgqs,bskh->bqkgh", p,
+                             cache_v.to(torch.float32))
+    o = _replicate_attn_out(o.reshape(B, 1, -1), codec, K).to(x.dtype)
     y = tape.dot(f"{prefix}/wo", o, params["wo"])
     return tape.act(f"{prefix}/out", y), cache
 

@@ -23,8 +23,16 @@ Determinism (the trainer's bit-for-bit resume on the card):
     gather of a token's ``k`` copies differentiates as a sum over a
     fixed axis.
 
-Not ported (ROADMAP module item 22): expert parallelism (the
-``all_to_all`` dispatch), FSDP weight gathers and the stationary decode.
+Expert parallelism (the reference's ``shard_map`` island, written out
+SPMD over :mod:`repro_torch.launch.mesh`): tokens sharded over
+``dist.token_axes``, the banks' experts over ``dist.ep_axis`` and their
+``D`` over ``dist.fsdp_axis`` (views), dispatch and combine as tiled
+``all_to_all``s (plain, or in ``policy.a2a_compress_bits`` integer lanes
+through :func:`repro_torch.dist.compress.compressed_all_to_all`), the
+FSDP banks all-gathered per layer, or kept in place by the
+``moe_stationary`` decode.  The collectives other than the compressed
+``all_to_all`` carry no gradient: expert-parallel blocks run forward
+(serving) and raise under autograd; training keeps one process.
 """
 from __future__ import annotations
 
@@ -108,12 +116,22 @@ def route(x: Tensor, router_w: Tensor, spec: MoESpec, capacity: int):
 
 
 def _moe_local(x: Tensor, params, tape: QTape, *, spec: MoESpec,
-               prefix: str, dropless: bool = False) -> Tensor:
-    """Per-device MoE math on tokens ``x`` [T, D]; records into ``tape``."""
+               prefix: str, dropless: bool = False, dist=None,
+               mesh=None) -> Tensor:
+    """Per-rank MoE math on tokens ``x`` [T, D]; records into ``tape``.
+
+    ``params`` holds this rank's expert banks: the whole banks without
+    expert parallelism, else views of its ``E/ep`` experts (and, with
+    FSDP, its slice of ``D``).  With ``dist.ep_axis`` the dispatched
+    slots cross an ``all_to_all`` to their experts' owners and back
+    (in ``a2a_compress_bits`` integer lanes when the policy asks)."""
     E, k = spec.num_experts, spec.top_k
     T, D = x.shape
     C = _capacity(T, spec, dropless)
     eid, gate, pos, keep = route(x, params["router"], spec, C)
+    ep = dist.ep_axis if dist is not None else None
+    fsdp = dist.fsdp_axis if dist is not None else None
+    a2a_bits = getattr(tape.policy, "a2a_compress_bits", 0)
 
     # dispatch: kept slots to their own [E, C] rows, dropped ones to the
     # scratch row C (the reference adds their zeros at row C - 1)
@@ -122,14 +140,40 @@ def _moe_local(x: Tensor, params, tape: QTape, *, spec: MoESpec,
     xe = x.new_zeros((E, C + 1, D))
     xe = xe.index_put((eid, row), xk)[:, :C]
     xe = tape.act(f"{prefix}/dispatch", xe)
+    if ep:
+        xe = _all_to_all(xe, tape, f"a:{prefix}/dispatch", a2a_bits, ep,
+                         0, 1, mesh)                        # [E/ep, C·ep, D]
 
-    w_gate = tape.weight(f"{prefix}/w_gate", params["w_gate"]).to(x.dtype)
-    w_up = tape.weight(f"{prefix}/w_up", params["w_up"]).to(x.dtype)
-    w_down = tape.weight(f"{prefix}/w_down", params["w_down"]).to(x.dtype)
-    g = torch.bmm(xe, w_gate)
-    u = torch.bmm(xe, w_up)
-    h = tape.act(f"{prefix}/pre", F.silu(g) * u)
-    ye = torch.bmm(h, w_down)
+    stationary = bool(dist is not None and dist.moe_stationary and fsdp
+                      and dropless)
+    w_gate, w_up, w_down = params["w_gate"], params["w_up"], params["w_down"]
+    if fsdp and not stationary:
+        # training: gather the FSDP-sliced banks per layer
+        w_gate = mesh.all_gather(w_gate, fsdp, dim=1)
+        w_up = mesh.all_gather(w_up, fsdp, dim=1)
+        w_down = mesh.all_gather(w_down, fsdp, dim=2)
+    w_gate = tape.weight(f"{prefix}/w_gate", w_gate).to(x.dtype)
+    w_up = tape.weight(f"{prefix}/w_up", w_up).to(x.dtype)
+    w_down = tape.weight(f"{prefix}/w_down", w_down).to(x.dtype)
+    if stationary:
+        # decode: the banks stay put and the activations move — each
+        # fsdp rank holds a D-slice: partial products + psum, then the
+        # D-sharded down-projection output is all-gathered
+        Dl = w_gate.shape[1]
+        d0 = mesh.axis_index(fsdp) * Dl
+        xe_l = xe[:, :, d0:d0 + Dl]
+        g = mesh.psum(torch.bmm(xe_l, w_gate), fsdp)
+        u = mesh.psum(torch.bmm(xe_l, w_up), fsdp)
+        h = tape.act(f"{prefix}/pre", F.silu(g) * u)
+        ye = mesh.all_gather(torch.bmm(h, w_down), fsdp, dim=2)
+    else:
+        g = torch.bmm(xe, w_gate)
+        u = torch.bmm(xe, w_up)
+        h = tape.act(f"{prefix}/pre", F.silu(g) * u)
+        ye = torch.bmm(h, w_down)
+    if ep:
+        ye = _all_to_all(ye, tape, f"a:{prefix}/expert_out", a2a_bits, ep,
+                         1, 0, mesh)                        # [E, C, D]
     ye = tape.act(f"{prefix}/expert_out", ye)
 
     # combine: each token's k weighted outputs, summed in slot order
@@ -142,18 +186,84 @@ def _moe_local(x: Tensor, params, tape: QTape, *, spec: MoESpec,
     return y
 
 
+def _all_to_all(x: Tensor, tape: QTape, group: str, bits: int, axis,
+                split: int, concat: int, mesh) -> Tensor:
+    """The EP wire: a plain tiled ``all_to_all``, or with ``bits`` one in
+    integer lanes at the site's activation exponent."""
+    if bits:
+        from repro_torch.dist.compress import compressed_all_to_all
+        return compressed_all_to_all(x, tape._exp(group), bits, axis,
+                                     split_axis=split, concat_axis=concat,
+                                     mesh=mesh)
+    return mesh.all_to_all(x, axis, split, concat)
+
+
+def _bank_slices(params, dist, mesh) -> dict:
+    """This rank's views of the expert banks: experts ``[E/ep]`` over
+    ``ep_axis``, ``D`` over ``fsdp_axis`` (``w_gate``/``w_up`` dim 1,
+    ``w_down`` dim 2); the router whole."""
+    out = {"router": params["router"]}
+    for name, fdim in (("w_gate", 1), ("w_up", 1), ("w_down", 2)):
+        w = params[name]
+        for axis, dim in ((dist.ep_axis, 0), (dist.fsdp_axis, fdim)):
+            if axis:
+                n = w.shape[dim] // mesh.axis_size(axis)
+                w = w.narrow(dim, mesh.axis_index(axis) * n, n)
+        out[name] = w
+    return out
+
+
+def _tensors(tree):
+    if isinstance(tree, Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+
+
 def moe_ffn(params, spec: MoESpec, x: Tensor, tape: QTape, prefix: str,
             dist=None, dropless: bool = False) -> Tensor:
     """MoE block on ``x`` [B, S, D], statistics recorded into ``tape``;
     with a shared expert, its SwiGLU output is added before the ``out``
-    site."""
-    if dist is not None and getattr(dist, "active", False):
-        raise NotImplementedError(
-            "expert parallelism (all_to_all dispatch, FSDP gathers, the "
-            "stationary decode) is not ported yet: ROADMAP module item 22")
+    site.
+
+    With an active ``dist`` (under the ambient mesh) the block is the
+    reference's ``shard_map`` island written out: each rank takes its
+    shard of the flattened tokens over ``dist.token_axes``, routes it,
+    runs its experts (views of the banks) behind the ``all_to_all``s,
+    and the token shards are gathered back whole; the block's statistics
+    are summed over ``dist.all_axes`` before they reach ``tape``."""
     B, S, D = x.shape
-    y = _moe_local(x.reshape(B * S, D), params, tape, spec=spec,
-                   prefix=prefix, dropless=dropless).reshape(B, S, D)
+    x_flat = x.reshape(B * S, D)
+    if dist is not None and dist.active:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in _tensors({"x": x, **params})):
+            raise NotImplementedError(
+                "expert-parallel MoE has no backward: its all_gather, "
+                "all_to_all and psum carry no gradient, so the sharded "
+                "banks, the router and x would get none (run it under "
+                "torch.no_grad(); training keeps one process)")
+        from repro_torch.launch.mesh import ambient_mesh
+        mesh = ambient_mesh()
+        if mesh is None:
+            raise ValueError("an active DistCtx needs the ambient mesh "
+                             "(launch.mesh.use_mesh)")
+        tok = tuple(dist.token_axes)
+        if tok:
+            n = B * S // mesh.axis_size(tok)
+            x_flat = x_flat[mesh.axis_index(tok) * n:][:n]
+        local = QTape(tape.policy, tape.scales, tape.sinks)
+        y = _moe_local(x_flat, _bank_slices(params, dist, mesh), local,
+                       spec=spec, prefix=prefix, dropless=dropless,
+                       dist=dist, mesh=mesh)
+        if tok:
+            y = mesh.all_gather(y, tok, dim=0)
+        for name, st in local.stats.items():
+            tape._record(name, mesh.psum(st, dist.all_axes))
+    else:
+        y = _moe_local(x_flat, params, tape, spec=spec, prefix=prefix,
+                       dropless=dropless)
+    y = y.reshape(B, S, D)
     if spec.shared_expert_d_ff:
         y = y + swiglu(params["shared"], x, tape, f"{prefix}/shared")
     return tape.act(f"{prefix}/out", y)

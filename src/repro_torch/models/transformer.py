@@ -369,7 +369,7 @@ def _ring_cache(k: Tensor, v: Tensor, cap: int) -> dict:
 def _apply_block(cfg: ModelConfig, blk: SubBlock, pfx: str, bp, x,
                  positions, tape: QTape, mode: str, cache_in=None,
                  max_cache_len: int = 0, kv_codec=None, n_valid=None,
-                 append_mask=None, memory=None):
+                 append_mask=None, memory=None, dist=None):
     """Apply one sub-block (pre-norm residual). Returns (x, cache_out).
 
     ``memory`` is the encoder's normed output, which an ``xattn`` block
@@ -414,11 +414,11 @@ def _apply_block(cfg: ModelConfig, blk: SubBlock, pfx: str, bp, x,
         elif mode == "chunk":
             y, cache_out = L.attention_prefill_chunk(
                 bp, spec, h, positions, cache_in, tape, pfx,
-                n_valid=n_valid, window=window, codec=kv_codec)
+                n_valid=n_valid, window=window, dist=dist, codec=kv_codec)
         else:  # decode
             y, cache_out = L.attention_decode(
                 bp, spec, h, positions, cache_in, tape, pfx, window=window,
-                codec=kv_codec, append_mask=append_mask)
+                dist=dist, codec=kv_codec, append_mask=append_mask)
     elif blk.kind == "ffn":
         if cfg.ffn_kind == "swiglu":
             y = L.swiglu(bp, h, tape, pfx)
@@ -427,7 +427,7 @@ def _apply_block(cfg: ModelConfig, blk: SubBlock, pfx: str, bp, x,
         else:
             y = L.maxout(bp, h, tape, pfx)
     elif blk.kind == "moe":
-        y = M.moe_ffn(bp, cfg.moe_spec, h, tape, pfx,
+        y = M.moe_ffn(bp, cfg.moe_spec, h, tape, pfx, dist,
                       dropless=(mode == "decode"))
     elif blk.kind == "mamba":
         if mode == "decode":
@@ -479,7 +479,8 @@ def _unbind(tree, n: int):
 
 def _run_stage(cfg, policy, stage: Stage, sp, x, positions, scales,
                mode: str, cache=None, max_cache_len: int = 0, kv_codec=None,
-               n_valid=None, append_mask=None, sinks=None, memory=None):
+               n_valid=None, append_mask=None, sinks=None, memory=None,
+               dist=None):
     """Run one stage layer by layer. Returns (x, stats, cache_out).
 
     Decode and chunk modes write each layer's new cache entry back into
@@ -516,7 +517,8 @@ def _run_stage(cfg, policy, stage: Stage, sp, x, positions, scales,
                                  positions, tape, mode, ci,
                                  max_cache_len=max_cache_len,
                                  kv_codec=kv_codec, n_valid=n_valid,
-                                 append_mask=append_mask, memory=memory)
+                                 append_mask=append_mask, memory=memory,
+                                 dist=dist)
             if co is None:
                 continue
             if ci is None:
@@ -589,7 +591,7 @@ def _decoder_stages(cfg):
 
 def forward(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
             scales: Dict[str, Tensor], sinks: Dict[str, Tensor], *,
-            mode: str = "train"):
+            mode: str = "train", dist=None):
     """Full-sequence forward of the training path. Returns ``(logits
     [B, S, V], stats, None)``; ``mode="hidden"`` returns the final-normed
     hidden states instead of logits (the caller fuses head and loss).
@@ -598,7 +600,9 @@ def forward(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
     embeds-input model), optional ``positions`` ([B, S], or [3, B, S]
     for M-RoPE), and ``src_embeds`` [B, Ssrc, D] for an encoder-decoder.
     ``sinks``: the ``g:`` groups' zero sinks (``[count, 3]`` per stacked
-    group), whose gradients are the backward statistics."""
+    group), whose gradients are the backward statistics.  ``dist`` (a
+    :class:`repro_torch.dist.DistCtx`) reaches the MoE blocks' expert
+    parallelism, under the ambient mesh."""
     if mode not in ("train", "hidden"):
         raise ValueError(f"forward runs the train or hidden mode, not "
                          f"{mode!r} (serving: prefill/decode_step/"
@@ -612,7 +616,8 @@ def forward(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
     for stage in _decoder_stages(cfg):
         x, st, _ = _run_stage(cfg, policy, stage,
                               params["stages"][stage.name], x, positions,
-                              scales, "train", sinks=sinks, memory=memory)
+                              scales, "train", sinks=sinks, memory=memory,
+                              dist=dist)
         stats.update(st)
     if mode == "hidden":
         x = L.rmsnorm(x, params["final_norm"])
@@ -631,7 +636,7 @@ def _ce(logits: Tensor, labels: Tensor) -> Tensor:
 
 def loss_fn(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
             scales: Dict[str, Tensor], sinks: Dict[str, Tensor], *,
-            ce_chunk: int = 0):
+            ce_chunk: int = 0, dist=None):
     """Mean cross-entropy over ``batch["labels"]`` (masked by an optional
     ``loss_mask``); returns ``(loss, stats)``.
 
@@ -642,7 +647,8 @@ def loss_fn(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
     with the head's ``qbound`` and statistics per chunk."""
     labels = batch["labels"]
     if not ce_chunk:
-        logits, stats, _ = forward(cfg, policy, params, batch, scales, sinks)
+        logits, stats, _ = forward(cfg, policy, params, batch, scales, sinks,
+                                   dist=dist)
         ll = _ce(logits, labels)
         mask = batch.get("loss_mask")
         if mask is None:
@@ -650,7 +656,7 @@ def loss_fn(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
         return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0), stats
 
     hidden, stats, _ = forward(cfg, policy, params, batch, scales, sinks,
-                               mode="hidden")
+                               mode="hidden", dist=dist)
     tape = QTape(policy, scales, sinks)
     table = params["embed"] if cfg.tied else params["head"]
     w = tape.weight("head/w", table).to(hidden.dtype)
@@ -683,7 +689,7 @@ def loss_fn(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
 
 
 def prefill(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
-            scales, *, max_cache_len: int):
+            scales, *, max_cache_len: int, dist=None):
     """Whole-prompt prefill: returns (last-position logits [B, V], stats,
     decode cache ``{stage: {bkey: {"k","v","pos"}}}``).  ``batch`` as
     :func:`forward`'s; an encoder-decoder's cache also holds its
@@ -701,7 +707,7 @@ def prefill(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
                                       params["stages"][stage.name], x,
                                       positions, scales, "prefill",
                                       max_cache_len=max_cache_len,
-                                      memory=memory)
+                                      memory=memory, dist=dist)
         stats.update(st)
         cache_all[stage.name] = cache_out
     # decode only needs the last position: skip the full-seq head matmul
@@ -713,7 +719,7 @@ def prefill(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
 
 
 def decode_step(cfg: ModelConfig, policy, params, cache, tokens, pos,
-                scales, kv_codec=None, append_mask=None):
+                scales, kv_codec=None, append_mask=None, *, dist=None):
     """One decoding step. ``tokens``: [B] ids, or [B, 1, D] embeds for an
     embeds-input model; ``pos``: int32 [B], each slot's own position (one
     stream: after an M-RoPE prefill all three streams advance together,
@@ -731,7 +737,7 @@ def decode_step(cfg: ModelConfig, policy, params, cache, tokens, pos,
                               params["stages"][stage.name], x, positions,
                               scales, "decode", cache=cache[stage.name],
                               kv_codec=kv_codec, append_mask=append_mask,
-                              memory=memory)
+                              memory=memory, dist=dist)
         stats.update(st)
     logits = _head(cfg, params, x, tape)
     stats.update(tape.stats)
@@ -739,7 +745,7 @@ def decode_step(cfg: ModelConfig, policy, params, cache, tokens, pos,
 
 
 def prefill_chunk_step(cfg: ModelConfig, policy, params, cache, tokens, p0,
-                       n_valid, scales, kv_codec=None):
+                       n_valid, scales, kv_codec=None, *, dist=None):
     """One chunked-prefill step: ``C`` prompt positions against the cache.
 
     ``tokens``: [B, C] ids at positions ``p0 + i``, rows ``>= n_valid``
@@ -762,7 +768,7 @@ def prefill_chunk_step(cfg: ModelConfig, policy, params, cache, tokens, p0,
         x, st, _ = _run_stage(cfg, policy, stage,
                               params["stages"][stage.name], x, positions,
                               scales, "chunk", cache=cache[stage.name],
-                              kv_codec=kv_codec, n_valid=n_valid)
+                              kv_codec=kv_codec, n_valid=n_valid, dist=dist)
         stats.update(st)
     # only the last valid position's logits matter (first sampled token)
     idx = torch.clamp(n_valid - 1, 0, C - 1).long()

@@ -76,9 +76,21 @@ and a ``numerics_log`` the packed pool's §5 timeline.  With none of
 issues the device operations of an engine without them.
 
 Every request ends in one terminal :class:`RequestStatus`.  The engine
-serves token-in decoders on one device; it refuses an encoder-decoder or
-an embeds-input model, as the reference's does, and has no mesh
-(ROADMAP item 22).
+serves token-in decoders; it refuses an encoder-decoder or an
+embeds-input model, as the reference's does.
+
+**Sharded serving** (``dist=`` and ``mesh=``, a bound mesh of
+:func:`repro_torch.launch.mesh.make_serve_mesh`): one engine per rank,
+SPMD.  The weights stay replicated and every rank computes the same
+activations; the KV pool is this rank's shard (kv heads over ``model``,
+the ring window over ``data`` under CP, see
+:func:`repro_torch.serve.kv_pool.make_kv_pool`), the attention layers
+gather the heads before ``wo``, CP decode merges its softmax statistics
+exactly, and MoE blocks run expert-parallel.  Every rank runs the same
+schedule — deadlines read rank 0's clock — and samples
+the same tokens: after each sample the ranks gather their tokens and
+the engine raises if any differ (one small gather a step).  The results
+a caller reads are rank 0's.
 """
 from __future__ import annotations
 
@@ -94,6 +106,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.scale import ScaleState
+from repro_torch.dist import DistCtx, MeshConfigError, serve_pod_ctx
+from repro_torch.launch.mesh import use_mesh
 from repro_torch.models import transformer as T
 
 from . import kv_pool, metrics, paged, sampler
@@ -199,7 +213,7 @@ class ServeEngine:
     def __init__(self, cfg: T.ModelConfig, policy: PrecisionPolicy, params,
                  *, max_slots: int, max_len: int,
                  options: Optional[EngineOptions] = None, device=None,
-                 **legacy):
+                 dist: Optional[DistCtx] = None, mesh=None, **legacy):
         if legacy:
             unknown = sorted(set(legacy) - _LEGACY_ENGINE_KWARGS)
             if unknown:
@@ -217,6 +231,17 @@ class ServeEngine:
             raise ValueError("ServeEngine serves token-in decoder models")
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
+        if dist is None and mesh is not None:
+            # derive the serving context from the mesh's axis sizes
+            dist = serve_pod_ctx(tp=int(mesh.shape.get("model", 1)),
+                                 cp=int(mesh.shape.get("data", 1)))
+        self.dist = dist or DistCtx()
+        self.mesh = mesh
+        if self.dist.active and mesh is None:
+            raise MeshConfigError(
+                "an active DistCtx needs the mesh it names; pass "
+                "mesh=launch.mesh.make_serve_mesh(...)")
+        self._check_ranks = mesh is not None and mesh.size > 1
         self.device = resolve_device(device)
         leaf = params["final_norm"]
         if leaf.device.type != self.device.type:
@@ -235,11 +260,12 @@ class ServeEngine:
         self.exps = ScaleState.create(gs, opts.init_exp,
                                       device=self.device).exps
 
-        kvp = kv_pool.make_kv_pool(
-            cfg, policy, max_slots=max_slots, max_len=max_len,
-            cache_bits=opts.cache_bits, cache_cfg=opts.cache_cfg,
-            page_size=opts.page_size, n_pages=opts.n_pages,
-            device=self.device)
+        with use_mesh(mesh):
+            kvp = kv_pool.make_kv_pool(
+                cfg, policy, self.dist, max_slots=max_slots,
+                max_len=max_len, cache_bits=opts.cache_bits,
+                cache_cfg=opts.cache_cfg, page_size=opts.page_size,
+                n_pages=opts.n_pages, mesh=mesh, device=self.device)
         self.kv = kvp
         self.codec = kvp.codec
         self.cache_cfg = kvp.cache_cfg
@@ -342,6 +368,12 @@ class ServeEngine:
             pkeys = sampler.position_keys(self._dev(draw[0]),
                                           self._dev(draw[1]))
         tok = sampler.sample(safe, pkeys, self.sampler_cfg)
+        if self._check_ranks:
+            drawn = self.mesh.gather_list(tok, self.mesh.axis_names)
+            if any(not torch.equal(drawn[0], t) for t in drawn[1:]):
+                raise RuntimeError(
+                    f"ranks sampled different tokens at step "
+                    f"{self._step_idx}: {[t.tolist() for t in drawn]}")
         if rate is None:
             out = torch.stack([tok, bad.to(torch.int32)]).cpu().numpy()
             return out[0], out[1].astype(bool)
@@ -353,7 +385,8 @@ class ServeEngine:
     def _prefill_impl(self, tokens, keys):
         logits, _, cache = T.prefill(self.cfg, self.policy, self.params,
                                      {"tokens": tokens}, self.exps,
-                                     max_cache_len=self.max_len)
+                                     max_cache_len=self.max_len,
+                                     dist=self.dist)
         # the first generated token sits at absolute position L
         L = np.full(tokens.shape[0], tokens.shape[1], np.int32)
         first, bad = self._sample(logits, **self._draw(keys, L))
@@ -362,7 +395,8 @@ class ServeEngine:
     @torch.no_grad()
     def _insert_impl(self, entry, slots, keys):
         kv_pool.insert(self._pool, entry, slots, self.codec,
-                       self._dev(keys) if self._stochastic else None)
+                       self._dev(keys) if self._stochastic else None,
+                       shardings=self.kv.shardings)
 
     @torch.no_grad()
     def _decode_impl(self, mask=None, nan_mask=None):
@@ -373,7 +407,7 @@ class ServeEngine:
         logits, _, self._pool = T.decode_step(
             self.cfg, self.policy, self.params, self._pool,
             self._dev(self._tok), self._dev(self._pos), self.exps,
-            kv_codec=self.codec, append_mask=mask)
+            kv_codec=self.codec, append_mask=mask, dist=self.dist)
         if nan_mask is not None:
             logits = torch.where(self._dev(nan_mask)[:, None], torch.nan,
                                  logits)
@@ -395,7 +429,7 @@ class ServeEngine:
             self.cfg, self.policy, self.params, sub, self._dev(tokens),
             self._dev([p0]).to(torch.int32),
             self._dev([n_valid]).to(torch.int32), self.exps,
-            kv_codec=self.codec)
+            kv_codec=self.codec, dist=self.dist)
         paged.merge_slot(self._pool, sub, slot)
         # the chunk's token sits at absolute position p0 + n_valid (the
         # prompt length on the final chunk), as whole-prompt prefill's
@@ -436,7 +470,7 @@ class ServeEngine:
                 self._tracer.instant("reject", tid="requests", uid=uid)
             return uid
         dl = deadline_ms if deadline_ms is not None else self.deadline_ms
-        deadline = metrics._now() + dl / 1e3 if dl is not None else None
+        deadline = self._now() + dl / 1e3 if dl is not None else None
         self._queue.append(Request(uid, prompt, max_new, eos_id,
                                    deadline=deadline))
         self.metrics.observe_queue_depth(len(self._queue))
@@ -600,10 +634,21 @@ class ServeEngine:
                     return False
 
     # -- deadlines -----------------------------------------------------------
-    def _expire_queue(self) -> None:
-        if not self._queue:
-            return
+    def _now(self) -> float:
+        """The scheduler's clock: on a mesh rank 0's, so every rank stamps
+        and expires the same requests."""
         now = metrics._now()
+        if self.mesh is None or self.mesh.size == 1:
+            return now
+        t = torch.tensor([now], dtype=torch.float64)
+        return float(self.mesh.gather_list(t, self.mesh.axis_names)[0][0])
+
+    def _expire_queue(self) -> None:
+        # the clock is a collective on a mesh: read it only when a queued
+        # request has a deadline (the same answer on every rank)
+        if not any(r.deadline is not None for r in self._queue):
+            return
+        now = self._now()
         kept: collections.deque = collections.deque()
         for r in self._queue:
             if r.deadline is not None and now > r.deadline:
@@ -618,7 +663,7 @@ class ServeEngine:
                    and self._reqs[s].deadline is not None]
         if not stamped:
             return
-        now = metrics._now()
+        now = self._now()
         for s in stamped:
             if self._reqs[s] is not None and now > self._reqs[s].deadline:
                 self._finish(s, RequestStatus.TIMED_OUT)
@@ -736,7 +781,11 @@ class ServeEngine:
 
     def step(self) -> None:
         """Admit what fits, run one prefill chunk (chunked mode), then
-        decode one token on every active slot."""
+        decode one token on every active slot (under the engine's mesh)."""
+        with use_mesh(self.mesh):
+            self._step()
+
+    def _step(self) -> None:
         self._step_idx += 1
         tr = self._tracer
         if self._faults is not None:

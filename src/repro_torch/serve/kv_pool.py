@@ -118,7 +118,7 @@ def _layer_keys(slot_keys: Tensor, n: int) -> Tensor:
     return prng.fold_in(roots[None], layer[:, None])
 
 
-class PackedKVCodec:
+class PackedKVCodec(L.KVShard):
     """KV-cache codec storing int mantissas + per-layer/per-slot exponents.
 
     Entry layout (leading layer dim ``n`` stripped inside the layer loop)::
@@ -135,11 +135,19 @@ class PackedKVCodec:
     :class:`repro_torch.models.layers.RawKVCodec`: the flash kernels read
     the mantissas directly, and :meth:`load` — the f32 K/V
     materialization — is not called.  Every method is functional.
+
+    On a sharded pool (``tp_axis``/``cp_axis``,
+    :class:`repro_torch.models.layers.KVShard`) the mantissas are this
+    rank's kv heads and ring slots; the rows are quantized whole, so the
+    exponents and counters are the global ones on every rank.
     """
 
-    def __init__(self, config: CacheQuantConfig, fused_decode: bool = False):
+    def __init__(self, config: CacheQuantConfig, fused_decode: bool = False,
+                 *, tp_axis: Optional[str] = None,
+                 cp_axis: Optional[str] = None):
         self.cfg = config
         self.fused_decode = bool(fused_decode)
+        self.tp_axis, self.cp_axis = tp_axis, cp_axis
 
     # -- model-layer protocol (called per layer) ---------------------------
     def load(self, entry: dict):
@@ -156,7 +164,7 @@ class PackedKVCodec:
                                      entry["pos"], q_pos, entry["k_e"],
                                      entry["v_e"], width=self.cfg.width,
                                      scale=scale, window=window,
-                                     causal=causal)
+                                     causal=causal, tp_axis=self.tp_axis)
 
     def fused_prefill(self, entry: dict, qg: Tensor, k_new: Tensor,
                       v_new: Tensor, p0: Tensor, n_valid: Tensor, *,
@@ -166,7 +174,8 @@ class PackedKVCodec:
                                       entry["v_m"], entry["pos"], p0,
                                       n_valid, entry["k_e"], entry["v_e"],
                                       width=self.cfg.width, scale=scale,
-                                      window=window, causal=causal)
+                                      window=window, causal=causal,
+                                      tp_axis=self.tp_axis)
 
     def _control(self, out: dict, k_e, v_e, acc_k, acc_v, apply, k_buf,
                  v_buf) -> dict:
@@ -191,7 +200,8 @@ class PackedKVCodec:
         controller application, no move of the slot's key chain.
         """
         cfg = self.cfg
-        W = entry["k_m"].shape[1]
+        Wl = entry["k_m"].shape[1]
+        W, _ = self.window_shard(Wl)
         slot = pos % W
         out = dict(entry)
         key_k = key_v = None
@@ -209,7 +219,8 @@ class PackedKVCodec:
             st_v = st_v * mf[:, None]
             slot = torch.where(mask, slot, W)
             napp = mf
-        slot = slot[:, None]
+        slot = self.local_slots(slot, Wl)[:, None]
+        k_m, v_m = self.local_heads(k_m, 1), self.local_heads(v_m, 1)
         k_buf = L.scatter_drop(entry["k_m"], slot, k_m[:, None])
         v_buf = L.scatter_drop(entry["v_m"], slot, v_m[:, None])
         out["pos"] = L.scatter_drop(entry["pos"], slot, pos[:, None])
@@ -237,7 +248,8 @@ class PackedKVCodec:
         chunk are dropped from both writes and statistics.
         """
         cfg = self.cfg
-        W = entry["k_m"].shape[1]
+        Wl = entry["k_m"].shape[1]
+        W, _ = self.window_shard(Wl)
         B, C = k_new.shape[:2]
         pos, keep, slot = L.chunk_slots(p0, n_valid, C, W)
         first = p0 == 0                                          # [B]
@@ -255,6 +267,8 @@ class PackedKVCodec:
             key_k, key_v, out["key"] = append_keys(entry["key"])
         k_m, st_k = _pack_chunk(k_new, cfg.width, k_e, keep, key_k, first)
         v_m, st_v = _pack_chunk(v_new, cfg.width, v_e, keep, key_v, first)
+        slot = self.local_slots(slot, Wl)
+        k_m, v_m = self.local_heads(k_m, 2), self.local_heads(v_m, 2)
         k_buf = L.scatter_drop(entry["k_m"], slot, k_m)
         v_buf = L.scatter_drop(entry["v_m"], slot, v_m)
         pos_buf = torch.where(first[:, None], -1, entry["pos"])
@@ -357,7 +371,10 @@ class KVPool:
     """A constructed serve KV pool: tensors + codec + quantization config.
 
     ``codec`` is ``None`` for the plain f32 ring pool on the plain
-    attention path (the model layer falls back to ``RAW_KV_CODEC``).
+    attention path of one process (the model layer falls back to
+    ``RAW_KV_CODEC``).  ``shardings`` is the entry tree
+    (:meth:`repro_torch.dist.ShardingRules.pool_shardings`) the pool was
+    cut by on a mesh, ``None`` otherwise.
     """
 
     pool: dict
@@ -366,6 +383,7 @@ class KVPool:
     page_size: int = 0                # 0 = slot-major
     total_pages: int = 0              # incl. the null page; 0 if slot-major
     nblocks: int = 0                  # block-table width; 0 if slot-major
+    shardings: Optional[dict] = None
 
     @property
     def packed(self) -> bool:
@@ -376,11 +394,12 @@ class KVPool:
         return bool(self.page_size)
 
 
-def make_kv_pool(cfg: T.ModelConfig, policy, *, max_slots: int,
+def make_kv_pool(cfg: T.ModelConfig, policy, dist=None, *, max_slots: int,
                  max_len: int, cache_bits: int = 0,
                  cache_cfg: Optional[CacheQuantConfig] = None,
                  page_size: Optional[int] = None,
-                 n_pages: Optional[int] = None, device=None) -> KVPool:
+                 n_pages: Optional[int] = None, mesh=None,
+                 device=None) -> KVPool:
     """Build the serve KV pool and its codec on ``device``.
 
     ``cache_bits`` 0 keeps f32 K/V, 8/16 packs mantissas;
@@ -388,11 +407,48 @@ def make_kv_pool(cfg: T.ModelConfig, policy, *, max_slots: int,
     ``page_size`` (``None`` takes ``policy.page_size``) > 0 builds the
     paged pool of :mod:`repro_torch.serve.paged` with ``n_pages`` pages
     (default: full residency plus the null page); 0 the slot-major one.
+
+    With an active ``dist`` and its ``mesh`` (a bound mesh,
+    :func:`repro_torch.launch.mesh.make_serve_mesh`) the pool is this
+    rank's shard, cut by
+    :meth:`repro_torch.dist.ShardingRules.pool_shardings`: kv heads over
+    ``model`` (TP), and — for slot-major pools under ``cp_decode`` — the
+    ring window over ``data`` (CP).  Incoherent requests raise
+    :class:`repro_torch.dist.MeshConfigError` here, at construction: an
+    active context without its mesh, axes missing from the mesh, CP over
+    a paged arena, a window the CP degree does not divide.
     """
+    from repro_torch.dist import DistCtx, MeshConfigError
+
+    dist = dist or DistCtx()
+    if dist.active and mesh is None:
+        raise MeshConfigError(
+            "an active DistCtx needs the mesh it names; pass "
+            "mesh=launch.mesh.make_serve_mesh(...)")
+    if dist.active:
+        missing = [a for a in dist.all_axes if a not in mesh.shape]
+        if missing:
+            raise MeshConfigError(
+                f"DistCtx names mesh axes {missing} absent from the mesh "
+                f"{dict(mesh.shape)}")
     device = resolve_device(device)
     fused = policy.fused_decode
     psize = int(page_size if page_size is not None
                 else getattr(policy, "page_size", 0) or 0)
+    tp_axis = "model" if (dist.active and "model" in dist.all_axes) else None
+    cp = bool(dist.active and dist.cp_decode and dist.cp_axis)
+    if cp and psize:
+        raise MeshConfigError(
+            "context parallelism cannot shard a paged arena: pages tile "
+            "the window axis CP would shard — use the slot-major pool "
+            "(page_size=0) with cp, or drop cp for paged serving")
+    if cp:
+        cp_size = int(mesh.shape.get(dist.cp_axis, 1))
+        if cp_size > 1 and max_len % cp_size:
+            raise MeshConfigError(
+                f"max_len {max_len} is not divisible by the CP degree "
+                f"{cp_size}: the KV window must shard evenly")
+    cp_axis = dist.cp_axis if cp else None
     if cache_bits:
         ccfg = cache_cfg or CacheQuantConfig(width=cache_bits)
         if ccfg.width != cache_bits:
@@ -405,38 +461,63 @@ def make_kv_pool(cfg: T.ModelConfig, policy, *, max_slots: int,
             raise ValueError("paged KV pool requires the dense attention "
                              "family (chunked prefill writes pages "
                              "incrementally)")
-        codec = paged.PagedKVCodec(psize, ccfg, fused_decode=fused)
+        codec = paged.PagedKVCodec(psize, ccfg, fused_decode=fused,
+                                   tp_axis=tp_axis)
         pool = paged.make_paged_pool(cfg, max_slots, max_len, codec,
                                      n_pages=n_pages, device=device)
         nblocks = -(-max_len // psize)
         total = n_pages if n_pages is not None else 1 + max_slots * nblocks
-        return KVPool(pool=pool, codec=codec, cache_cfg=ccfg,
-                      page_size=psize, total_pages=total, nblocks=nblocks)
-    if ccfg is not None:
-        codec = PackedKVCodec(ccfg, fused_decode=fused)
+        kvp = KVPool(pool=pool, codec=codec, cache_cfg=ccfg,
+                     page_size=psize, total_pages=total, nblocks=nblocks)
     else:
-        codec = L.RawKVCodec(fused_decode=True) if fused else None
-    pool = make_pool(cfg, max_slots, max_len,
-                     codec if ccfg is not None else None, device=device)
-    return KVPool(pool=pool, codec=codec, cache_cfg=ccfg)
+        if ccfg is not None:
+            codec = PackedKVCodec(ccfg, fused_decode=fused, tp_axis=tp_axis,
+                                  cp_axis=cp_axis)
+        elif fused or dist.active:
+            # an f32 pool on the flash kernels (width=None), or one
+            # process's shard of an f32 pool
+            codec = L.RawKVCodec(fused_decode=fused, tp_axis=tp_axis,
+                                 cp_axis=cp_axis)
+        else:
+            codec = None
+        pool = make_pool(cfg, max_slots, max_len,
+                         codec if ccfg is not None else None, device=device)
+        kvp = KVPool(pool=pool, codec=codec, cache_cfg=ccfg)
+    if dist.active:
+        from repro_torch.dist.sharding import ShardingRules, shard_tree
+        rules = ShardingRules(mesh, shard_batch=False, seq_shard_cache=cp)
+        kvp.shardings = rules.pool_shardings(kvp.pool)
+        kvp.pool = shard_tree(kvp.pool, kvp.shardings, mesh)
+    return kvp
 
 
 def insert(pool: dict, raw_entry: dict, slots: Tensor,
            codec: Optional[PackedKVCodec] = None,
-           slot_keys: Optional[Tensor] = None) -> dict:
+           slot_keys: Optional[Tensor] = None,
+           shardings: Optional[dict] = None) -> dict:
     """Write a fresh prefill cache (group size g) into pool rows ``slots``,
     in place.  In packed mode each attention entry is quantized via
     ``codec.pack_entry`` first (``slot_keys`` [g, 2] seeding a stochastic
     pool's chains); a mamba entry's conv window and state are copied as
-    they are.  Returns ``pool``."""
+    they are.  On a sharded pool (``shardings``, the pool's entry tree,
+    under its ambient mesh) the whole entry is packed and this rank's
+    shard of it written.  Returns ``pool``."""
     slots = slots.long()
+    if shardings is not None:
+        from repro_torch.dist.sharding import shard_local
+        from repro_torch.launch.mesh import ambient_mesh
+        mesh = ambient_mesh()
     for sname, sc in pool.items():
         for bkey, pe in sc.items():
             src = raw_entry[sname][bkey]
             if codec is not None and "k_m" in pe:
                 src = codec.pack_entry(src, slot_keys)
             for name, dst in pe.items():
-                dst[:, slots] = src[name].to(dst.dtype)
+                val = src[name]
+                if shardings is not None:
+                    val = shard_local(val, shardings[sname][bkey][name],
+                                      mesh)
+                dst[:, slots] = val.to(dst.dtype)
     return pool
 
 

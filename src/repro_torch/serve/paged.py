@@ -109,7 +109,7 @@ def _pack_paged_rows(x: Tensor, width: int, e_rows: Tensor, keep: Tensor,
     return m.clamp_(qmin, qmax).to(container_dtype(width)), stats
 
 
-class PagedKVCodec:
+class PagedKVCodec(L.KVShard):
     """KV-cache codec over paged storage + per-request block tables.
 
     Entry layout (leading layer dim ``n`` stripped inside the layer loop;
@@ -135,12 +135,16 @@ class PagedKVCodec:
     """
 
     def __init__(self, page_size: int, config=None,
-                 fused_decode: bool = False):
+                 fused_decode: bool = False, *,
+                 tp_axis: Optional[str] = None):
         if page_size < 1:
             raise ValueError(f"page_size {page_size} < 1")
         self.page_size = page_size
         self.cfg = config
         self.fused_decode = bool(fused_decode)
+        # serving TP shards the kv heads inside every page; pages already
+        # tile the window, so a paged pool never shards it (cp_axis None)
+        self.tp_axis = tp_axis
 
     @property
     def width(self) -> Optional[int]:
@@ -161,7 +165,7 @@ class PagedKVCodec:
         return attn_ops.flash_decode_paged(
             qg, entry["k_m"], entry["v_m"], entry["bt"], entry["pos"], q_pos,
             entry.get("k_e"), entry.get("v_e"), width=self.width,
-            scale=scale, window=window, causal=causal)
+            scale=scale, window=window, causal=causal, tp_axis=self.tp_axis)
 
     def fused_prefill(self, entry: dict, qg: Tensor, k_new: Tensor,
                       v_new: Tensor, p0: Tensor, n_valid: Tensor, *,
@@ -170,7 +174,8 @@ class PagedKVCodec:
         return attn_ops.flash_prefill_paged(
             qg, k_new, v_new, entry["k_m"], entry["v_m"], entry["bt"],
             entry["pos"], p0, n_valid, entry.get("k_e"), entry.get("v_e"),
-            width=self.width, scale=scale, window=window, causal=causal)
+            width=self.width, scale=scale, window=window, causal=causal,
+            tp_axis=self.tp_axis)
 
     def _control(self, out: dict, k_e, v_e, acc_k, acc_v, apply, k_buf,
                  v_buf) -> dict:
@@ -218,8 +223,10 @@ class PagedKVCodec:
         out = dict(entry)
         out["pos"] = L.scatter_drop(entry["pos"], wrow, posi[:, None])
         if self.cfg is None:
-            out["k_m"] = _put(entry["k_m"], (wpg, off), k_new)
-            out["v_m"] = _put(entry["v_m"], (wpg, off), v_new)
+            out["k_m"] = _put(entry["k_m"], (wpg, off),
+                              self.local_heads(k_new, 1))
+            out["v_m"] = _put(entry["v_m"], (wpg, off),
+                              self.local_heads(v_new, 1))
             return out
 
         cfg = self.cfg
@@ -241,8 +248,8 @@ class PagedKVCodec:
                               stochastic_keys=key_v)
         mf = mask.to(torch.float32)[:, None]
         st_k, st_v = st_k * mf, st_v * mf
-        k_buf = _put(entry["k_m"], (wpg, off), k_m)
-        v_buf = _put(entry["v_m"], (wpg, off), v_m)
+        k_buf = _put(entry["k_m"], (wpg, off), self.local_heads(k_m, 1))
+        v_buf = _put(entry["v_m"], (wpg, off), self.local_heads(v_m, 1))
 
         def _stats(name, st):
             t = _put(entry[name], (wfresh,), 0.0)
@@ -295,8 +302,10 @@ class PagedKVCodec:
         out["pos"] = L.scatter_drop(entry["pos"], torch.where(keep, pos, Wp),
                                     pos)
         if self.cfg is None:
-            out["k_m"] = _put(entry["k_m"], (wpg, off), k_new)
-            out["v_m"] = _put(entry["v_m"], (wpg, off), v_new)
+            out["k_m"] = _put(entry["k_m"], (wpg, off),
+                              self.local_heads(k_new, 2))
+            out["v_m"] = _put(entry["v_m"], (wpg, off),
+                              self.local_heads(v_new, 2))
             return out
 
         cfg = self.cfg
@@ -324,8 +333,8 @@ class PagedKVCodec:
                                       key_k, det)
         v_m, rst_v = _pack_paged_rows(v_new, cfg.width, v_e[pages], keep,
                                       key_v, det)
-        k_buf = _put(entry["k_m"], (wpg, off), k_m)
-        v_buf = _put(entry["v_m"], (wpg, off), v_m)
+        k_buf = _put(entry["k_m"], (wpg, off), self.local_heads(k_m, 2))
+        v_buf = _put(entry["v_m"], (wpg, off), self.local_heads(v_m, 2))
 
         wpg_f = wpg.reshape(-1)
 

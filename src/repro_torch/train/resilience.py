@@ -20,11 +20,11 @@
 Bit-exact resume is the checkpoint contract: the saved tree holds the
 :class:`~repro_torch.train.state.TrainState` (parameters, optimizer
 state, DFXP exponents and the pre-reset §5 ``acc`` windows, step), the
-error-feedback state (``{}`` until ROADMAP item 22), the base threefry
-key and the data cursor.  Train N steps solo == train K, crash, restore,
-train N - K, bit for bit: the per-step key is ``fold_in(base, cursor)``,
-both checkpointed.  The reference's ``compress_bits`` comes with
-ROADMAP item 22 and raises.
+error-feedback state (the residuals of ``compress_bits`` gradient
+compression, :func:`repro_torch.dist.compress.ef_init`; ``{}`` without
+it), the base threefry key and the data cursor.  Train N steps solo ==
+train K, crash, restore, train N - K, bit for bit: the per-step key is
+``fold_in(base, cursor)``, both checkpointed.
 """
 from __future__ import annotations
 
@@ -126,10 +126,6 @@ class TrainSupervisor:
                  faults=None, tracer=None, metrics=None,
                  numerics_log=None, numerics_every: int = 0,
                  bundle_dir: Optional[str] = None):
-        if compress_bits is not None:
-            raise NotImplementedError(
-                "compress_bits (error-feedback gradient compression) is not "
-                "ported yet (ROADMAP module item 22)")
         self.state = state
         self.batch_fn = batch_fn
         self.rng = prng.as_key(rng, state.step.device)
@@ -142,11 +138,23 @@ class TrainSupervisor:
         self.numerics_log = numerics_log
         self.numerics_every = numerics_every or policy.update_interval
         self.bundle_dir = bundle_dir
-        self.ef: dict = {}
+        ef_transform = None
+        if compress_bits is not None:
+            from repro_torch.dist.compress import compress_tree, ef_init
+
+            def ef_transform(grads, ef):
+                # the reference's trainer compresses without an
+                # all-reduce (one process: axis_name=None)
+                return compress_tree(grads, ef, compress_bits)
+
+            self.ef = ef_init(state.params)
+        else:
+            self.ef = {}
         self._step_fn = make_train_step(
             loss_fn, group_shapes, policy, opt_cfg,
             microbatches=microbatches, grad_transform=grad_transform,
-            numerics_tap=numerics_log is not None, supervise=True,
+            numerics_tap=numerics_log is not None,
+            ef_transform=ef_transform, supervise=True,
             runaway_ovf=runaway_ovf)
 
         self.cursor = 0                     # next data position

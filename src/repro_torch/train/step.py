@@ -37,8 +37,12 @@ those streams repeat across processes only under a fixed
 and a branch-free ``torch.where`` select that discards a tripped step's
 update on the device.
 
-Not ported here (ROADMAP): ``numerics_tap`` (item 19) and
-``grad_transform``/``ef_transform`` (item 22); each raises if asked for.
+``grad_transform`` maps the mean gradients (e.g. DFXP compression) and
+``ef_transform`` ``(grads, ef) -> (grads, ef)`` threads an error-feedback
+state through the step (the residuals of
+:func:`repro_torch.dist.compress.compress_tree`), both before the clip,
+as the reference applies them; the ``ef`` state rides the signature so a
+checkpoint can hold it and a resume is bit-exact.
 """
 from __future__ import annotations
 
@@ -195,9 +199,10 @@ def make_train_step(
     rounding of ``policy.stochastic_rounding`` only, as in the reference;
     the loss function draws its own dropout keys.
 
-    ``supervise=True`` makes the signature ``step(state, batch, rng, ef,
-    inj) -> (state, metrics, ef)`` (``ef`` is ``{}`` until the
-    error-feedback transforms are ported, ROADMAP item 22):
+    ``ef_transform`` makes the signature ``step(state, batch, rng, ef)
+    -> (state, metrics, ef)``.  ``supervise=True`` makes it ``step(state,
+    batch, rng, ef, inj) -> (state, metrics, ef)`` (``ef`` is ``{}``
+    without an ``ef_transform``):
 
     * ``inj`` is the fault-injection input (:func:`benign_injection`):
       ``loss_scale`` multiplies the loss before autograd (a loss spike
@@ -215,10 +220,6 @@ def make_train_step(
       runaway-only trip (the §5 controller must see the overflow window
       to move out of it).
     """
-    if grad_transform is not None or ef_transform is not None:
-        raise NotImplementedError(
-            "grad_transform/ef_transform is not ported yet (ROADMAP module "
-            "item 22)")
     if supervise and policy.storage == "packed" and opt_cfg.kind != "sgd":
         # the step returns adamw's moments in f32 where the state held them
         # packed, and the discard selects between the two; the reference's
@@ -278,6 +279,12 @@ def make_train_step(
             if inj is not None:
                 poison = torch.where(inj["grad_nan"], float("nan"), 0.0)
                 grads = tree_map(lambda g: g + poison.to(g.dtype), grads)
+
+            if grad_transform is not None:
+                grads = grad_transform(grads)
+            new_ef = ef
+            if ef_transform is not None:
+                grads, new_ef = ef_transform(grads, ef)
 
             # ---- 2. clip -------------------------------------------------
             gnorm = global_norm(grads)
@@ -368,7 +375,7 @@ def make_train_step(
             new_state = TrainState(params=new_params, opt=new_opt,
                                    scale=new_scale, step=state.step + 1)
             if not supervise:
-                return new_state, metrics, ef
+                return new_state, metrics, new_ef
 
             # ---- sentinels and the on-device discard ---------------------
             bad_loss = ~torch.isfinite(loss)
@@ -399,11 +406,16 @@ def make_train_step(
                 # can move the exponent out of the overflow regime
                 scale=_select(nan_bad, state.scale, new_state.scale),
                 step=torch.where(any_bad, state.step, new_state.step))
-            return new_state, metrics, ef     # no ef_transform: unchanged
+            if ef_transform is not None:
+                new_ef = _select(any_bad, ef, new_ef)
+            return new_state, metrics, new_ef
 
     if supervise:
         def step(state: TrainState, batch, rng, ef, inj):
             return _impl(state, batch, rng, ef, inj)
+    elif ef_transform is not None:
+        def step(state: TrainState, batch, rng, ef):
+            return _impl(state, batch, rng, ef, None)
     else:
         def step(state: TrainState, batch, rng=None):
             new_state, metrics, _ = _impl(state, batch, rng, {}, None)

@@ -17,7 +17,8 @@ handlers, which work in a main thread only):
     (``--smoke``): the DFXP groups and step-1 loss agree, and a kill at
     cursor 4 resumes to the solo run's final loss and checkpoint, bit
     for bit;
-  * the unported option raises, naming its ROADMAP item.
+  * ``--grad-compress-bits``: the two launchers agree at one argv, and a
+    compressed run's kill and resume is bit-exact, residuals included.
 
 As a script, the reference's launcher on the CPU at the example's
 LM_100M recipe (``examples/train_lm.py``: adamw lr 3e-3, batch 16, seq
@@ -290,10 +291,47 @@ def test_default_arch_kill_and_resume_match_the_solo_run(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [(["--grad-compress-bits", "8"], 22)])
-def test_unported_options_raise(flag, item):
+def test_unported_options_raise(flag, item, tmp_path):
+    """``--grad-compress-bits`` (ROADMAP item ``item``, ported): the
+    reference's launcher and the port's at one argv with the flag print
+    the same group count and step-1 and step-2 losses (1e-4, as
+    :func:`test_launchers_agree_at_one_argv`); and a compressed run
+    killed at cursor 5 resumes to the solo run's final loss and
+    checkpoint, the error-feedback residuals (``ef/...``) among its
+    leaves, bit for bit."""
+    from repro.launch import train as jtrain
     from repro_torch.launch import train as ttrain
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        ttrain.main(SMOKE + ["--steps", "1"] + flag)
+    argv = SMOKE[:-2] + ["--steps", "2"] + flag
+    runs = []
+    for main, extra in ((jtrain.main, []), (ttrain.main, SMOKE[-2:])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(argv + extra)
+        runs.append(parse_run(buf.getvalue()))
+    ref, port = runs
+    assert port["groups"] == ref["groups"] == 65
+    for s in (1, 2):
+        assert abs(port["losses"][s] - ref["losses"][s]) <= 1e-4
+
+    argv = SMOKE + ["--steps", "6", "--ckpt-every", "2", "--calibrate-steps",
+                    "0", "--update-interval", "4"] + flag
+    solo = _cli(argv + ["--ckpt-dir", str(tmp_path / "solo")])
+    assert solo.returncode == 0, solo.stderr
+    killed = _cli(argv + ["--ckpt-dir", str(tmp_path / "ck"),
+                          "--kill-at", "5"])
+    assert killed.returncode == -signal.SIGKILL, killed.stderr
+    resumed = _cli(argv + ["--ckpt-dir", str(tmp_path / "ck")])
+    assert resumed.returncode == 0, resumed.stderr
+    assert re.search(r"^resumed from cursor [24]$", resumed.stdout, re.M)
+    assert _summary(resumed.stdout)["final_loss"] == \
+        _summary(solo.stdout)["final_loss"]
+    (s1, a), (s2, b) = (_ckpt_leaves(str(tmp_path / "solo")),
+                        _ckpt_leaves(str(tmp_path / "ck")))
+    assert s1 == s2 == 6 and a.keys() == b.keys()
+    ef = [k for k in a if k.startswith("ef/")]
+    assert ef and any(a[k].any() for k in ef)
+    for k in a:
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
 
 
 if __name__ == "__main__":

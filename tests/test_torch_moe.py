@@ -213,15 +213,70 @@ def test_moe_ffn_is_deterministic():
         assert torch.equal(runs[0][3][k], runs[1][3][k]), k
 
 
-def test_expert_parallelism_raises():
+def _ep_rank(rank, params, x, dropless):
+    """One rank of a TP = 2 serving world: granite's MoE block expert-
+    parallel over ``model`` (the tokens replicated, the experts halved)."""
+    from repro_torch.dist import serve_pod_ctx
+    from repro_torch.launch import mesh as M
+    _, tspec = _specs("granite_moe_1b")
+    p = {k: torch.from_numpy(np.array(v)) for k, v in _flat(params).items()}
+    exps = {n: torch.tensor(-6.0) for n in _scales()}
+    tape = TTape(TPolicy("dfxp"), exps, {})
+    with M.use_mesh(M.make_serve_mesh(tp=2)):
+        y = TM.moe_ffn(_unflat(p), tspec, torch.from_numpy(x), tape, PFX,
+                       dist=serve_pod_ctx(tp=2), dropless=dropless)
+    return y.numpy(), {k: v.numpy() for k, v in tape.stats.items()}
+
+
+@pytest.mark.parametrize("needs_grad", ["x", "w_up"])
+def test_expert_parallelism_refuses_autograd(needs_grad):
+    """The expert-parallel collectives other than the compressed
+    ``all_to_all`` carry no gradient, so an active context under
+    autograd raises instead of training with missing gradients."""
+    from repro_torch.dist import serve_pod_ctx
     _, tspec = _specs("granite_moe_1b")
     params, x = _inputs("granite_moe_1b")
-
-    class Active:
-        active = True
-
+    p = _unflat({k: torch.from_numpy(np.array(v))
+                 for k, v in _flat(params).items()})
+    xt = torch.from_numpy(x)
+    if needs_grad == "x":
+        xt.requires_grad_(True)
+    else:
+        p["w_up"].requires_grad_(True)
     tape = TTape(TPolicy("float32"), {})
+    with pytest.raises(NotImplementedError, match="no backward"):
+        TM.moe_ffn(p, tspec, xt, tape, PFX, dist=serve_pod_ctx(tp=2))
+
+
+@pytest.mark.parametrize("dropless", [False, True], ids=["prefill", "decode"])
+def test_expert_parallelism_raises(dropless):
+    """Expert parallelism (ROADMAP item 22, ported): granite's MoE block
+    in a world of two ranks under ``serve_pod_ctx(tp=2)`` — each rank
+    runs its 20 of the 40 experts behind the ``all_to_all``s — matches
+    the local block within 1e-5 of its largest output (the bound of
+    ``tests/test_dist.py``), on every rank; the statistics are summed
+    over the ranks, as the reference's ``psum`` over ``all_axes``: the
+    weight sites' slices add up to the whole banks', the activation sites
+    inside the island (dispatch, hidden, expert outputs) of the
+    replicated tokens count twice, and the block's ``out`` site, outside
+    it, once."""
+    from repro_torch.launch import mesh as M
+    _, tspec = _specs("granite_moe_1b")
+    params, x = _inputs("granite_moe_1b")
     p = {k: torch.from_numpy(np.array(v)) for k, v in _flat(params).items()}
-    with pytest.raises(NotImplementedError, match="item 22"):
-        TM.moe_ffn(_unflat(p), tspec, torch.from_numpy(x), tape, PFX,
-                   dist=Active())
+    exps = {n: torch.tensor(-6.0) for n in _scales()}
+    tape = TTape(TPolicy("dfxp"), exps, {})
+    want = TM.moe_ffn(_unflat(p), tspec, torch.from_numpy(x), tape, PFX,
+                      dropless=dropless).numpy()
+    for y, stats in M.spawn(_ep_rank, 2, params, x, dropless, threads=1,
+                            timeout_s=120.0):
+        err = np.abs(y - want).max() / np.abs(want).max()
+        assert err < 1e-5, err
+        assert set(stats) == set(tape.stats)
+        for k, v in tape.stats.items():
+            island = k in (f"a:{PFX}/dispatch", f"a:{PFX}/pre",
+                           f"a:{PFX}/expert_out")
+            mult = 2 if island else 1
+            np.testing.assert_array_equal(stats[k][..., 2],
+                                          mult * v.numpy()[..., 2],
+                                          err_msg=k)

@@ -346,9 +346,52 @@ def test_supervisor_outcome_counters_in_metrics():
     assert reg.counter("train_ckpt_commits").value == 0     # no manager
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 22"):
-        _sup(compress_bits=8)
+def test_unported_options_raise(tmp_path):
+    """``compress_bits`` (ROADMAP item 22, ported): the supervisor's
+    error-feedback gradient compression against the reference's — the
+    same losses (step 1 exactly: compression acts after the gradient)
+    and residuals of the parameters' shapes — and a compressed run
+    resumes bit for bit with the residuals in the checkpoint."""
+    n = 4
+    sup = _sup(compress_bits=8)
+    assert {k: tuple(v.shape) for k, v in flatten(sup.ef)} == \
+        {k: tuple(v.shape) for k, v in flatten(sup.state.params)}
+    assert not any(v.any() for _, v in flatten(sup.ef))
+    sup.run(n)
+    jpol = JPolicy("dfxp", comp_width=10, update_width=12, update_interval=4)
+    jcfg = JMX.MaxoutConfig(hidden=(48, 48), pieces=3)
+    jparams = JMX.init_params(jcfg, jax.random.PRNGKey(7))
+    jsup = JSup(
+        lambda p, b, s, e: JMX.loss_fn(jcfg, jpol, p, b, e, s,
+                                       rng=jax.random.PRNGKey(1)),
+        GS, jpol, JOpt(**OPT),
+        j_init_state(jparams, j_sgd_init(jparams), GS, jpol, init_exp=-8.0),
+        batch_fn=lambda c: {k: jnp.asarray(v)
+                            for k, v in DATA.batch(c, 64).items()},
+        rng=jax.random.PRNGKey(0), compress_bits=8)
+    jsup.run(n)
+    assert sup.losses[0] == pytest.approx(jsup.losses[0], rel=1e-6)
+    np.testing.assert_allclose(sup.losses, jsup.losses, rtol=1e-3)
+    jef = {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+           for path, v in jax.tree_util.tree_flatten_with_path(jsup.ef)[0]}
+    assert any(v.any() for _, v in flatten(sup.ef))
+    for name, v in flatten(sup.ef):
+        assert v.dtype == torch.float32, name
+        assert v.shape == jef[name].shape, name
+        scale = float(np.abs(jef[name]).max())
+        assert float(v.abs().max()) <= 2 * scale + 1e-12, name
+    solo = _sup(compress_bits=8)
+    solo.run(7)
+    d = str(tmp_path / "ck")
+    first = _sup(compress_bits=8, manager=CheckpointManager(d))
+    first.run(5)
+    del first
+    second = _sup(compress_bits=8, manager=CheckpointManager(d))
+    assert second.resume() == 5
+    second.run(2)
+    _assert_bit_identical(solo, second, 5)
+    assert any(name.startswith("ef/") for name, _ in
+               flatten(second.ckpt_tree()))
 
 
 def test_packed_adamw_under_supervise_raises():

@@ -178,9 +178,13 @@ def test_loose_keywords_warn_and_reset_metrics():
         eng = tserve.ServeEngine(cfg, pol, params, max_slots=1, max_len=32,
                                  device="cpu", queue_cap=1)
     assert eng.queue_cap == 1
-    with pytest.raises(TypeError, match="mesh"):
+    # an active serving context without its mesh fails typed, at
+    # construction, as the reference's engine does
+    from repro_torch.dist import DistCtx, MeshConfigError
+    with pytest.raises(MeshConfigError, match="needs the mesh"):
         tserve.ServeEngine(cfg, pol, params, max_slots=1, max_len=32,
-                           device="cpu", mesh=object())
+                           device="cpu", dist=DistCtx(
+                               ep_axis="model", all_axes=("model",)))
     eng.submit(prompts()[2], max_new=2)
     eng.submit(prompts()[2], max_new=2)
     eng.run()

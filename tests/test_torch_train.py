@@ -330,10 +330,49 @@ def test_train_step_matches_reference(name):
 
 
 def test_train_step_raises_on_what_is_not_ported():
+    """``grad_transform`` and ``ef_transform`` (ROADMAP item 22, ported):
+    a step halving the gradients and compressing them with error
+    feedback (8-bit :func:`compress_tree`, the ``ef`` state in and out)
+    against the reference's jitted one — the loss, the residuals, the
+    controller's windows and the stored parameters."""
+    from repro.dist.compress import compress_tree as j_compress_tree
+    from repro.dist.compress import ef_init as j_ef_init
+    from repro_torch.dist.compress import compress_tree, ef_init
+    jpol, tpol = JPolicy("dfxp"), TPolicy("dfxp")
+    jcfg = JMX.MaxoutConfig(**PI)
+    tcfg = _tcfg(jcfg)
+    gs = JMX.group_shapes(jcfg)
+    jp = JMX.init_params(jcfg, jax.random.PRNGKey(9))
+    tp = maxout_params_from_jax(tcfg, jax.tree.map(np.asarray, jp),
+                                device="cpu")
+    jstate = j_init_state(jp, jopt.sgd_init(jp), gs, jpol, init_exp=-7.0)
+    tstate = t_init_state(tp, topt.sgd_init(tp), gs, tpol, init_exp=-7.0)
+    jstep = jax.jit(j_make_step(
+        lambda p, b, s, e: JMX.loss_fn(jcfg, jpol, p, b, e, s), gs, jpol,
+        jopt.OptConfig(**OPT), grad_transform=lambda g: jax.tree.map(
+            lambda x: x * 0.5, g),
+        ef_transform=lambda g, ef: j_compress_tree(g, ef, 8)))
+    tstep = t_make_step(
+        lambda p, b, s, e: TMX.loss_fn(tcfg, tpol, p, b, e, s), gs, tpol,
+        topt.OptConfig(**OPT), grad_transform=lambda g: topt.tree_map(
+            lambda x: x * 0.5, g),
+        ef_transform=lambda g, ef: compress_tree(g, ef, 8))
+    jef, tef = j_ef_init(jstate.params), ef_init(tstate.params)
+    for i in range(2):
+        b = tdata.SyntheticImages().batch(i, 32)
+        jstate, jm, jef = jstep(jstate, _jbatch(b), jax.random.PRNGKey(0),
+                                jef)
+        tstate, tm, tef = tstep(tstate, _tbatch(b), None, tef)
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+    for k, v in _flat(_np(jef)).items():
+        np.testing.assert_array_equal(_flat(_np(tef))[k], v, err_msg=k)
+    for k in jstate.scale.acc:
+        np.testing.assert_array_equal(np.asarray(jstate.scale.acc[k]),
+                                      tstate.scale.acc[k].numpy(), err_msg=k)
+    _assert_grid_close(_np(tstate.params), _np(jstate.params),
+                       _exps_np(tstate.scale.exps), "p:", "dfxp")
     pol, cfg = TPolicy("dfxp"), topt.OptConfig()
-    for kw in (dict(grad_transform=lambda g: g), dict(ef_transform=print)):
-        with pytest.raises(NotImplementedError, match="item"):
-            t_make_step(lambda *a: None, {}, pol, cfg, **kw)
     # the supervised step is ported (tests/test_torch_resilience.py)
     assert callable(t_make_step(lambda *a: None, {}, pol, cfg,
                                 supervise=True, runaway_ovf=1e-3))
