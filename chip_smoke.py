@@ -173,7 +173,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     and a bit-exact resume, the residuals included); the serve CLI's
     ``--smoke --tp 2`` spawning its own world (started after 15, it runs
     beside the robustness and sharded phases), its tokens = the run
-    without ``--tp``.
+    without ``--tp``;
+21. the multi-pod dry run (``repro_torch.launch.dryrun``, the meta
+    device): one cell of each kind (granite-moe-1b ``train_4k``,
+    seamless ``prefill_32k``, llama3-8B ``decode_32k``, zamba2
+    ``long_500k``) on the 16x16 and 2x16x16 meshes, in a subprocess
+    started after 2 that must create no CUDA context: every record
+    ``ok``, its per-device bytes printed against the card's memory; then
+    here, with ``memory_allocated`` unchanged across them, the cells of
+    17(c)'s granite run (8 x 64, SGD, 1x1) and 16's LM_100M run (16 x
+    128, adamw): each state's ``argument_bytes`` = the bytes of the state
+    the card held, exactly; the predicted peak (arguments + temp) and
+    its split printed beside the measured one.
 
 The ``kernels`` JSON gives each attention kernel's device time per call
 inside the profiled serving step (``in_step_ms_per_call``) beside its
@@ -2010,7 +2021,7 @@ def lm_site_launches(cfg, B: int, S: int, S_src: int = 0):
                 dots += n_w * n
             elif blk.kind == "moe" and not cfg.shared_expert:
                 E, F = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
-                C = moe._capacity(N, cfg.moe_spec)
+                C = moe.capacity(N, cfg.moe_spec)
                 weights += [E * d * F] * 3 * n
                 acts += [E * C * d, E * C * F, E * C * d, N * d, N * d] * n
             else:
@@ -2220,6 +2231,7 @@ def phase_train_lm():
         launches = train_launches()
         res["launches"] = launches
         res["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - base
+        res["state_bytes"] = _state_bytes(state)
         k1s, k2s = lm_site_launches(cfg, 16, 128)
         want = {"dfxp_quantize": 60 * k1s, "qmatmul": 60 * k2s}
         f32, _ = _lm_in_process(LM_ARGV + LM_F32 + ["--steps", "20"])
@@ -3392,6 +3404,139 @@ def phases_dist(eng, lm: dict, t0, cli) -> dict:
 # (zamba2), windowed and qk-norm dense (gemma3, qwen3), phi3
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the multi-pod dry run: repro_torch.launch.dryrun on the meta device
+# ---------------------------------------------------------------------------
+
+# one cell of each kind, each on both meshes: ~25 s of traces on a
+# sandbox CPU, in a subprocess beside the card phases
+DRYRUN_CELLS = (("granite_moe_1b", "train_4k"),
+                ("seamless_m4t_medium", "prefill_32k"),
+                ("llama3_8b", "decode_32k"), ("zamba2_1p2b", "long_500k"))
+DRYRUN_CODE = (
+    "import json, sys, time; t0 = time.perf_counter(); "
+    "sys.path.insert(0, sys.argv[1]); import torch; "
+    "torch.set_num_threads(1); from repro_torch.launch import dryrun; "
+    "recs = [dryrun.run_cell(a, s, mp, ops_dir='') for a, s in "
+    "json.loads(sys.argv[2]) for mp in (False, True)]; "
+    "print(json.dumps({'records': recs, 'wall_s': time.perf_counter() - t0,"
+    " 'cuda_initialized': torch.cuda.is_initialized()}))")
+
+
+def start_dryrun():
+    """The production cells' dry run, in a subprocess from here on."""
+    src = str(Path(__file__).resolve().parent / "src")
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CODE, src, json.dumps(DRYRUN_CELLS)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _state_bytes(state) -> int:
+    return sum(t.nbytes for t in _state_leaves(state).values())
+
+
+def _train_cell(cfg, B: int, S: int, opt) -> dict:
+    """The dry run's record of one trainer step of ``cfg`` at ``B x S``
+    (DFXP 10/12, one microbatch, no remat, whole cross-entropy) on a 1x1
+    debug mesh."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.dist import ShardingRules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(1, 1)
+    cell = dryrun.make_cell(cfg, ShapeSpec("card", S, B, "train"),
+                            PrecisionPolicy("dfxp", comp_width=10,
+                                            update_width=12),
+                            mesh, ShardingRules(mesh), opt=opt)
+    return dryrun.record(cell, dryrun.trace(cell), arch=cfg.name,
+                         shape_name=f"train_{B}x{S}")
+
+
+def phase_dryrun(started, smi: str, granite: dict, lm: dict) -> dict:
+    """Phase 21: the production cells' records (the subprocess of
+    :func:`start_dryrun`), and the trainer runs' cells held to the card:
+    the state bytes exactly, the peak printed."""
+    from repro_torch import configs
+    from repro_torch.examples import train_lm
+    from repro_torch.optim.opt import OptConfig
+    total = torch.cuda.get_device_properties(0).total_memory
+    res = {"card": smi, "total_memory": total, "train": {}}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for name, cfg, B, S, opt, ran in (
+            ("granite_moe_1b", configs.get("granite_moe_1b"), 8, 64,
+             OptConfig(kind="sgd", lr=0.01, lr_decay_steps=1000), granite),
+            ("lm_100m", train_lm.LM_100M, 16, 128,
+             OptConfig(kind="adamw", lr=3e-3, lr_decay_steps=1000), lm)):
+        t0 = time.perf_counter()
+        rec = _train_cell(cfg, B, S, opt)
+        g = rec["memory_groups"]
+        state = g["params"] + g["opt"] + g["scale"] + g["step"]
+        peak = rec["per_device"]["argument_bytes"] + \
+            rec["per_device"]["temp_bytes"]
+        res["train"][name] = row = {
+            "state_bytes_predicted": state,
+            "state_bytes_card": ran["state_bytes"],
+            "peak_predicted": peak,
+            "peak_measured": ran["peak_memory_bytes"],
+            "peak_measured_over_predicted": ran["peak_memory_bytes"] / peak,
+            "groups": g, "flops_global": rec["flops_global"],
+            "trace_s": rec["trace_s"], "wall_s": time.perf_counter() - t0}
+        log(f"dryrun {name} ({B} x {S}, 1x1): state {state} bytes "
+            f"predicted, {ran['state_bytes']} held on the card; peak "
+            f"predicted {peak / 1e9:.3f} GB (params {g['params'] / 1e9:.3f}"
+            f", opt {g['opt'] / 1e9:.3f}, scales {g['scale'] / 1e6:.3f} MB,"
+            f" batch {g['batch'] / 1e6:.3f} MB, temp {g['temp'] / 1e9:.3f}"
+            f" GB), measured {ran['peak_memory_bytes'] / 1e9:.3f} GB "
+            f"({row['peak_measured_over_predicted']:.2f}x); trace "
+            f"{rec['trace_s']:.1f} s [{smi}]")
+        if state != ran["state_bytes"]:
+            raise SystemExit(f"the dry run's {name} state bytes are not "
+                             f"the card's")
+    torch.cuda.synchronize()
+    res["memory_allocated_change"] = torch.cuda.memory_allocated() - before
+    if res["memory_allocated_change"]:
+        raise SystemExit("the dry run allocated card memory")
+    t0, proc = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    res["collected_after_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(err[-3000:])
+        raise SystemExit("the dry run's production cells failed")
+    got = json.loads(out.strip().splitlines()[-1])
+    res["cuda_initialized"] = got["cuda_initialized"]
+    res["subprocess_wall_s"] = got["wall_s"]
+    res["cells"] = []
+    for r in got["records"]:
+        pd = r["per_device"]
+        gb = (pd["argument_bytes"] + pd["temp_bytes"]) / 1e9
+        res["cells"].append({
+            "arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
+            "ok": r["ok"], "per_device_gb": gb,
+            "fits": gb * 1e9 <= total, "trace_s": r["trace_s"],
+            "tflops_per_device": r["flops"] / 1e12,
+            "collective_gb": r["collectives"]["total_bytes"] / 1e9,
+            "cuda_initialized": r["cuda_initialized"]})
+        log(f"dryrun {r['arch']} {r['shape']} {r['mesh']}: ok {r['ok']}, "
+            f"{gb:.3f} GB a device (arguments + temp) of the card's "
+            f"{total / 1e9:.1f}, {r['flops'] / 1e12:.3f} TF a device, "
+            f"collectives {r['collectives']['total_bytes'] / 1e9:.3f} GB, "
+            f"trace {r['trace_s']} s (CPU)")
+    if not (len(res["cells"]) == 2 * len(DRYRUN_CELLS)
+            and all(c["ok"] and not c["cuda_initialized"]
+                    for c in res["cells"])
+            and not got["cuda_initialized"]):
+        raise SystemExit("a dry-run cell failed or created a CUDA context")
+    log("dryrun: " + json.dumps(res))
+    return res
+
+
 FAMILY_ARCHS = ("llama3_8b", "qwen3_14b", "phi3_medium_14b", "gemma3_27b",
                 "llama4_maverick_400b", "granite_moe_1b", "mamba2_370m",
                 "zamba2_1p2b", "seamless_m4t_medium", "qwen2_vl_72b")
@@ -3788,6 +3933,7 @@ def phase_granite_train():
     res["dfxp_wall_s"] = time.perf_counter() - t0
     launches = train_launches()
     res["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - base
+    res["state_bytes"] = _state_bytes(state)
     k1s, k2s = lm_site_launches(cfg, 8, 64)
     want = {"dfxp_quantize": 20 * k1s, "qmatmul": 20 * k2s}
     res.update(launches=launches, expected_launches=want,
@@ -4482,6 +4628,9 @@ def main():
     t0 = time.perf_counter()
     prng_res = phase_build_and_prng()
     log(f"[{time.perf_counter() - t0:.0f}s] kernels built, PRNG checked")
+    # the dry run's production cells trace on the CPU from here on, in a
+    # subprocess (phase_dryrun collects it)
+    dry = start_dryrun()
     kern = phase_kernels()
     tp_rows = phase_tp_kernels()
     kern.update(phase_train_kernels())
@@ -4528,10 +4677,13 @@ def main():
         robust = phases_robustness(eng, clean,
                                    prng_ops["greedy_deterministic_pool"], t0)
         dist = phases_dist(eng, lm, t0, cli)
+        phase_dryrun(dry, smi, fam["granite_train"], lm)
+        log(f"[{time.perf_counter() - t0:.0f}s] dry run traced")
     finally:
-        if cli[1].poll() is None:         # stop what this run started
-            cli[1].kill()
-            cli[1].wait()
+        for proc in (cli[1], dry[1]):     # stop what this run started
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
     csrc = "src/repro_torch/kernels/attn/csrc/"
     srcs = {"flash_decode": ("src/repro/kernels/attn/attn_kernel.py:123",

@@ -1,14 +1,16 @@
 """Architecture registry of the port: the reference's ten architectures.
 
 ``get(name)`` → full ModelConfig; ``get_smoke(name)`` → reduced
-same-family config for CPU tests.  Each ``CONFIG`` and ``SMOKE`` is
+same-family config for CPU tests; ``cells(name)`` → the runnable shape
+cells of :mod:`repro_torch.configs.shapes` (the reference's skips, noted
+in each config file).  Each ``CONFIG`` and ``SMOKE`` is
 copied field for field from ``repro.configs``: dense (llama3, qwen3 with
 qk-norm, phi3), gemma3 (5:1 local:global windows, qk-norm, embed
 scale), MoE (granite, llama4 with its shared expert), SSM (mamba2),
 hybrid (zamba2's shared attention), the encoder-decoder
 seamless-m4t-medium (cross-attention over ``src_embeds``) and the
-embeds-input qwen2-vl-72b (M-RoPE).  The dry-run's ``shapes.py`` waits
-for item 23.  As in the reference's ``importlib``
+embeds-input qwen2-vl-72b (M-RoPE); ``CELLS`` too.  As in the
+reference's ``importlib``
 lookup, a module registered in ``sys.modules`` as
 ``repro_torch.configs.<name>`` (with ``CONFIG`` and ``SMOKE``) is an
 arch too: the LM example registers its inline LM_100M so.
@@ -17,8 +19,11 @@ from __future__ import annotations
 
 import importlib
 import sys
+from typing import Dict, Tuple
 
 from repro_torch.models.transformer import ModelConfig
+
+from .shapes import SHAPES, ShapeSpec, input_specs  # noqa: F401
 
 ARCHS = (
     "zamba2_1p2b",
@@ -65,3 +70,11 @@ def get(name: str) -> ModelConfig:
 
 def get_smoke(name: str) -> ModelConfig:
     return _module(name).SMOKE
+
+
+def cells(name: str) -> Tuple[str, ...]:
+    return _module(name).CELLS
+
+
+def all_cells() -> Dict[str, Tuple[str, ...]]:
+    return {a: cells(a) for a in ARCHS}

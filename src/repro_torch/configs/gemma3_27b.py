@@ -18,3 +18,7 @@ SMOKE = ModelConfig(
     num_heads=4, num_kv_heads=2, head_dim=32, d_ff=256, vocab_size=512,
     window=16, local_global_pattern=2, local_rope_theta=1e4,
     embed_scale=True, qk_norm=True, tie_embeddings=True)
+
+# 5/6 layers sub-quadratic (window cache); global layers decode O(S) with a
+# sequence-sharded cache -> long_500k runs
+CELLS = ("train_4k", "prefill_32k", "decode_32k", "long_500k")

@@ -14,3 +14,5 @@ SMOKE = ModelConfig(
     name="granite-smoke", family="moe", num_layers=4, d_model=128,
     num_heads=4, num_kv_heads=2, head_dim=32, d_ff=64, vocab_size=512,
     num_experts=8, top_k=4, moe_d_ff=64, moe_period=1, tie_embeddings=True)
+
+CELLS = ("train_4k", "prefill_32k", "decode_32k")

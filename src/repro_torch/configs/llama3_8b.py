@@ -10,3 +10,6 @@ SMOKE = ModelConfig(
     name="llama3-smoke", family="dense", num_layers=4, d_model=128,
     num_heads=4, num_kv_heads=2, head_dim=32, d_ff=256, vocab_size=512,
     tie_embeddings=False)
+
+# pure full attention -> long_500k skipped
+CELLS = ("train_4k", "prefill_32k", "decode_32k")

@@ -18,3 +18,5 @@ SMOKE = ModelConfig(
     num_heads=4, num_kv_heads=2, head_dim=32, d_ff=256, vocab_size=512,
     num_experts=8, top_k=1, moe_d_ff=64, moe_period=2, shared_expert=True,
     tie_embeddings=False)
+
+CELLS = ("train_4k", "prefill_32k", "decode_32k")

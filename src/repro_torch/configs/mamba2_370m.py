@@ -11,3 +11,6 @@ SMOKE = ModelConfig(
     name="mamba2-smoke", family="ssm", num_layers=4, d_model=128,
     num_heads=0, num_kv_heads=0, head_dim=0, d_ff=0, vocab_size=512,
     ssm_state=16, ssm_headdim=32, ssm_chunk=16, tie_embeddings=True)
+
+# attention-free: long_500k runs
+CELLS = ("train_4k", "prefill_32k", "decode_32k", "long_500k")

@@ -14,3 +14,5 @@ SMOKE = ModelConfig(
     name="qwen2vl-smoke", family="dense", num_layers=4, d_model=128,
     num_heads=4, num_kv_heads=2, head_dim=32, d_ff=256, vocab_size=512,
     input_mode="embeds", mrope_sections=(4, 6, 6), tie_embeddings=False)
+
+CELLS = ("train_4k", "prefill_32k", "decode_32k")

@@ -10,3 +10,5 @@ SMOKE = ModelConfig(
     name="qwen3-smoke", family="dense", num_layers=4, d_model=128,
     num_heads=4, num_kv_heads=2, head_dim=32, d_ff=256, vocab_size=512,
     qk_norm=True, tie_embeddings=False)
+
+CELLS = ("train_4k", "prefill_32k", "decode_32k")

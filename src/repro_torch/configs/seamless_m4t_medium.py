@@ -16,3 +16,6 @@ SMOKE = ModelConfig(
     name="seamless-smoke", family="encdec", num_layers=3, encoder_layers=2,
     d_model=128, num_heads=4, num_kv_heads=4, head_dim=32, d_ff=256,
     vocab_size=512, ffn_kind="gelu", tie_embeddings=False)
+
+# full attention -> long_500k skipped; decode runs (it has a decoder stack)
+CELLS = ("train_4k", "prefill_32k", "decode_32k")

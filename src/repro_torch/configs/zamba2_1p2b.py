@@ -17,3 +17,6 @@ SMOKE = ModelConfig(
     num_heads=4, num_kv_heads=4, head_dim=32, d_ff=256, vocab_size=512,
     ssm_state=16, ssm_headdim=32, ssm_chunk=16, hybrid_period=3,
     tie_embeddings=True)
+
+# sub-quadratic (SSM + shared attn): long_500k runs
+CELLS = ("train_4k", "prefill_32k", "decode_32k", "long_500k")

@@ -57,12 +57,15 @@ def threefry2x32(k1: Tensor, k2: Tensor, x1: Tensor,
     """Threefry-2x32 with 20 rounds on ``int64`` words in ``[0, 2**32)``.
 
     ``k1, k2`` are the key words and ``x1, x2`` the counter words; all
-    four broadcast together.  Returns the two output words."""
+    four broadcast together.  Returns the two output words (on the meta
+    device, which holds no values, the two words' shapes alone)."""
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     a = torch.bitwise_and(x1 + ks[0], MASK)
     b = torch.bitwise_and(x2 + ks[1], MASK)
     a, b = torch.broadcast_tensors(a, b)
     a, b = a.clone(), b.clone()
+    if a.device.type == "meta":
+        return a, b
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
             a.add_(b).bitwise_and_(MASK)

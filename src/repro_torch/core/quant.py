@@ -29,6 +29,7 @@ routes to the hand-written quantize kernel K1 under
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -84,6 +85,19 @@ def enable_pallas_quantize(enable: bool = True, *,
     ``x`` instead of several.  Off by default, as in the reference.  On
     the CPU the wrapper computes K1's plain version."""
     _PALLAS.update(enabled=bool(enable), min_size=int(min_size))
+
+
+@contextlib.contextmanager
+def plain_quantize():
+    """K1 off inside the block (:func:`fixed_round` runs its plain
+    composite whatever :func:`enable_pallas_quantize` said), restored
+    after."""
+    old = dict(_PALLAS)
+    _PALLAS["enabled"] = False
+    try:
+        yield
+    finally:
+        _PALLAS.update(old)
 
 
 def round_mantissa(m: Tensor, key=None, det: Optional[Tensor] = None

@@ -84,7 +84,9 @@ def init_moe(key: Tensor, spec: MoESpec) -> dict:
     return p
 
 
-def _capacity(t_local: int, spec: MoESpec, dropless: bool = False) -> int:
+def capacity(t_local: int, spec: MoESpec, dropless: bool = False) -> int:
+    """Slots per expert for ``t_local`` tokens: ``ceil(T·k/E · cf)``, or
+    ``T`` when ``dropless``."""
     if dropless:
         # decode batches are tiny: full capacity keeps decode exact with
         # respect to the full forward (no token dropped)
@@ -127,7 +129,7 @@ def _moe_local(x: Tensor, params, tape: QTape, *, spec: MoESpec,
     (in ``a2a_compress_bits`` integer lanes when the policy asks)."""
     E, k = spec.num_experts, spec.top_k
     T, D = x.shape
-    C = _capacity(T, spec, dropless)
+    C = capacity(T, spec, dropless)
     eid, gate, pos, keep = route(x, params["router"], spec, C)
     ep = dist.ep_axis if dist is not None else None
     fsdp = dist.fsdp_axis if dist is not None else None

@@ -34,7 +34,9 @@ Training: :func:`forward` in ``train``/``hidden`` mode and
 :func:`loss_fn` (mean cross-entropy, optionally over sequence chunks
 recomputed in the backward, ``torch.utils.checkpoint`` for the
 reference's ``jax.checkpoint``) take the per-site gradient-statistics
-sinks of :mod:`repro_torch.core.quant`.
+sinks of :mod:`repro_torch.core.quant`, and the reference's ``remat``
+(each layer recomputed in the backward, saving nothing or the matrix
+products' outputs).
 
 The serving entry points (:func:`prefill`, :func:`decode_step`,
 :func:`prefill_chunk_step`) update the cache they are given **in
@@ -44,13 +46,15 @@ reference's donated pool, which keeps one copy of the pool resident.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.core import prng
@@ -297,7 +301,10 @@ _SITES = {
 }
 
 
-def _block_sites(cfg: ModelConfig, blk: SubBlock):
+def block_sites(cfg: ModelConfig, blk: SubBlock):
+    """``(weight sites, activation sites)`` of a sub-block: the names of
+    its matrix weights (its quantization groups ``w:``) and of the
+    tensors it quantizes (``a:``), the shared expert's included."""
     if blk.kind == "ffn":
         w, a = _SITES["ffn"][cfg.ffn_kind]
     else:
@@ -319,7 +326,7 @@ def group_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
         for i, blk in enumerate(stage.blocks):
             pfx = f"{stage.name}/{i}:{blk.kind}"
             shape = () if blk.shared else (stage.count,)
-            w_sites, a_sites = _block_sites(cfg, blk)
+            w_sites, a_sites = block_sites(cfg, blk)
             for s in w_sites:
                 groups[f"w:{pfx}/{s}"] = shape
             for s in a_sites:
@@ -339,7 +346,7 @@ def _stage_group_names(cfg: ModelConfig, stage: Stage, shared: bool):
         if blk.shared != shared:
             continue
         pfx = f"{stage.name}/{i}:{blk.kind}"
-        w_sites, a_sites = _block_sites(cfg, blk)
+        w_sites, a_sites = block_sites(cfg, blk)
         names += [f"w:{pfx}/{s}" for s in w_sites]
         for s in a_sites:
             names += [f"a:{pfx}/{s}", f"g:{pfx}/{s}"]
@@ -477,10 +484,33 @@ def _unbind(tree, n: int):
     return tree.unbind(0)
 
 
+# the matrix products that ``remat="dots"`` keeps (``checkpoint_dots``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_kwargs(remat: str) -> dict:
+    """``torch.utils.checkpoint`` arguments of a ``remat`` policy: the
+    reference's ``jax.checkpoint`` policies (``transformer.py:443-446``),
+    ``"full"`` saving nothing (``nothing_saveable``), ``"dots"`` the
+    outputs of the matrix products (``checkpoint_dots``)."""
+    if remat == "full":
+        return {"use_reentrant": False}
+    if remat == "dots":
+        return {"use_reentrant": False, "context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)}
+    raise ValueError(f"remat is 'none', 'dots' or 'full', not {remat!r}")
+
+
 def _run_stage(cfg, policy, stage: Stage, sp, x, positions, scales,
                mode: str, cache=None, max_cache_len: int = 0, kv_codec=None,
                n_valid=None, append_mask=None, sinks=None, memory=None,
-               dist=None):
+               dist=None, remat: str = "none"):
     """Run one stage layer by layer. Returns (x, stats, cache_out).
 
     Decode and chunk modes write each layer's new cache entry back into
@@ -490,7 +520,15 @@ def _run_stage(cfg, policy, stage: Stage, sp, x, positions, scales,
     (its sink's gradient sums over them), and its statistics are summed
     over the repetitions, as the reference's scan does
     (``transformer.py:450-452``); its cache has one entry a repetition.
+
+    ``remat`` (train mode): each layer runs under non-reentrant
+    ``torch.utils.checkpoint`` with that policy (:func:`_remat_kwargs`)
+    and is recomputed in the backward.  A layer builds its tape and
+    returns its statistics, so a recomputation records nothing twice;
+    the numbers are those of ``remat="none"``, bit for bit.
     """
+    if remat != "none":
+        remat_kw = _remat_kwargs(remat)
     names = _stage_group_names(cfg, stage, shared=False)
     shared_names = _stage_group_names(cfg, stage, shared=True)
     sinks = sinks or {}
@@ -501,12 +539,15 @@ def _run_stage(cfg, policy, stage: Stage, sp, x, positions, scales,
     layers = _unbind(sp["stacked"], stage.count)
     sk_names = [n for n in names if n in sinks]
     sk_layers = {n: sinks[n].unbind(0) for n in sk_names}
-    for li in range(stage.count):
+
+    def layer(li: int, x: Tensor):
+        """Layer ``li``: ``(x, stats, {bkey: fresh cache entry})``."""
         sc = {n: scales[n][li] for n in names if n in scales}
         sc.update(sc_shared)
         sk = {n: sk_layers[n][li] for n in sk_names}
         sk.update(sk_shared)
         tape = QTape(policy, sc, sk)
+        new = {}
         for i, blk in enumerate(stage.blocks):
             bkey = f"{i}:{blk.kind}"
             ci = None
@@ -522,11 +563,20 @@ def _run_stage(cfg, policy, stage: Stage, sp, x, positions, scales,
             if co is None:
                 continue
             if ci is None:
-                fresh.setdefault(bkey, []).append(co)
+                new[bkey] = co
             else:
                 for name, t in co.items():
                     ci[name].copy_(t)
-        per_layer_stats.append(tape.stats)
+        return x, tape.stats, new
+
+    for li in range(stage.count):
+        if remat != "none" and mode == "train":
+            x, st, new = checkpoint(layer, li, x, **remat_kw)
+        else:
+            x, st, new = layer(li, x)
+        per_layer_stats.append(st)
+        for bkey, co in new.items():
+            fresh.setdefault(bkey, []).append(co)
     stats = {}
     for n in (per_layer_stats[0] if per_layer_stats else ()):
         s = torch.stack([st[n] for st in per_layer_stats])
@@ -561,7 +611,8 @@ def _positions(batch, x: Tensor) -> Tensor:
     return positions
 
 
-def _encode(cfg, policy, params, batch, scales, sinks, stats):
+def _encode(cfg, policy, params, batch, scales, sinks, stats,
+            remat: str = "none"):
     """The encoder stage over ``batch["src_embeds"]`` [B, Ssrc, D] (train
     mode, also under prefill), then ``enc_norm``: the decoder's
     ``memory``, ``None`` for a decoder-only model."""
@@ -572,7 +623,7 @@ def _encode(cfg, policy, params, batch, scales, sinks, stats):
     mpos = torch.arange(Ss, dtype=torch.int32, device=src.device).expand(B, Ss)
     memory, st, _ = _run_stage(cfg, policy, build_stages(cfg)[0],
                                params["stages"]["enc"], src, mpos, scales,
-                               "train", sinks=sinks)
+                               "train", sinks=sinks, remat=remat)
     stats.update(st)
     return L.rmsnorm(memory, params["enc_norm"])
 
@@ -585,13 +636,14 @@ def _head(cfg, params, x, tape):
     return L.lm_head(params["head"], x, tape, tied=False)
 
 
-def _decoder_stages(cfg):
+def decoder_stages(cfg):
+    """The stages a decode step runs: all but the encoder's."""
     return [st for st in build_stages(cfg) if st.decoder]
 
 
 def forward(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
             scales: Dict[str, Tensor], sinks: Dict[str, Tensor], *,
-            mode: str = "train", dist=None):
+            mode: str = "train", dist=None, remat: str = "none"):
     """Full-sequence forward of the training path. Returns ``(logits
     [B, S, V], stats, None)``; ``mode="hidden"`` returns the final-normed
     hidden states instead of logits (the caller fuses head and loss).
@@ -602,7 +654,9 @@ def forward(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
     ``sinks``: the ``g:`` groups' zero sinks (``[count, 3]`` per stacked
     group), whose gradients are the backward statistics.  ``dist`` (a
     :class:`repro_torch.dist.DistCtx`) reaches the MoE blocks' expert
-    parallelism, under the ambient mesh."""
+    parallelism, under the ambient mesh.  ``remat`` (``"none"``,
+    ``"dots"``, ``"full"``) recomputes each layer in the backward
+    (:func:`_run_stage`)."""
     if mode not in ("train", "hidden"):
         raise ValueError(f"forward runs the train or hidden mode, not "
                          f"{mode!r} (serving: prefill/decode_step/"
@@ -612,12 +666,13 @@ def forward(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
         "tokens" if cfg.input_mode == "tokens" else "embeds"], tape)
     positions = _positions(batch, x)
     stats: Dict[str, Tensor] = {}
-    memory = _encode(cfg, policy, params, batch, scales, sinks, stats)
-    for stage in _decoder_stages(cfg):
+    memory = _encode(cfg, policy, params, batch, scales, sinks, stats,
+                     remat)
+    for stage in decoder_stages(cfg):
         x, st, _ = _run_stage(cfg, policy, stage,
                               params["stages"][stage.name], x, positions,
                               scales, "train", sinks=sinks, memory=memory,
-                              dist=dist)
+                              dist=dist, remat=remat)
         stats.update(st)
     if mode == "hidden":
         x = L.rmsnorm(x, params["final_norm"])
@@ -636,9 +691,10 @@ def _ce(logits: Tensor, labels: Tensor) -> Tensor:
 
 def loss_fn(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
             scales: Dict[str, Tensor], sinks: Dict[str, Tensor], *,
-            ce_chunk: int = 0, dist=None):
+            ce_chunk: int = 0, dist=None, remat: str = "none"):
     """Mean cross-entropy over ``batch["labels"]`` (masked by an optional
-    ``loss_mask``); returns ``(loss, stats)``.
+    ``loss_mask``); returns ``(loss, stats)``.  ``remat`` as
+    :func:`forward`'s.
 
     ``ce_chunk > 0`` computes the head product and the softmax-CE over
     sequence chunks of that many positions, each recomputed in the
@@ -648,7 +704,7 @@ def loss_fn(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
     labels = batch["labels"]
     if not ce_chunk:
         logits, stats, _ = forward(cfg, policy, params, batch, scales, sinks,
-                                   dist=dist)
+                                   dist=dist, remat=remat)
         ll = _ce(logits, labels)
         mask = batch.get("loss_mask")
         if mask is None:
@@ -656,7 +712,7 @@ def loss_fn(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
         return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0), stats
 
     hidden, stats, _ = forward(cfg, policy, params, batch, scales, sinks,
-                               mode="hidden", dist=dist)
+                               mode="hidden", dist=dist, remat=remat)
     tape = QTape(policy, scales, sinks)
     table = params["embed"] if cfg.tied else params["head"]
     w = tape.weight("head/w", table).to(hidden.dtype)
@@ -702,7 +758,7 @@ def prefill(cfg: ModelConfig, policy: PrecisionPolicy, params, batch,
     stats: Dict[str, Tensor] = {}
     memory = _encode(cfg, policy, params, batch, scales, {}, stats)
     cache_all = {}
-    for stage in _decoder_stages(cfg):
+    for stage in decoder_stages(cfg):
         x, st, cache_out = _run_stage(cfg, policy, stage,
                                       params["stages"][stage.name], x,
                                       positions, scales, "prefill",
@@ -732,7 +788,7 @@ def decode_step(cfg: ModelConfig, policy, params, cache, tokens, pos,
     positions = pos.to(torch.int32).reshape(-1, 1)
     memory = cache.get("enc_memory") if cfg.encoder_layers else None
     stats: Dict[str, Tensor] = {}
-    for stage in _decoder_stages(cfg):
+    for stage in decoder_stages(cfg):
         x, st, _ = _run_stage(cfg, policy, stage,
                               params["stages"][stage.name], x, positions,
                               scales, "decode", cache=cache[stage.name],
@@ -764,7 +820,7 @@ def prefill_chunk_step(cfg: ModelConfig, policy, params, cache, tokens, p0,
     positions = p0[:, None] + torch.arange(C, dtype=torch.int32,
                                            device=x.device)[None, :]
     stats: Dict[str, Tensor] = {}
-    for stage in _decoder_stages(cfg):
+    for stage in decoder_stages(cfg):
         x, st, _ = _run_stage(cfg, policy, stage,
                               params["stages"][stage.name], x, positions,
                               scales, "chunk", cache=cache[stage.name],
@@ -779,16 +835,20 @@ def prefill_chunk_step(cfg: ModelConfig, policy, params, cache, tokens, p0,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               src_len: int = 0, device="cpu") -> dict:
+               src_len: int = 0, device="cpu",
+               dtype: torch.dtype = torch.float32) -> dict:
     """Zero decode cache for ``batch`` sequences of capacity ``max_len``:
     per attention sub-block a ring of ``min(window, max_len)`` slots
     (``max_len`` for a global one), per cross-attention sub-block the K/V
     of ``src_len`` source positions, per mamba sub-block its conv window
     and f32 state, each with a leading dim of the stage's count (a shared
     block keeps one entry a repetition); an encoder-decoder's
-    ``"enc_memory"`` [batch, src_len, d_model]."""
+    ``"enc_memory"`` [batch, src_len, d_model].  ``dtype`` is the K/V,
+    conv and memory storage, as the reference's (positions stay int32,
+    the SSM state f32); ``device="meta"`` gives the shapes alone."""
+    kw = dict(device=device, dtype=dtype)
     cache: dict = {}
-    for stage in _decoder_stages(cfg):
+    for stage in decoder_stages(cfg):
         sc: dict = {}
         n = stage.count
         for i, blk in enumerate(stage.blocks):
@@ -797,28 +857,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                 cap = min(blk.window, max_len) if blk.window else max_len
                 K, hd = cfg.num_kv_heads, cfg.head_dim
                 sc[bkey] = {
-                    "k": torch.zeros((n, batch, cap, K, hd), device=device),
-                    "v": torch.zeros((n, batch, cap, K, hd), device=device),
+                    "k": torch.zeros((n, batch, cap, K, hd), **kw),
+                    "v": torch.zeros((n, batch, cap, K, hd), **kw),
                     "pos": torch.full((n, batch, cap), -1, dtype=torch.int32,
                                       device=device),
                 }
             elif blk.kind == "xattn":
                 K, hd = cfg.num_kv_heads, cfg.head_dim
                 sc[bkey] = {
-                    "k": torch.zeros((n, batch, src_len, K, hd),
-                                     device=device),
-                    "v": torch.zeros((n, batch, src_len, K, hd),
-                                     device=device)}
+                    "k": torch.zeros((n, batch, src_len, K, hd), **kw),
+                    "v": torch.zeros((n, batch, src_len, K, hd), **kw)}
             elif blk.kind == "mamba":
                 s = cfg.ssm_spec
                 sc[bkey] = {
                     "conv": torch.zeros((n, batch, s.conv_kernel - 1,
-                                         s.conv_dim), device=device),
+                                         s.conv_dim), **kw),
                     "state": torch.zeros((n, batch, s.heads, s.headdim,
                                           s.state), device=device),
                 }
         cache[stage.name] = sc
     if cfg.encoder_layers:
         cache["enc_memory"] = torch.zeros((batch, src_len, cfg.d_model),
-                                          device=device)
+                                          **kw)
     return cache

@@ -17,7 +17,11 @@ every case of this module and returning its results.
   the reference's monolithic result, and the monolithic paths;
 * MoE expert parallelism on a 2×2 world (E = 8): plain, FSDP and the
   stationary decode within 1e-5 of the local path, int8 lanes within
-  1e-5 of the reference's expert-parallel block under ``vmap``.
+  1e-5 of the reference's expert-parallel block under ``vmap``;
+* the bytes the EP blocks' all-to-alls and the CP merge move (the mesh's
+  collectives counted on the ranks) equal the dry run's implied
+  collectives for the same block and mesh
+  (``repro_torch.launch.dryrun.experts`` and ``cp_merge``).
 """
 import dataclasses
 import functools
@@ -134,6 +138,25 @@ def _port_moe(params, x, dist, policy, dropless, scales=None):
 # the ranks' side: every case of the module in one world
 # ---------------------------------------------------------------------------
 
+_KINDS = {"psum": "all-reduce", "pmax": "all-reduce",
+          "all_gather": "all-gather", "all_to_all": "all-to-all"}
+
+
+def _count_collectives(mesh) -> list:
+    """Wrap ``mesh``'s collectives so each call appends ``(kind, output
+    bytes)`` to the returned log (a psum or pmax counts its result, as an
+    all-reduce's output, though gloo gathers the ranks' copies to form
+    it)."""
+    log = []
+    for name, kind in _KINDS.items():
+        def counted(*a, _f=getattr(mesh, name), _k=kind, **kw):
+            out = _f(*a, **kw)
+            log.append((_k, out.numel() * out.element_size()))
+            return out
+        setattr(mesh, name, counted)
+    return log
+
+
 def _rank_cases(rank, n):
     out = {}
     mesh = M.BoundMesh((n,), ("d",))
@@ -158,10 +181,12 @@ def _rank_cases(rank, n):
     out["a2a"] = (y.detach().numpy(), gx.numpy(), float(ge))
     # CP decode attention over the world's window shards
     q, ck, cv, pos, q_pos, kw = _cp_inputs()
+    log = _count_collectives(mesh)
     with M.use_mesh(mesh):
         out["cp"] = cp_attention.cp_decode_attention(
             _t(q), _t(ck), _t(cv), _t(pos), _t(q_pos), cp_axes=("d",),
             **kw).numpy()
+        out["cp_collectives"] = list(log)
         Wl = ck.shape[1] // n
         sl = slice(rank * Wl, (rank + 1) * Wl)
         out["cp_local"] = cp_attention.cp_decode_attention(
@@ -172,15 +197,20 @@ def _rank_cases(rank, n):
         out["coords"] = dict(mesh2.coords)
         params, xm = _moe_inputs()
         pol = PrecisionPolicy("float32")
+        log = _count_collectives(mesh2)
         with M.use_mesh(mesh2):
             for name, dist in MOE_DISTS.items():
                 dropless = name == "stationary"
+                del log[:]
                 out[f"moe_{name}"] = _port_moe(params, xm, dist, pol,
                                                dropless)
+                out[f"moe_{name}_collectives"] = list(log)
+            del log[:]
             out["moe_int8"] = _port_moe(
                 params, xm, MOE_DISTS["ep"],
                 PrecisionPolicy("float32", a2a_compress_bits=8), False,
                 A2A_SCALES)
+            out["moe_int8_collectives"] = list(log)
     return out
 
 
@@ -551,6 +581,45 @@ def test_moe_expert_parallel_matches_local(name):
         got = res[f"moe_{name}"]
         err = np.abs(got - want).max() / (np.abs(want).max() + 1e-9)
         assert err < 1e-5, (name, err)
+
+
+def _moe_cfg():
+    """A one-MoE-layer model of ``MOE_SPEC`` for the dry run's rules."""
+    return T.ModelConfig(family="moe", num_layers=1, d_model=32,
+                         num_heads=2, num_kv_heads=2, head_dim=16, d_ff=16,
+                         num_experts=8, top_k=2, moe_d_ff=16,
+                         capacity_factor=8.0)
+
+
+@pytest.mark.parametrize("name,bits", [("ep", 0), ("ep_fsdp", 0),
+                                       ("int8", 8)])
+def test_moe_all_to_all_bytes_match_dryrun_rule(name, bits):
+    """The all-to-alls an EP block moves on the 2×2 world (dispatch and
+    combine, 32 tokens over ``data``, E = 8, f32 or int8 lanes) are the
+    dry run's ``experts`` rule for the same block and mesh."""
+    from repro_torch.launch import dryrun
+    dist = MOE_DISTS["ep" if name == "int8" else name]
+    want = dryrun.experts(_moe_cfg(), dist, M.AbstractMesh(
+        (2, 2), ("data", "model")), tokens_global=32,
+        act_dtype=torch.float32, a2a_bits=bits, decode=False, passes=1)
+    want = sorted(b for k, b, c in want for _ in range(c))
+    for res in _world(4):
+        got = sorted(b for k, b in res[f"moe_{name}_collectives"]
+                     if k == "all-to-all")
+        assert got == want
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cp_merge_bytes_match_dryrun_rule(n):
+    """The collectives of one CP decode attention call on a world of
+    ``n`` are the dry run's ``cp_merge`` for its batch, heads and head
+    dim: two all-reduces of [B, H] and one of [B, H, hd], f32."""
+    from repro_torch.launch import dryrun
+    _, _, _, _, _, kw = _cp_inputs()
+    want = sorted((k, b) for k, b, c in dryrun.cp_merge(
+        2, kw["num_heads"], kw["head_dim"]) for _ in range(c))
+    for res in _world(n):
+        assert sorted(res["cp_collectives"]) == want
 
 
 def test_moe_int8_lanes_match_reference():

@@ -173,7 +173,7 @@ def test_moe_ffn_matches_reference(arch, mode, arith, monkeypatch):
     ty, tst, tgx, tgp, tseen = _run_port(tspec, params, x, arith, dropless)
 
     # routing: the dispatched tensor, bit for bit
-    C = TM._capacity(B * S, tspec, dropless)
+    C = TM.capacity(B * S, tspec, dropless)
     assert tseen["dispatch"].shape == (tspec.num_experts, C, tspec.d_model)
     np.testing.assert_array_equal(tseen["dispatch"], jseen["dispatch"])
     _, _, _, keep = TM.route(torch.from_numpy(x.reshape(B * S, -1)),

@@ -6,7 +6,8 @@ f32 and int8 pools, fused and unfused; TP = 4 on a 4-kv-head model; TP = 2
 over the paged pool; CP = 2 and 4 on long-context slots, with a chunked
 int8 pool; an engine given only the mesh; granite-moe-1b's
 expert-parallel MoE under TP = 2; and the serve CLI's ``--tp 2``, which
-spawns its own world.  The port's engines run in one spawned gloo world
+spawns its own world.  The CP = 2 engine's merges are counted on its mesh
+and held to the dry run's implied CP collectives.  The port's engines run in one spawned gloo world
 of 4 ranks (a 2-rank mesh holds two replicas of it), every rank checking
 that all ranks sampled the same tokens; the reference's run here, on one
 device.
@@ -76,7 +77,34 @@ def _wave(eng, prompts, max_new=8):
     return [np.asarray(out[u]) for u in uids]
 
 
-def _port_case(name):
+@contextlib.contextmanager
+def _merge_collectives(mesh, merges: list):
+    """Each CP merge's collectives on ``mesh``, ``[(kind, output
+    bytes)]`` a merge, appended to ``merges`` (the mesh's psum and pmax
+    counted at their results, as an all-reduce's output)."""
+    from repro_torch.dist import cp_attention
+    log = []
+    for name in ("psum", "pmax"):
+        def counted(*a, _f=getattr(mesh, name), **kw):
+            out = _f(*a, **kw)
+            log.append(("all-reduce", out.numel() * out.element_size()))
+            return out
+        setattr(mesh, name, counted)
+    merge = cp_attention._merge
+
+    def counted_merge(*a, **kw):
+        del log[:]
+        out = merge(*a, **kw)
+        merges.append(list(log))
+        return out
+    cp_attention._merge = counted_merge
+    try:
+        yield
+    finally:
+        cp_attention._merge = merge
+
+
+def _port_case(name, merges=None):
     arch, kv, L, max_len, fused, opts, tp, cp, mesh_only = CASES[name]
     cfg = _cfg(configs, arch, kv)
     params = T.init_params(cfg, 0, device="cpu")
@@ -90,7 +118,9 @@ def _port_case(name):
     heads = [e["k"].shape[3] if "k" in e else e["k_m"].shape[3]
              for sc in eng.kv.pool.values() for e in sc.values()
              if "pos" in e]
-    return _wave(eng, _prompts(cfg, L)), heads
+    with (_merge_collectives(mesh, merges) if merges is not None
+          else contextlib.nullcontext()):
+        return _wave(eng, _prompts(cfg, L)), heads
 
 
 def _deadline_case():
@@ -118,7 +148,10 @@ def _deadline_case():
 
 
 def _world_main(rank):
-    out = {name: _port_case(name) for name in CASES}
+    merges = []
+    out = {name: _port_case(name, merges if name == "cp2_f32" else None)
+           for name in CASES}
+    out["cp2_f32_merges"] = merges
     out["deadlines"] = _deadline_case()
     return out
 
@@ -163,6 +196,32 @@ def test_sharded_tokens_match_reference(name):
         for w, g in zip(want, got):
             np.testing.assert_array_equal(w, g, err_msg=f"{name} rank {rank}")
         assert set(heads) == {K // tp if K % tp == 0 else K}
+
+
+def test_cp_merge_bytes_match_dryrun_rule():
+    """The ``cp2_f32`` engine's CP merges (2 slots, the window over a
+    1×2 mesh): each merge's collectives are the dry run's ``cp_merge``,
+    and a decode step's, one merge a layer, its ``long_context`` bytes
+    for the same decode cell on the same mesh."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.dist import ShardingRules
+    from repro_torch.launch import dryrun
+    cfg = configs.get_smoke("llama3_8b")
+    merge = sorted((k, b) for k, b, c in dryrun.cp_merge(
+        2, cfg.num_heads, cfg.head_dim) for _ in range(c))
+    mesh = M.AbstractMesh((2, 1), ("data", "model"))
+    cell = dryrun.make_cell(
+        cfg, ShapeSpec("cp2_f32", CASES["cp2_f32"][3], 2, "decode"),
+        PrecisionPolicy("float32"), mesh,
+        ShardingRules(mesh, shard_batch=False, seq_shard_cache=True),
+        serve_pod_ctx(cp=2))
+    step = dryrun.implied_collectives(cell)["by_rule"]["long_context"]
+    for rank, res in enumerate(_world()):
+        merges = res["cp2_f32_merges"]
+        assert merges and len(merges) % cfg.num_layers == 0, rank
+        assert all(sorted(m) == merge for m in merges), rank
+        assert step == sum(b for m in merges[:cfg.num_layers]
+                           for _, b in m)
 
 
 def test_sharded_deadlines_expire_alike_on_every_rank():
