@@ -22,7 +22,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (K6 = K4 bit for bit), check that two calls of K3, K4, K5 and K6 give
    the same bits, and time kernel (every launch of a call: the split pass
    and the merge of K3, K4, K5 and K6), plain version and a library
-   yardstick;
+   yardstick; then K3's and K4's int8 rows under the rule's plan and
+   under the plan the dispatch cache measured for their keys, each held
+   to the plain version and timed;
 4. smoke-size parity: the port's model on the card (kernels) against the
    same model on the CPU (plain versions), slot-major for each of the
    eight token-in archs (17a) and paged for llama3 (engine logits with
@@ -37,7 +39,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    step and per chunk, K3 and K4 not at all, and the allocator's
    counters must equal their arithmetic;
 7. one profiled decode step and prefill chunk of each layout;
-8. a whole-prompt run (``prefill_chunk=0``) on the same weights;
+8. a whole-prompt run (``prefill_chunk=0``) on the same weights; the
+   reference's lockstep greedy server (``launch.serve.Engine``) on them,
+   float32 with the fused decode: K3 once per layer per step, its
+   tokens = a float32 ``ServeEngine``'s for the same two prompts;
 9. K1 bit-exact and K2 within ``rtol=1e-5, atol=1e-5·sqrt(D)`` against
    their plain versions (maxout sites and shapes, every K2 layout and
    width pairing, widths past TF32's 11 bits up to 32, ragged sizes,
@@ -48,7 +53,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    call with the number of device operations it puts on the stream; K2:
    its split pass and its reduction) beside
    ``torch.fake_quantize_per_tensor_affine`` / eager ``fixed_round`` and
-   ``torch.matmul``;
+   ``torch.matmul``; K2 at the table's maxout shape and the LM head's
+   three layouts under the rule's plan and the measured one, each held
+   to the plain version and timed;
 10. training parity at smoke size: DFXP-10/12 maxout on the card (K1,
     K2) against the CPU (plain versions), 10 steps, and 5 steps computing
     at width 31 (K2 at width 31);
@@ -96,7 +103,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     steps holding the states' exponents, controller moves, the killed and
     resumed runs' records equal to the solo run's, the resume still bit
     for bit; before it, three supervised steps of a tiny tied LM on the
-    card against the CPU (exponents equal, losses within 1e-4);
+    card against the CPU (exponents equal, losses within 1e-4); every K2
+    key the solo run selected printed with the rule's plan and the
+    measured one (the killed and resumed runs read those plans from the
+    cache file);
 17. the token-in families: (a) with 4, each of the eight smoke configs
     on the card (K3/K4 over an f32 pool) against the CPU, prefill
     (chunked where the family chunks) + 4 decode steps, within ``TOL``,
@@ -171,9 +181,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     trained with ``--grad-compress-bits 8`` (K1 a step = the uncompressed
     step's + one per leaf of at least ``MIN_SIZE`` elements; a kill at 5
     and a bit-exact resume, the residuals included); the serve CLI's
-    ``--smoke --tp 2`` spawning its own world (started after 15, it runs
-    beside the robustness and sharded phases), its tokens = the run
-    without ``--tp``;
+    ``--smoke --tp 2 --fused-decode --profile`` spawning its own world
+    (started after 15, it runs beside the robustness and sharded
+    phases), its tokens = the run without ``--tp`` (served here just
+    before it starts), its dispatch profile printed, every row of a key
+    measured before all cache hits with no time spent measuring;
 21. the multi-pod dry run (``repro_torch.launch.dryrun``, the meta
     device): one cell of each kind (granite-moe-1b ``train_4k``,
     seamless ``prefill_32k``, llama3-8B ``decode_32k``, zamba2
@@ -186,6 +198,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     the card held, exactly; the predicted peak (arguments + temp) and
     its split printed beside the measured one.
 
+Launch plans: every process reads and writes one plan cache, a fresh
+``build/repro_torch/autotune_torch.json`` (``REPRO_TORCH_AUTOTUNE_CACHE``)
+set before anything is imported, so a run that another is compared with
+bit for bit reads plans measured before it started; the kernel-table
+rows are timed under the rules' plans (:func:`rule_plans`), the plan
+rows beside them under the measured ones; the ``dispatch`` JSON line
+gives the ms this process spent measuring, its keys and selections.
+
 The ``kernels`` JSON gives each attention kernel's device time per call
 inside the profiled serving step (``in_step_ms_per_call``) beside its
 isolated rows.  The line before the last is the ``kernels`` JSON; the
@@ -193,8 +213,10 @@ last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest
 of the repository, it exits non-zero and prints no result.
 """
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -668,6 +690,30 @@ def phase_kernels():
                   "products": bounds["products"],
                   "f32_bound_ms": bounds["f32_bound_ms"],
                   "f32_bound_by": bounds["f32_bound_by"]})
+    # the rule's plan against the cache's at the table's int8 rows
+    dec = [cases.decode_case(B, W, K, G, HD, 8, seed=s, device=dev)
+           for s in range(24)]
+    decode_rows["int8"]["plans"] = plan_rows(
+        "K3 int8", "flash_decode_kernel", ("attn", 32, 512, G, HD, 8, 0),
+        lambda: k3(dec[0]), lambda a, p: ops.launch_decode(
+            a["q"], a["k"], a["v"], a["pos"], a["q_pos"],
+            ops._steps(B, a["k_exp"], a["v_exp"], 8, dev), width=8,
+            scale=a["scale"], window=None, causal=True, plan=p),
+        k3_plain, dec, lambda p: ops.ring_plan(W, p[0]),
+        dict(atol=TOL, rtol=TOL))
+    pre = [cases.prefill_case(1, C, W, K, G, HD, 8, p0=[256], n_valid=[C],
+                              seed=s, device=dev) for s in range(24)]
+    prefill_rows["int8"]["plans"] = plan_rows(
+        "K4 int8", "flash_prefill_kernel",
+        ("prefill", 8, 512, C, G, HD, 8, 0), lambda: k4(pre[0]),
+        lambda a, p: ops.launch_prefill(
+            a["q"], a["k_new"], a["v_new"], a["k"], a["v"], a["pos"],
+            a["p0"], a["n_valid"],
+            ops._steps(1, a["k_exp"], a["v_exp"], 8, dev), width=8,
+            scale=a["scale"], window=None, causal=True, plan=p),
+        k4_plain, pre, lambda p: ops.prefill_fit(1, C, W, p),
+        dict(atol=TOL, rtol=TOL))
+    del dec, pre
     # K5 / K6: the paged run's shapes (4 slots over 8 blocks of 64 rows;
     # one 64-row chunk against a 384-row history)
     errs["flash_decode_paged"], errs["flash_prefill_paged"] = [], []
@@ -702,7 +748,8 @@ def phase_kernels():
         errs["flash_prefill_paged"].append(check(
             f"K6 {tag} hd=48 C=40 P=32", k6, k6_plain, a, K6_TOL))
         # K6 against K4 on the same data: each slot's ring one page (P = W
-        # = 384) with the slot's steps; one code, one plan: the same bits
+        # = 384) with the slot's steps; one code, under K6's plan (K4's
+        # wrapper takes its own from the dispatch cache): the same bits
         a = cases.prefill_case(2, PAGE, 384, K, G, HD, width, p0=[256, 100],
                                n_valid=[PAGE, 37], seed=13, device=dev)
         zero, e0 = torch.zeros_like(a["k"][:1]), torch.zeros(1, device=dev)
@@ -714,7 +761,13 @@ def phase_kernels():
                      else torch.cat([e0, a["k_exp"]]),
                      v_exp=None if width is None
                      else torch.cat([e0, a["v_exp"]]))
-        if not torch.equal(k6(paged), k4(a)):
+        k4_as_k6 = ops.launch_prefill(
+            a["q"], a["k_new"], a["v_new"], a["k"], a["v"], a["pos"],
+            a["p0"], a["n_valid"],
+            ops._steps(2, a["k_exp"], a["v_exp"], width, dev), width=width,
+            scale=a["scale"], window=a["window"], causal=True,
+            plan=ops.prefill_paged_plan(2, PAGE, 1, 384, K, G, HD))
+        if not torch.equal(k6(paged), k4_as_k6):
             raise SystemExit(f"K6 and K4 differ on the same data ({tag})")
     log("K6 vs K4 on the same data (int8, int16, f32; one page per slot): "
         "bit-identical")
@@ -1216,6 +1269,47 @@ def phase_whole_prompt(eng):
     return st, launches
 
 
+LOCKSTEP_PROMPT, LOCKSTEP_NEW = 64, 4
+
+
+def phase_lockstep(eng) -> dict:
+    """The reference's lockstep greedy server (``launch.serve.Engine``) on
+    the serving weights (full width, ``LLAMA_LAYERS`` layers), float32
+    with the fused decode attention: two prompts of ``LOCKSTEP_PROMPT``
+    tokens, ``LOCKSTEP_NEW`` greedy steps; K3 once per layer per decode
+    step (whole prompts prefill on the plain attention: K4 none), and
+    the tokens equal a ``ServeEngine``'s greedy tokens for the same
+    prompts and policy."""
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.kernels.attn import ops
+    from repro_torch.launch.serve import Engine, prompt
+    from repro_torch.serve import ServeEngine
+    pol = PrecisionPolicy("float32", fused_decode=True)
+    prompts = np.stack([prompt(300 + i, LOCKSTEP_PROMPT, eng.cfg.vocab_size)
+                        for i in range(2)])
+    max_len = LOCKSTEP_PROMPT + LOCKSTEP_NEW
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    got = Engine(eng.cfg, pol, eng.params, max_len=max_len).generate(
+        prompts, LOCKSTEP_NEW).tolist()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    serve = ServeEngine(eng.cfg, pol, eng.params, max_slots=2,
+                        max_len=max_len, device="cuda")
+    uids = [serve.submit(p, max_new=LOCKSTEP_NEW) for p in prompts]
+    serve.run()
+    want = [serve.results[u].tolist() for u in uids]
+    n = eng.cfg.num_layers * LOCKSTEP_NEW
+    res = {"tokens": got, "serve_engine_tokens": want, "launches": launches,
+           "expected_k3": n, "wall_s": wall}
+    log(f"lockstep Engine: {json.dumps(res)}")
+    if not (got == want and launches["flash_decode"] == n
+            and launches["flash_prefill"] == 0):
+        raise SystemExit("the lockstep Engine failed its checks")
+    return res
+
+
 def _kind(name: str) -> str:
     for kernel, label in (("flash_decode_kernel", "flash_decode (K3)"),
                           ("flash_prefill_kernel", "flash_prefill (K4)"),
@@ -1350,14 +1444,32 @@ def device_ops(fn) -> int:
     return n
 
 
+@contextlib.contextmanager
+def rule_plans():
+    """The dispatch cache emptied and its measurement off for the block:
+    every K2/K3/K4 call there runs its rule's plan, so that a kernel
+    table row does not depend on which call measured its key first;
+    afterwards the measured plans come back from the cache file."""
+    from repro_torch.kernels import dispatch
+    dispatch.reset_autotune()
+    dispatch.set_autotune(measure=False)
+    try:
+        yield
+    finally:
+        dispatch.set_autotune(measure=True)
+        dispatch.reset_autotune()
+        dispatch.load_autotune()
+
+
 def time_row(name, kernel, fn, plain, copies, cost, library=None,
              extra=None, info=None):
     """A timing row on ``copies`` (a ring of inputs larger than the 50 MB
     L2, or one input larger than it).  ``ms`` / ``plain_ms`` /
     ``library_ms`` (and ``extra``'s keys): device time per call from the
     profiler (or CUDA events where ``timers`` says so), of the kernel
-    named ``kernel`` for ``ms`` and of every device operation of the call
-    for the others; ``*_call_ms``:
+    named ``kernel`` for ``ms`` (under the rule's plan:
+    :func:`rule_plans`) and of every device operation of the call for
+    the others; ``*_call_ms``:
     CUDA-event time per call in a loop, host gaps included; ``bound_ms``
     from this case's bytes and operations (at ``cost``'s third item, a
     rate in flop/s, where it gives one; else float32's); ``info``: more
@@ -1368,8 +1480,9 @@ def time_row(name, kernel, fn, plain, copies, cost, library=None,
     timers = {}
     row = dict(bound_ms=bound, bound_by=bound_by, bytes=nbytes, flops=flops,
                timers=timers, **(info or {}))
-    row["ms"], timers["ms"] = device_ms(rotating(fn, copies), kernel)
-    row["call_ms"] = cuda_ms(rotating(fn, copies))
+    with rule_plans():
+        row["ms"], timers["ms"] = device_ms(rotating(fn, copies), kernel)
+        row["call_ms"] = cuda_ms(rotating(fn, copies))
     row["plain_ms"], timers["plain_ms"] = device_ms(rotating(plain, copies))
     row["plain_call_ms"] = cuda_ms(rotating(plain, copies), 10)
     if library is not None:
@@ -1379,6 +1492,39 @@ def time_row(name, kernel, fn, plain, copies, cost, library=None,
         row[key], timers[key] = device_ms(rotating(f, copies))
     log(f"{name}: {json.dumps(row)}")
     return row
+
+
+def plan_rows(name, kernel, key, select, launch, plain, copies, fit,
+              tol) -> dict:
+    """The rule's plan of ``key`` against the plan the dispatch cache holds
+    for it (``select()`` makes a selection of the key: measured there, or
+    earlier in the phase): each fitted to the copies' shape (``fit``),
+    held to the plain version on the first copy within ``tol`` and timed
+    on the ring (device ms of ``kernel``'s launches)."""
+    from repro_torch.kernels import dispatch
+    select()
+    torch.cuda.synchronize()
+    if key not in dispatch.autotune_cache():
+        raise SystemExit(f"{name}: no selection under the key {key}: "
+                         f"{sorted(dispatch.autotune_cache(), key=str)}")
+    rec = dispatch.autotune_records().get(key)
+    chosen = dispatch.autotune_cache()[key]
+    out = {"key": "|".join(map(str, key)), "measured": rec is not None}
+    want = plain(copies[0])
+    for tag, stored in (("rule", tuple(rec["rule"]) if rec else chosen),
+                        ("chosen", chosen)):
+        plan = fit(stored)
+        got = launch(copies[0], plan)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, **tol):
+            raise SystemExit(f"{name}: the {tag} plan {plan} disagrees with "
+                             f"the plain version ({err:.3e})")
+        ms, _ = device_ms(rotating(lambda a, p=plan: launch(a, p), copies),
+                          kernel)
+        out[tag] = {"plan": list(plan), "ms": ms, "max_abs_err": err}
+    log(f"{name} plans: {json.dumps(out)}")
+    return out
 
 
 def k1_call(a):
@@ -1448,6 +1594,7 @@ def phase_train_kernels():
     """K1 bit-exact and K2 within tolerance against their plain versions
     on card tensors; timings and bounds at the main path's shapes and at
     llama3-8B's."""
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.dfxp import cases as qc
     from repro_torch.kernels.attn.cases import H100_TF32_FLOPS
     from repro_torch.kernels.qmatmul import cases as mc
@@ -1616,6 +1763,23 @@ def phase_train_kernels():
             info={"plan": {"bn": bn, "splits": splits, "per": per}}
             | {k: v for k, v in mc.qmm_bounds(copies[0]).items()
                if k.startswith("f32_") or k == "products"})
+        if tag == "maxout_fwd_nn" or tag.startswith("lm_head"):
+            # the rule's plan against the one the cache measures here
+            a0 = copies[0]
+            key = (kind, *map(dispatch._bucket, (R, C, D)),
+                   k2.products(None, wb))
+            k2_rows[tag]["plans"] = plan_rows(
+                f"K2 {tag}", "qmm_kernel", key,
+                lambda kind=kind, R=R, C=C, D=D, wb=wb, a0=a0:
+                dispatch.blocks_for(kind, R, C, D, interpret=False,
+                                    widths=(None, wb),
+                                    operands=(a0["a"], a0["b"], a0["e_a"],
+                                              a0["e_b"])),
+                lambda a, p, kind=kind, wb=wb: k2.qmm(
+                    a["a"], a["b"], a["e_a"], a["e_b"], kind=kind,
+                    width_a=None, width_b=wb, plan=p),
+                k2_plain, copies, lambda p, D=D: k2.fit_plan(D, *p),
+                mc.tolerance(D))
         del copies
     return {"dfxp_quantize": dict(rows=k1_rows, max_abs_err=0.0),
             "qmatmul": dict(rows=k2_rows, max_abs_err=max(errs))}
@@ -2063,7 +2227,6 @@ def _lm_in_process(argv):
     """``repro_torch.launch.train.main(argv)`` in this process (K1 on):
     its output parsed and the final state.  The launcher's signal
     handlers are put back afterwards."""
-    import contextlib
     import io
     import signal
     from repro_torch.core.quant import enable_pallas_quantize
@@ -2085,7 +2248,6 @@ def _lm_in_process(argv):
 
 def _ckpt_leaves(d: str):
     """The newest committed checkpoint under ``d``: (step, {name: array})."""
-    import os
     steps = [int(n.split("_")[1]) for n in os.listdir(d)
              if n.startswith("step_") and n[5:].isdigit()
              and os.path.exists(os.path.join(d, n, "_COMMITTED"))]
@@ -2160,6 +2322,32 @@ def phase_train_lm_parity():
     return {"max_loss_diff": diff, "card_launches": card[2]}
 
 
+def lm_plans(before: dict) -> dict:
+    """(a) The K2 keys the LM solo run selected (the profile's calls since
+    ``before``): one line each with the rule's plan and the chosen one,
+    their µs a launch where the key was measured, and whether this run
+    measured it or took it from the cache (an earlier phase's)."""
+    from repro_torch.kernels import dispatch
+    now, recs = dispatch.profile_stats(), dispatch.autotune_records()
+    out = {}
+    for key in sorted(now, key=str):
+        d, b = now[key], before.get(key, {"calls": 0, "misses": 0})
+        if key[0] not in ("nn", "nt", "tn") or d["calls"] == b["calls"]:
+            continue
+        rec = recs.get(key, {})
+        out["|".join(map(str, key))] = row = {
+            "calls": d["calls"] - b["calls"],
+            "measured_here": d["misses"] > b["misses"],
+            "rule": rec.get("rule"), "rule_us": rec.get("rule_us"),
+            "chosen": list(dispatch.autotune_cache()[key]),
+            "chosen_us": rec.get("us")}
+        log(f"LM plan {'|'.join(map(str, key))}: {json.dumps(row)}")
+    if not out or any(r["rule"] is None for r in out.values()):
+        raise SystemExit(f"the LM run's K2 keys were not all measured: "
+                         f"{out}")
+    return out
+
+
 def phase_train_lm():
     """The trainer main path: ``repro_torch.launch.train`` on the
     example's LM_100M at full width and depth (12 layers, d_model 512,
@@ -2195,6 +2383,7 @@ def phase_train_lm():
     from repro_torch.core import prng
     from repro_torch.data import SyntheticLM
     from repro_torch.examples import train_lm
+    from repro_torch.kernels import dispatch
     from repro_torch.launch.train import build_policy
     from repro_torch.models import transformer as T
     from repro_torch.optim.opt import OptConfig
@@ -2224,10 +2413,12 @@ def phase_train_lm():
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         reset_all_launches()
+        before = dispatch.profile_stats()
         t0 = time.perf_counter()
         solo, state = _lm_in_process(argv + ["--ckpt-dir", solo_dir,
                                              "--numerics-log", logs["solo"]])
         res["solo_wall_s"] = time.perf_counter() - t0
+        res["plans"] = lm_plans(before)
         launches = train_launches()
         res["launches"] = launches
         res["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - base
@@ -2366,7 +2557,6 @@ def phase_train_lm():
         t0 = time.perf_counter()
         mgr.save(sup.cursor, sup.ckpt_tree())
         res["ckpt_save_s"] = time.perf_counter() - t0
-        import os
         sdir = f"{tmp}/timing/step_{sup.cursor:08d}"
         res["ckpt_bytes"] = sum(os.path.getsize(f"{sdir}/{n}")
                                 for n in os.listdir(sdir))
@@ -2983,7 +3173,6 @@ def phase_cli_chaos() -> dict:
     a short arena, a controller cadence of 4) with every output file:
     each parses, the trace passes ``validate_trace``, and every request
     ends terminal."""
-    import os
     import tempfile
     from repro_torch.launch import serve
     from repro_torch.obs import read_jsonl, validate_trace
@@ -3193,12 +3382,15 @@ def phase_sharded(eng) -> dict:
                          f"card(s) should take gloo, got {backend}")
     jobs = _shard_jobs(eng)
     t0 = time.perf_counter()
-    import os
     ranks = M.spawn(_shard_rank, WORLD, jobs, backend=backend,
                     timeout_s=600.0,
                     threads=max(1, (os.cpu_count() or 1) // WORLD))
     world_s = time.perf_counter() - t0
     torch.cuda.ipc_collect()            # the weights the ranks mapped
+    # plans a rank measured (a key no earlier phase here selected): the
+    # unsharded runs below take them, as the ranks did
+    from repro_torch.kernels import dispatch
+    dispatch.load_autotune()
     log(f"sharded world: {WORLD} ranks ({backend}) ran {len(jobs)} jobs in "
         f"{world_s:.1f}s")
     out = {"world_s": world_s, "backend": backend, "jobs": {}}
@@ -3340,47 +3532,71 @@ def phase_train_compressed(lm: dict) -> dict:
 
 
 CLI_TP_ARGV = ["--smoke", "--num-requests", "3", "--slots", "2",
-               "--prompt-len", "6,10", "--max-new", "4"]
+               "--prompt-len", "6,10", "--max-new", "4", "--fused-decode"]
 
 
 def start_cli_tp():
-    """Start the serve CLI with ``--smoke --tp 2`` in a subprocess: on the
-    card it spawns its own world of two ranks (gloo, one card).  It runs
+    """Serve ``CLI_TP_ARGV`` here (unsharded: its K3 keys are measured and
+    saved to the plan cache now), then start the serve CLI with ``--tp 2
+    --profile`` in a subprocess: on the card it spawns its own world of
+    two ranks (gloo, one card), whose ranks load those plans.  It runs
     beside the phases that follow it; :func:`phase_cli_tp` collects it."""
+    import io
+    from repro_torch.launch import serve
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(CLI_TP_ARGV)
+    want = [ln for ln in buf.getvalue().splitlines()
+            if ln.startswith("sample:")]
     src = str(Path(__file__).resolve().parent / "src")
     return time.perf_counter(), subprocess.Popen(
         [sys.executable, "-c",
          "import sys; sys.path.insert(0, sys.argv.pop(1)); "
          "from repro_torch.launch.serve import main; main(sys.argv[1:])",
-         src, "--tp", "2", *CLI_TP_ARGV],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+         src, "--tp", "2", "--profile", *CLI_TP_ARGV],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), want
+
+
+def _profile_rows(text: str) -> list:
+    """The rows of the ``dispatch profile:`` table a CLI printed."""
+    lines = text[text.index("dispatch profile:"):].splitlines()[2:]
+    rows = []
+    for ln in lines:
+        cells = ln.split()
+        if len(cells) < 6 or not cells[1].isdigit():
+            break
+        rows.append(dict(zip(("bucket", "calls", "hit", "miss", "compiles",
+                              "measure_ms", "blocks"), cells)))
+    return rows
 
 
 def phase_cli_tp(started) -> dict:
-    """The ``--tp 2`` CLI run of :func:`start_cli_tp` prints the tokens of
-    the run without ``--tp`` (here, in this process)."""
-    import contextlib
-    import io
-    from repro_torch.launch import serve
-    t0, proc = started
+    """The ``--tp 2 --profile`` CLI run of :func:`start_cli_tp` prints the
+    tokens of the run without ``--tp`` (this process's, before it
+    started) and its dispatch profile: every row of a key this process
+    measured before is all hits, with no time spent measuring (the plan
+    came from the cache file)."""
+    from repro_torch.kernels import dispatch
+    t0, proc, want = started
     try:
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            serve.main(CLI_TP_ARGV)
-        want = [ln for ln in buf.getvalue().splitlines()
-                if ln.startswith("sample:")]
         out, err = proc.communicate(timeout=300)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
     got = [ln for ln in out.splitlines() if ln.startswith("sample:")]
+    measured = {"|".join(map(str, k)) for k in dispatch.autotune_records()}
+    rows = _profile_rows(out) if "dispatch profile:" in out else []
+    loaded = [r for r in rows if r["bucket"] in measured]
     res = {"exit": proc.returncode, "wall_s": time.perf_counter() - t0,
            "sample": got, "unsharded_sample": want,
-           "spawned": "spawning 2 ranks (gloo" in out}
-    log(f"serve CLI --tp 2: {json.dumps(res)}")
+           "spawned": "spawning 2 ranks (gloo" in out,
+           "profile_rows": rows, "rows_measured_before": len(loaded)}
+    log(f"serve CLI --tp 2 --profile: {json.dumps(res)}")
     if not (proc.returncode == 0 and got == want and len(got) == 1
-            and res["spawned"]):
+            and res["spawned"] and loaded
+            and all(r["miss"] == "0" and r["hit"] == r["calls"]
+                    and r["measure_ms"] == "0.00" for r in loaded)):
         raise SystemExit(f"the serve CLI --tp 2 failed: {out[-2000:]}"
                          f"{err[-2000:]}")
     return res
@@ -4618,8 +4834,16 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
     import repro_torch  # noqa: F401  (fails outside the repository)
+    # a fresh plan cache for this run, which every process it starts reads
+    cache = root / "build" / "repro_torch" / "autotune_torch.json"
+    cache.parent.mkdir(parents=True, exist_ok=True)
+    cache.unlink(missing_ok=True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(cache)
+    from repro_torch.kernels import dispatch
+    dispatch.profile_enable(True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4662,7 +4886,9 @@ def main():
     prof = phase_profile(eng, peng)
     log(f"[{time.perf_counter() - t0:.0f}s] steps profiled")
     wst, wlaunches = phase_whole_prompt(eng)
-    log(f"[{time.perf_counter() - t0:.0f}s] whole-prompt path served")
+    lockstep = phase_lockstep(eng)
+    log(f"[{time.perf_counter() - t0:.0f}s] whole-prompt and lockstep "
+        f"paths served")
     sampled = phase_sampled(eng)
     sampled_paged = phase_sampled(eng, page=PAGE)
     log(f"[{time.perf_counter() - t0:.0f}s] sampled paths served")
@@ -4825,6 +5051,14 @@ def main():
                "profile": prof, "sampled": sampled,
                "sampled_paged": sampled_paged,
                "decode_step_device_ops": prng_ops}
+    dprof = dispatch.profile_stats()
+    plans = {"measure_ms": sum(d["measure_us"] for d in dprof.values()) / 1e3,
+             "keys": len(dprof), "measured": len(dispatch.autotune_records()),
+             "candidates_timed": sum(d["compiles"] for d in dprof.values()),
+             "selections": sum(d["calls"] for d in dprof.values()),
+             "cache_file": os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]}
+    summary["lockstep"] = lockstep
+    log("dispatch: " + json.dumps(plans))
     log("prng: " + json.dumps(prng_res))
     log("train: " + json.dumps({"parity": tpar, "main": train, "conv": conv,
                                 "sweep": sweep, "profile": tprof}))

@@ -12,7 +12,8 @@ from .formats import (  # noqa: F401
     Format,
     container_exact_bits,
 )
-from .packed import PackedArray, pack, pack_rows  # noqa: F401
+from .packed import (PackedArray, pack, pack_overflow_stats,  # noqa: F401
+                     pack_rows)
 from .policy import (  # noqa: F401
     DFXP_10_12,
     FIXED_20,
@@ -32,4 +33,4 @@ from .quant import (  # noqa: F401
     ste_quant,
 )
 from .scale import ScaleState, accumulate, calibrate_exp, controller_step  # noqa: F401
-from .tape import QTape, tensor_class  # noqa: F401
+from .tape import QTape, null_tape, tensor_class  # noqa: F401

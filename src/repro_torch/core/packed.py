@@ -63,6 +63,18 @@ def _overflow_counts(m: Tensor, width: int, axes=None, mask=None):
             overh.sum(dim=axes).to(torch.float32))
 
 
+def pack_overflow_stats(x: Tensor, width: int, e) -> Tensor:
+    """Same ``(ovf, ovf_half, total)`` triple as ``quant.fixed_round``, for
+    packing: ``x / 2**e`` rounded half-even, counted against the
+    ``width``-bit range."""
+    e = torch.as_tensor(e, dtype=torch.float32, device=x.device)
+    m = torch.round(x.to(torch.float32) / exact_pow2(e))
+    ovf, ovfh = _overflow_counts(m, width)
+    return torch.stack([ovf, ovfh, torch.tensor(float(x.numel()),
+                                                dtype=torch.float32,
+                                                device=x.device)])
+
+
 def pack(x: Tensor, width: int, e, *, stochastic_key=None) -> PackedArray:
     """``x / 2**e`` rounded half-even, or stochastically with
     ``stochastic_key``, clipped into a ``width``-bit container."""

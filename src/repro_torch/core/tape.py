@@ -143,3 +143,7 @@ class QTape:
             return torch.matmul(x, wq.transpose(-1, -2))
         return torch.matmul(x, wq)
 
+
+def null_tape(policy: PrecisionPolicy) -> QTape:
+    """Tape with default scales — for fp32/float-emulation paths."""
+    return QTape(policy, {}, {})

@@ -4,5 +4,6 @@
 quantized matmul) each hold ``ops`` (wrappers with launch counters),
 ``ref`` (plain PyTorch versions) and ``csrc`` (CUDA sources);
 ``build`` compiles every ``csrc`` with ``nvcc`` and loads it with
-``ctypes``; ``dispatch`` is the differentiable fused matmul on K2.
+``ctypes``; ``dispatch`` is the differentiable fused matmul on K2 and
+the launch plans of K2, K3 and K4 (a measured, persisted cache).
 """

@@ -2,9 +2,11 @@
 
 The reference pads every operand up to its TPU block multiples
 (``repro.kernels._tiling``); the port's CUDA kernels mask their ragged
-edges by index instead, so only the two helpers remain.  The port picks
-its own tiles inside each kernel; the reference's TPU block heuristics
-and its autotune cache are not carried over (ROADMAP).
+edges by index instead, so only the two helpers remain.  The reference's
+TPU tile heuristics (``mm_blocks``, ``quantize_blocks``) and its
+interpret-mode switches have no counterpart: K2, K3 and K4 take launch
+plans, selected per shape bucket by :mod:`repro_torch.kernels.dispatch`
+(its measured autotune cache) from the rules in their ``ops`` modules.
 """
 from __future__ import annotations
 

@@ -12,10 +12,23 @@ the other.  The block tables' entries are not read on the host (that
 would cost a device sync per call): they must name pages of the arena,
 as the engine's allocator guarantees.
 
+Launch plans: K3 takes its split count from
+:func:`repro_torch.kernels.dispatch.attn_blocks_for` and K4 its
+``(warps, splits)`` from :func:`~repro_torch.kernels.dispatch.
+prefill_blocks_for` (a shape-bucketed cache, measured on the card on the
+call's own inputs; :func:`ring_splits` and :func:`prefill_plan` are the
+rules the measurement starts from).  K5 and K6 split by the fixed rules
+:func:`decode_splits` and :func:`prefill_paged_plan`, after the
+dispatch layer's validation hooks (``paged_attn_blocks_for``,
+``paged_prefill_blocks_for``) have checked the page.  On the CPU each
+wrapper records its selection in the dispatch profile, as the
+reference's interpret mode does.
+
 ``LAUNCHES`` counts calls per wrapper — incremented where a call launches
 its kernel (K3, K4, K5: and, after a split, the kernel that merges the
-splits) and nowhere else — so a run can show that its main path went
-through the kernels.
+splits) and nowhere else (not in ``launch_*``, which the plan
+measurement and the sweeps call) — so a run can show that its main path
+went through the kernels.
 
 Serving tensor parallelism (``tp_axis``): with ``tp_axis`` naming a live
 axis of the ambient mesh whose size divides the kv-head count ``K``
@@ -38,7 +51,7 @@ import torch
 from repro_torch.core.packed import container_dtype
 from repro_torch.core.quant import exact_pow2
 
-from .. import build
+from .. import build, dispatch
 from . import ref as R
 
 Tensor = torch.Tensor
@@ -149,6 +162,8 @@ def flash_decode(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, q_pos: Tensor,
     K_all = q.shape[1]
     q = local_heads(q, tp_axis, 1)
     if q.device.type == "cpu":
+        dispatch.attn_blocks_for(k.shape[1], q.shape[2], q.shape[3],
+                                 width=width, interpret=True)
         return R.decode_attention_ref(q, k, v, pos, q_pos, k_exp=k_exp,
                                       v_exp=v_exp, width=width, scale=scale,
                                       window=window, causal=causal)
@@ -166,24 +181,30 @@ def flash_decode(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, q_pos: Tensor,
         raise ValueError(f"flash_decode takes G <= 32 and hd <= 256, got "
                          f"G={G}, hd={hd}")
     steps = _steps(B, k_exp, v_exp, width, dev)
+    splits = dispatch.attn_blocks_for(
+        W, G, hd, width=width, interpret=False, B=B, K=K_all, window=window,
+        launch=lambda: ((q, k, v, pos, q_pos, steps), _decode_runner(
+            width, scale, window, causal)))
     out = launch_decode(q, k, v, pos, q_pos, steps, width=width, scale=scale,
                         window=window, causal=causal,
-                        plan=ring_splits(B, K_all, W))
+                        plan=ring_plan(W, splits))
     LAUNCHES["flash_decode"] += 1
     return out
 
 
 def launch_decode(q, k, v, pos, q_pos, steps, *, width, scale, window,
-                  causal, plan) -> Tensor:
+                  causal, plan, out=None, ws=None) -> Tensor:
     """One K3 call under ``plan`` = ``(splits, tps)`` (:func:`ring_splits`'
-    form) on checked card tensors; ``steps`` [B, 2].  Counts nothing: the
-    wrapper does, and the plan sweep (``tools/attn_plan_sweep.py``) calls
-    this directly."""
+    form) on checked card tensors; ``steps`` [B, 2]; into ``out`` and
+    ``ws`` when given (fresh buffers otherwise).  Counts nothing: the
+    wrapper does, and the plan measurement and the plan sweep
+    (``tools/attn_plan_sweep.py``) call this directly."""
     B, K, G, hd = q.shape
     W = k.shape[1]
     splits, tps = plan
-    out = torch.empty_like(q)
-    ws = _workspace(splits, B * K * G, hd, q.device)
+    out = torch.empty_like(q) if out is None else out
+    if ws is None:
+        ws = _workspace(splits, B * K * G, hd, q.device)
     fn = build.library("flash_decode").flash_decode_launch
     rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(pos), _ptr(q_pos), _ptr(steps),
             _ptr(out), _ptr(ws), B, W, K, G, hd,
@@ -193,6 +214,24 @@ def launch_decode(q, k, v, pos, q_pos, steps, *, width, scale, window,
         raise RuntimeError(f"flash_decode kernel launch failed (plan "
                            f"{plan}): CUDA error {rc}")
     return out
+
+
+def _decode_runner(width, scale, window, causal):
+    """``make_run`` of a K3 call's plan measurement
+    (:func:`repro_torch.kernels.dispatch._measure`): launches into a
+    scratch output and one scratch workspace per split count."""
+    def make_run(scratch, q, k, v, pos, q_pos, steps):
+        B, K, G, hd = q.shape
+        out, ws = scratch(*q.shape), {1: None}
+
+        def run(p):
+            if p[0] not in ws:
+                ws[p[0]] = scratch(p[0] * B * K * G * (hd + 2))
+            launch_decode(q, k, v, pos, q_pos, steps, width=width,
+                          scale=scale, window=window, causal=causal, plan=p,
+                          out=out, ws=ws[p[0]])
+        return run
+    return make_run
 
 
 def flash_prefill(q: Tensor, k_new: Tensor, v_new: Tensor, k: Tensor,
@@ -220,6 +259,8 @@ def flash_prefill(q: Tensor, k_new: Tensor, v_new: Tensor, k: Tensor,
     k_new = local_heads(k_new, tp_axis, 2)
     v_new = local_heads(v_new, tp_axis, 2)
     if q.device.type == "cpu":
+        dispatch.prefill_blocks_for(k.shape[1], q.shape[1], q.shape[3],
+                                    q.shape[4], width=width, interpret=True)
         return R.prefill_attention_ref(q, k, v, pos, k_new, v_new, p0,
                                        n_valid, k_exp=k_exp, v_exp=v_exp,
                                        width=width, scale=scale,
@@ -241,12 +282,51 @@ def flash_prefill(q: Tensor, k_new: Tensor, v_new: Tensor, k: Tensor,
         raise ValueError(f"flash_prefill takes hd <= 256 and B, K <= 65535, "
                          f"got hd={hd}, B={B}, K={K}")
     steps = _steps(B, k_exp, v_exp, width, dev)
+    plan = dispatch.prefill_blocks_for(
+        W, C, G, hd, width=width, interpret=False, B=B, K=K_all,
+        window=window,
+        launch=lambda: ((q, k_new, v_new, k, v, pos, p0, n_valid, steps),
+                        _prefill_runner(width, scale, window, causal)))
     out = launch_prefill(q, k_new, v_new, k, v, pos, p0, n_valid, steps,
                          width=width, scale=scale, window=window,
-                         causal=causal,
-                         plan=prefill_plan(B, C, W, K_all, G, hd))
+                         causal=causal, plan=plan)
     LAUNCHES["flash_prefill"] += 1
     return out
+
+
+def _prefill_runner(width, scale, window, causal):
+    """``make_run`` of a K4 call's plan measurement, as
+    :func:`_decode_runner`."""
+    def make_run(scratch, q, k_new, v_new, k, v, pos, p0, n_valid, steps):
+        rows, hd = q.shape[:-1].numel(), q.shape[-1]
+        out, ws = scratch(*q.shape), {1: None}
+
+        def run(p):
+            if p[1] not in ws:
+                ws[p[1]] = scratch(p[1] * rows * (hd + 2))
+            launch_prefill(q, k_new, v_new, k, v, pos, p0, n_valid, steps,
+                           width=width, scale=scale, window=window,
+                           causal=causal, plan=p, out=out, ws=ws[p[1]])
+        return run
+    return make_run
+
+
+def prefill_rule(BK: int, C: int, G: int, hd: int):
+    """The stored form ``(warps, S)`` of :func:`prefill_plan` for ``BK =
+    B·K`` blocks of rows: as many splits as fit one wave, before the cap
+    by the tile list that :func:`prefill_fit` applies."""
+    warps = 8 if hd <= 128 else 2
+    row_tiles = -(-C * G // (16 * warps))
+    return warps, max(1, SMS // (row_tiles * BK))
+
+
+def prefill_fit(B: int, C: int, W: int, plan):
+    """``(warps, splits)`` of a K4 call from a stored plan: the splits
+    capped by the tiles a block's list holds and by the grid (``B·S <=
+    65535``)."""
+    warps, splits = plan
+    n_list = -(-W // TILE) + -(-C // TILE)
+    return warps, max(1, min(n_list, splits, 65535 // B))
 
 
 def prefill_plan(B: int, C: int, W: int, K: int, G: int, hd: int):
@@ -257,23 +337,22 @@ def prefill_plan(B: int, C: int, W: int, K: int, G: int, hd: int):
     blocks (a block takes most of an SM's shared memory, so a second wave
     would run after the first), at most one per tile: S = 4, 128 blocks,
     at B=1, C=128, W=400, K=8, G=4, hd=128."""
-    warps = 8 if hd <= 128 else 2
-    row_tiles = -(-C * G // (16 * warps))
-    n_list = -(-W // TILE) + -(-C // TILE)
-    return warps, max(1, min(n_list, SMS // (row_tiles * K * B),
-                             65535 // B))
+    return prefill_fit(B, C, W, prefill_rule(B * K, C, G, hd))
 
 
 def launch_prefill(q, k_new, v_new, k, v, pos, p0, n_valid, steps, *,
-                   width, scale, window, causal, plan) -> Tensor:
+                   width, scale, window, causal, plan, out=None,
+                   ws=None) -> Tensor:
     """One K4 call under ``plan`` (:func:`prefill_plan`'s form) on checked
-    card tensors; ``steps`` [B, 2].  Counts nothing: the wrapper does, and
-    the plan sweep (``tools/attn_plan_sweep.py``) calls this directly."""
+    card tensors; ``steps`` [B, 2]; into ``out`` and ``ws`` when given.
+    Counts nothing: the wrapper does, and the plan measurement and the
+    plan sweep (``tools/attn_plan_sweep.py``) call this directly."""
     B, C, K, G, hd = q.shape
     W = k.shape[1]
     warps, splits = plan
-    out = torch.empty_like(q)
-    ws = _workspace(splits, B * C * K * G, hd, q.device)
+    out = torch.empty_like(q) if out is None else out
+    if ws is None:
+        ws = _workspace(splits, B * C * K * G, hd, q.device)
     fn = build.library("flash_prefill").flash_prefill_launch
     rc = fn(_ptr(q), _ptr(k_new), _ptr(v_new), _ptr(k), _ptr(v), _ptr(pos),
             _ptr(p0), _ptr(n_valid), _ptr(steps), _ptr(out), _ptr(ws), B, C,
@@ -297,21 +376,32 @@ def _check_paged(k: Tensor, v: Tensor, bt: Tensor, pos: Tensor, B: int,
     _check("v", v, (n_pages, P, K, hd), sdt, dev)
     _check("bt", bt, (B, nblocks), torch.int32, dev)
     _check("pos", pos, (B, nblocks * P), torch.int32, dev)
-    if P % TILE:
-        raise ValueError(f"the paged kernels take a page size that is a "
-                         f"multiple of {TILE}, got {P}")
-    if hd > 256:
-        raise ValueError(f"the paged kernels take hd <= 256, got hd={hd}")
     return n_pages, P, nblocks
 
 
+def ring_plan(W: int, splits: int):
+    """``(splits', tps)`` of a K3 call over a ring of ``W`` slots cut into
+    at most ``splits`` contiguous ranges of ``tps`` 32-slot tiles: a
+    stored split count fitted to the call's ``W``."""
+    n = -(-W // TILE)
+    tps = -(-n // min(max(1, splits), n))
+    return -(-n // tps), tps
+
+
+def ring_rule(BK: int):
+    """The stored form ``(splits,)`` of K3's rule for ``BK = B·K`` blocks
+    of query groups: as many splits as bring the blocks to a wave of
+    :data:`SMS`, before :func:`ring_plan` caps them by the ring's tiles."""
+    return (-(-SMS // BK),)
+
+
 def ring_splits(B: int, K: int, W: int):
-    """``(splits, tps)`` of a K3 call: the ring's ``ceil(W / 32)`` tiles
-    cut into ``splits`` contiguous ranges of ``tps`` tiles (the last may be
-    shorter), so that ``K·B·splits`` blocks fill a wave of :data:`SMS`
-    where there are tiles enough (S = 5 of 3 tiles, 160 blocks, at B=4,
-    K=8, W=400)."""
-    return decode_splits(B, K, -(-W // TILE))
+    """``(splits, tps)`` of a K3 call by the rule: the ring's ``ceil(W /
+    32)`` tiles cut into ``splits`` contiguous ranges of ``tps`` tiles (the
+    last may be shorter), so that ``K·B·splits`` blocks fill a wave of
+    :data:`SMS` where there are tiles enough (S = 5 of 3 tiles, 160
+    blocks, at B=4, K=8, W=400)."""
+    return ring_plan(W, ring_rule(B * K)[0])
 
 
 def decode_splits(B: int, K: int, nblocks: int):
@@ -347,6 +437,9 @@ def flash_decode_paged(q: Tensor, k: Tensor, v: Tensor, bt: Tensor,
     """
     K_all = q.shape[1]
     q = local_heads(q, tp_axis, 1)
+    dispatch.paged_attn_blocks_for(k.shape[1], q.shape[2], q.shape[3],
+                                   width=width,
+                                   interpret=q.device.type == "cpu")
     if q.device.type == "cpu":
         return R.paged_decode_attention_ref(
             q, k, v, bt, pos, q_pos, k_exp=k_exp, v_exp=v_exp, width=width,
@@ -405,6 +498,9 @@ def flash_prefill_paged(q: Tensor, k_new: Tensor, v_new: Tensor, k: Tensor,
     q = local_heads(q, tp_axis, 2)
     k_new = local_heads(k_new, tp_axis, 2)
     v_new = local_heads(v_new, tp_axis, 2)
+    dispatch.paged_prefill_blocks_for(k.shape[1], q.shape[1], q.shape[3],
+                                      q.shape[4], width=width,
+                                      interpret=q.device.type == "cpu")
     if q.device.type == "cpu":
         return R.paged_prefill_attention_ref(
             q, k, v, bt, pos, k_new, v_new, p0, n_valid, k_exp=k_exp,

@@ -1,15 +1,20 @@
 """Wrapper of the hand-written quantized matmul kernel K2.
 
-``qmm(a, b, e_a, e_b, kind=, width_a=, width_b=)`` keeps the signature of
-``repro.kernels.qmatmul.ops.qmm`` minus the TPU's ``blocks``, ``cast``,
-``out_dtype`` and ``interpret``: the CUDA kernel's tiles and split of the
-reduction come from :func:`plan`, it computes to float32 accuracy and has
-no interpret mode.  Layouts ``nn`` (forward), ``nt`` (dgrad) and ``tn``
-(wgrad) as in ``qmatmul_kernel.py:27-35``; each operand has its own
-optional width (``None`` = raw).  For tensors on the CPU it computes the plain version in
-:mod:`.ref`; for tensors on the card it checks them, launches K2 on the
-current stream and raises if either of its launches fails.  There is no
-fallback from one to the other.
+``qmm(a, b, e_a, e_b, kind=, width_a=, width_b=, plan=None)`` keeps the
+signature of ``repro.kernels.qmatmul.ops.qmm`` minus the TPU's
+``blocks``, ``cast``, ``out_dtype`` and ``interpret``: the CUDA kernel
+takes a launch plan instead of blocks — ``(bn, splits, per)``, its tiles
+and its split of the reduction — which :func:`plan` gives by a fixed
+rule when ``plan`` is None, and which the fused matmul
+(:mod:`repro_torch.kernels.dispatch`) selects from its measured cache.
+It computes to float32 accuracy and has no interpret mode.  Layouts
+``nn`` (forward), ``nt`` (dgrad) and ``tn`` (wgrad) as in
+``qmatmul_kernel.py:27-35``; each operand has its own optional width
+(``None`` = raw).  :func:`qmatmul` is the equal-width ``nn`` product.
+For tensors on the CPU it computes the plain version in :mod:`.ref`;
+for tensors on the card it checks them, launches K2 on the current
+stream and raises if either of its launches fails.  There is no fallback
+from one to the other.
 
 Arithmetic on the card: TF32 tensor cores with float32 accumulation.  An
 operand rounded at a width of at most 12 bits is exact in TF32
@@ -23,7 +28,8 @@ two exact operands is exact (:mod:`.ref` emulates all of this).
 
 ``LAUNCHES`` counts calls per layout, incremented where a call launches
 its kernel (and, after a split of the reduction, the kernel that sums the
-splits) and nowhere else.
+splits) and nowhere else: :func:`launch`, which the plan measurement and
+``tools/qmm_plan_sweep.py`` call, counts nothing.
 """
 from __future__ import annotations
 
@@ -64,6 +70,18 @@ def plan(R: int, C: int, D: int) -> Tuple[int, int, int]:
     want = -(-2 * SMS // (rows * -(-C // 32)))
     per = max(MIN_PER, n_slices // want)
     return 32, -(-n_slices // per), per
+
+
+_rule = plan       # qmm's ``plan`` argument shadows the rule's name
+
+
+def fit_plan(D: int, bn: int, splits: int) -> Tuple[int, int, int]:
+    """``(bn, splits', per)`` of a reduction of ``D`` cut into at most
+    ``splits`` even ranges of 32-deep slices: the stored form of a cached
+    plan, fitted to the call's own ``D``."""
+    n_slices = max(1, -(-D // BK))
+    per = -(-n_slices // min(max(1, splits), n_slices))
+    return bn, -(-n_slices // per), per
 
 
 def products(width_a: Optional[int], width_b: Optional[int]) -> int:
@@ -107,13 +125,42 @@ def _steps(e, width: Optional[int], device):
     return exact_pow2(e), exact_pow2(-e)
 
 
+def step_tensor(e_a, e_b, width_a: Optional[int], width_b: Optional[int],
+                *, device) -> Tensor:
+    """The kernel's four dequantization factors: ``2^e``, ``2^-e`` of each
+    operand (ones for a raw one)."""
+    return torch.stack([*_steps(e_a, width_a, device),
+                        *_steps(e_b, width_b, device)])
+
+
+def launch(a: Tensor, b: Tensor, steps: Tensor, c: Tensor,
+           ws: Optional[Tensor], *, kind: str, width_a: Optional[int],
+           width_b: Optional[int], plan) -> None:
+    """One K2 call under ``plan = (bn, splits, per)`` into ``c`` [R, C]
+    (``ws`` [splits, R, C] when the reduction is split) on checked card
+    tensors; ``steps`` from :func:`step_tensor`.  Counts nothing."""
+    R_, C_, D_ = shapes(kind, a.shape, b.shape)
+    bn, splits, per = plan
+    fn = build.library("qmatmul").qmatmul_launch
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    rc = fn(ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
+            ctypes.c_void_p(steps.data_ptr()), ctypes.c_void_p(c.data_ptr()),
+            ctypes.c_void_p(None if ws is None else ws.data_ptr()),
+            R_, C_, D_, _KIND[kind], int(width_a or 0), int(width_b or 0),
+            bn, splits, per, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"qmm kernel launch failed (plan bn={bn}, "
+                           f"splits={splits}, per={per}): CUDA error {rc}")
+
+
 def qmm(a: Tensor, b: Tensor, e_a, e_b, *, kind: str,
-        width_a: Optional[int], width_b: Optional[int]) -> Tensor:
+        width_a: Optional[int], width_b: Optional[int], plan=None) -> Tensor:
     """Quantized matmul on 2-D operands — K2.  Returns float32 [R, C];
     numerics are :func:`repro_torch.kernels.qmatmul.ref.qmatmul_ref` to
     :func:`.cases.tolerance` (bit for bit where both operands are rounded
     at widths <= 12 and the sums are exact), the same bits from run to
-    run."""
+    run under one plan.  ``plan``: ``(bn, splits, per)`` on the card
+    (None: :func:`plan`'s rule); the plain version takes none."""
     R_, C_, D_ = shapes(kind, a.shape, b.shape)
     if a.device.type == "cpu":
         return R.qmatmul_ref(a, b, e_a, e_b, kind=kind, width_a=width_a,
@@ -131,22 +178,23 @@ def qmm(a: Tensor, b: Tensor, e_a, e_b, *, kind: str,
         if w is not None and not 2 <= w <= 32:
             raise ValueError(f"qmm takes widths in [2, 32] or None, got {w}")
     dev = a.device
-    steps = torch.stack([*_steps(e_a, width_a, dev), *_steps(e_b, width_b, dev)])
+    steps = step_tensor(e_a, e_b, width_a, width_b, device=dev)
     c = torch.empty((R_, C_), dtype=torch.float32, device=dev)
     if R_ == 0 or C_ == 0:
         return c
-    bn, splits, per = plan(R_, C_, D_)
+    if plan is None:
+        plan = _rule(R_, C_, D_)
+    splits = plan[1]
     ws = torch.empty((splits, R_, C_), dtype=torch.float32, device=dev) \
         if splits > 1 else None
-    fn = build.library("qmatmul").qmatmul_launch
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
-            ctypes.c_void_p(steps.data_ptr()), ctypes.c_void_p(c.data_ptr()),
-            ctypes.c_void_p(None if ws is None else ws.data_ptr()),
-            R_, C_, D_, _KIND[kind], int(width_a or 0), int(width_b or 0),
-            bn, splits, per, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"qmm kernel launch failed (plan bn={bn}, "
-                           f"splits={splits}): CUDA error {rc}")
+    launch(a, b, steps, c, ws, kind=kind, width_a=width_a, width_b=width_b,
+           plan=plan)
     LAUNCHES[f"qmm_{kind}"] += 1
     return c
+
+
+def qmatmul(a: Tensor, b: Tensor, e_a, e_b, *, width: int = 10) -> Tensor:
+    """DFXP matmul ``q(a) @ q(b)`` with f32 accumulation, both operands
+    at ``width``; any [M, K] x [K, N] (the reference's
+    ``qmatmul/ops.py:69-76``)."""
+    return qmm(a, b, e_a, e_b, kind="nn", width_a=width, width_b=width)

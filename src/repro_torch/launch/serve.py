@@ -62,8 +62,21 @@ unsharded run's::
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --tp 2 --num-requests 3 --slots 2 --prompt-len 6,10 --max-new 4
 
-Not ported: ``--profile`` (it profiles the autotune cache, ROADMAP module
-item 25); it raises.
+``--profile`` profiles kernel dispatch
+(:mod:`repro_torch.kernels.dispatch`): at exit it prints ``dispatch
+profile:`` and a table of plan selections per key (calls, cache hits and
+misses, candidate plans timed, ms spent measuring, the plan), and with
+``--trace-out`` dumps the same counters to the trace.  On the card the
+first call of a key times its candidate plans and the file of measured
+plans (``REPRO_TORCH_AUTOTUNE_CACHE``, default
+``.cache/autotune_torch.json``) carries them to later runs; on the CPU
+the rows are the plain versions' ``interp`` selections, as the
+reference's interpret mode prints them.
+
+:class:`Engine` is the reference's *lockstep* server: batched prefill,
+then every sequence decodes the same number of steps at one shared
+position, greedy.  It frees no slots and admits nothing mid-decode; its
+greedy tokens are the anchor the float32 ``ServeEngine`` is held to.
 """
 from __future__ import annotations
 
@@ -74,13 +87,15 @@ import json
 import os
 import sys
 
+import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
-from repro_torch.core import prng
+from repro_torch.core import ScaleState, prng
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.dist import MeshConfigError, serve_pod_ctx
 from repro_torch.launch import mesh as mesh_mod
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serve import (
     CacheQuantConfig,
@@ -90,6 +105,47 @@ from repro_torch.serve import (
     ServeEngine,
     chaos_plan,
 )
+
+
+class Engine:
+    """Lockstep reference: batched prefill + fixed-step greedy decode
+    (the reference's ``launch/serve.py:51-87``).
+
+    The decode cache is the raw f32 ring; with ``policy.fused_decode`` its
+    attention runs the flash-decode kernel K3 on it (whole prompts prefill
+    on the plain attention).  Exponents are ``ScaleState.create(gs,
+    -6.0)``'s, as the reference's."""
+
+    def __init__(self, cfg, policy, params, *, max_len: int):
+        self.cfg, self.policy, self.params = cfg, policy, params
+        self.max_len = max_len
+        self.device = params["final_norm"].device
+        self.exps = ScaleState.create(T.group_shapes(cfg), -6.0,
+                                      device=self.device).exps
+        self.codec = L.RawKVCodec(policy.fused_decode)
+
+    @torch.no_grad()
+    def generate(self, prompts, max_new: int):
+        """``prompts``: [B, S] token ids.  Returns [B, max_new] int32
+        (greedy)."""
+        if not isinstance(prompts, torch.Tensor):
+            prompts = torch.from_numpy(np.array(prompts))
+        prompts = prompts.to(self.device)
+        B, S = prompts.shape
+        logits, _, cache = T.prefill(self.cfg, self.policy, self.params,
+                                     {"tokens": prompts}, self.exps,
+                                     max_cache_len=self.max_len)
+        outs = []
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        for i in range(max_new):
+            outs.append(tok)
+            pos = torch.full((B,), S + i, dtype=torch.int32,
+                             device=prompts.device)
+            logits, _, cache = T.decode_step(self.cfg, self.policy,
+                                             self.params, cache, tok, pos,
+                                             self.exps, kv_codec=self.codec)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+        return torch.stack(outs, dim=1)
 
 
 def _parse_lens(spec: str):
@@ -181,8 +237,11 @@ def main(argv=None):
                          "registry (counters/gauges/histograms) to this "
                          "path at exit")
     ap.add_argument("--profile", action="store_true",
-                    help="profile kernel dispatch (not ported yet: ROADMAP "
-                         "module item 25, the autotune cache)")
+                    help="profile kernel dispatch: per-bucket plan-"
+                         "selection calls, autotune cache hits/misses, "
+                         "candidate plans timed and measured us, printed "
+                         "as a table (and dumped to the trace when "
+                         "--trace-out)")
     ap.add_argument("--mesh", default="",
                     help="serving mesh as DATAxMODEL (e.g. 2x1, 1x4): the "
                          "data axis shards the decode KV window (context "
@@ -201,9 +260,6 @@ def main(argv=None):
                     help="cuda (default) or cpu (plain PyTorch versions)")
     args = ap.parse_args(argv)
 
-    if args.profile:
-        raise NotImplementedError(
-            "--profile is not ported yet (ROADMAP module item 25)")
     tp, cp = args.tp, args.cp
     if args.mesh:
         if tp != 1 or cp != 1:
@@ -287,6 +343,9 @@ def _serve(args, tp: int, cp: int):
     if args.numerics_log and lead:
         from repro_torch.obs import NumericsLog
         num_log = NumericsLog(args.numerics_log)
+    if args.profile:
+        from repro_torch.kernels import dispatch
+        dispatch.profile_enable(True)
     cache_cfg = n_pages = None
     if demo_chaos and args.cache_bits:
         cache_cfg = CacheQuantConfig(width=args.cache_bits,
@@ -344,6 +403,12 @@ def _serve(args, tp: int, cp: int):
             with open(args.fault_log, "w") as f:
                 json.dump(harness.summary(), f, indent=2)
             print(f"fault log written to {args.fault_log}")
+    if args.profile:
+        from repro_torch.kernels import dispatch
+        if tracer is not None:
+            dispatch.profile_trace_counters(tracer)
+        print("dispatch profile:")
+        print(dispatch.profile_table())
     if tracer is not None and lead:
         spans = len(tracer.span_names())
         tracer.export(args.trace_out)

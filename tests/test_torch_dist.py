@@ -21,7 +21,10 @@ every case of this module and returning its results.
 * the bytes the EP blocks' all-to-alls and the CP merge move (the mesh's
   collectives counted on the ranks) equal the dry run's implied
   collectives for the same block and mesh
-  (``repro_torch.launch.dryrun.experts`` and ``cp_merge``).
+  (``repro_torch.launch.dryrun.experts`` and ``cp_merge``);
+* plan selection (``kernels.dispatch``) on a bound mesh: the first rank
+  times the candidates and every rank runs its plan, whatever plans the
+  ranks' own caches hold.
 """
 import dataclasses
 import functools
@@ -157,9 +160,53 @@ def _count_collectives(mesh) -> list:
     return log
 
 
+def _rank_plan(rank, mesh):
+    """K3's split count selected on a bound mesh, each rank's (injected)
+    timer preferring another plan, with every cache empty (``"empty"``),
+    with a plan preloaded (as from a cache file) on every rank but the
+    first (``"others"``) and on the first alone (``"first"``): for each,
+    ``(splits, plans this rank timed, gathers, splits of a second call,
+    gathers after it)``."""
+    from repro_torch.kernels import dispatch
+    timed, gathers = [], []
+
+    def fake(run, plan):
+        timed.append(plan)
+        return 1.0 if plan[0] == 2 + rank else 2.0
+    dispatch._time_plan = fake
+    dispatch.save_autotune = lambda path=None: None
+    gather = mesh.gather_list
+    mesh.gather_list = lambda *a: gathers.append(a) or gather(*a)
+
+    def select():
+        return dispatch.attn_blocks_for(
+            400, 4, 128, width=8, interpret=False, B=4, K=8,
+            launch=lambda: ((torch.zeros(4),),
+                            lambda scratch, x: (lambda plan: None)))
+    out = {}
+    try:
+        with M.use_mesh(mesh):
+            for case, preload in (("empty", ()),
+                                  ("others", range(1, mesh.size)),
+                                  ("first", (0,))):
+                dispatch.reset_autotune()
+                if rank in preload:
+                    dispatch._BLOCK_CACHE[("attn", 32, 512, 4, 128, 8, 0)] = \
+                        (3,)
+                del timed[:], gathers[:]
+                splits = select()
+                n_gathers = len(gathers)
+                out[case] = (splits, len(timed), n_gathers, select(),
+                             len(gathers))
+    finally:
+        del mesh.gather_list
+    return out
+
+
 def _rank_cases(rank, n):
     out = {}
     mesh = M.BoundMesh((n,), ("d",))
+    out["plan"] = _rank_plan(rank, mesh)
     # the compressed all-reduce and tree, with an axis
     g, r = _grads(n)
     gh, rn = compress.compress_decompress(_t(g[rank]), _t(r[rank]), 8, "d",
@@ -564,6 +611,30 @@ def test_collectives_cross_the_backends_device(backend, want):
     mesh.backend = backend
     assert mesh.wire_device(torch.zeros(1, dtype=torch.float64)) == \
         torch.device(want)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_plan_selection_follows_the_first_rank(n):
+    """The mesh's first rank times the candidate plans; every rank runs
+    its choice (split 2), not the one its own timer prefers."""
+    got = [r["plan"]["empty"] for r in _world(n)]
+    assert [g[0] for g in got] == [2] * n
+    assert got[0][1] > 2 and all(g[1] == 0 for g in got[1:])
+
+
+@pytest.mark.parametrize("case,splits,first_timed", [("others", 2, True),
+                                                     ("first", 3, False)])
+@pytest.mark.parametrize("n", [2, 4])
+def test_plan_agreement_ignores_each_ranks_cache(n, case, splits,
+                                                 first_timed):
+    """Whatever each rank's cache holds (a plan one rank loaded from a
+    file that another had not seen yet), the first call of a key is one
+    gather on every rank, and every rank runs the first rank's cached or
+    measured plan; a second call takes it without a collective."""
+    for rank, got in enumerate(r["plan"][case] for r in _world(n)):
+        assert got[0] == got[3] == splits
+        assert got[2] == got[4] == 1
+        assert (got[1] > 2) == (first_timed and rank == 0)
 
 
 def test_bound_mesh_coordinates():

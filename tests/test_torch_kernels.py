@@ -13,7 +13,10 @@ keys in 32-lane tiles with an online softmax, the plain version in one
 einsum; K1 (fused quantize) bit-exact, values and both counts; K2
 (quantized matmul) rtol = 1e-5, atol = 1e-5·sqrt(D) on unit-scale
 operands, and its rounded operands bit-exact (a width-only product of
-on-grid values).  Without a card
+on-grid values).  Plan selection (``kernels.dispatch``): every candidate
+plan of one K2, K3 and K4 key within the kernel's tolerance of the plain
+version, and a measured entry saved, reloaded and used without timing
+again, ``LAUNCHES`` unmoved by the measurement.  Without a card
 every test skips (decided in a fixture, so all xdist workers collect the
 same tests).
 """
@@ -321,12 +324,17 @@ def test_flash_prefill_paged_is_bit_identical_from_run_to_run(cuda, width):
 @pytest.mark.parametrize("width", WIDTHS, ids=WIDTH_IDS)
 def test_flash_prefill_paged_equals_k4_on_the_same_data(cuda, width):
     """A slot-major ring laid out as pages, one page per slot (P = W =
-    384) with the slot's steps: K6 and K4 run one code with one plan on
-    the same tiles, so they give the same bits."""
+    384) with the slot's steps: K6 and K4 run one code on the same tiles,
+    so under one plan (K6's; K4's wrapper takes its own from the dispatch
+    cache) they give the same bits."""
     W_ = 384
     a = cases.prefill_case(2, CP, W_, K, G, HD, width, p0=[256, 100],
                            n_valid=[CP, 37], seed=34, device=cuda)
-    out4 = _prefill(a)
+    out4 = ops.launch_prefill(
+        a["q"], a["k_new"], a["v_new"], a["k"], a["v"], a["pos"], a["p0"],
+        a["n_valid"], ops._steps(2, a["k_exp"], a["v_exp"], width, cuda),
+        width=width, scale=a["scale"], window=a["window"], causal=True,
+        plan=ops.prefill_paged_plan(2, CP, 1, W_, K, G, HD))
     zero = torch.zeros_like(a["k"][:1])
     e0 = torch.zeros(1, device=cuda)
     paged = dict(a, k=torch.cat([zero, a["k"]]), v=torch.cat([zero, a["v"]]),
@@ -759,3 +767,111 @@ def test_k2_wrapper_checks_its_inputs(cuda):
     with pytest.raises(ValueError, match="widths"):
         k2.qmm(a, torch.zeros(5, 6, device=cuda), 0.0, 0.0, kind="nn",
                width_a=33, width_b=10)
+
+
+# ---------------------------------------------------------------------------
+# plan selection (kernels.dispatch): candidates, measurement, the cache
+# ---------------------------------------------------------------------------
+
+def _plan_case(kind, dev):
+    """One key of each tuned kernel at a slice's shape: ``(case, fitted
+    candidate plans, call under a plan, plain, tolerance)``."""
+    if kind == "k2":                   # the maxout dgrad
+        a = mcases.qmm_case("nt", 64, 240, 1200, width_b=10, seed=21,
+                            device=dev)
+        rule = k2.plan(64, 256, 2048)[:2]
+        plans = {k2.fit_plan(1200, *p)
+                 for p in dispatch.mm_candidates(rule, 64, 240)}
+        return (a, plans,
+                lambda p: k2.qmm(a["a"], a["b"], a["e_a"], a["e_b"],
+                                 kind="nt", width_a=None, width_b=10,
+                                 plan=p),
+                lambda: qmatmul_ref(a["a"], a["b"], a["e_a"], a["e_b"],
+                                    kind="nt", width_a=None, width_b=10),
+                mcases.tolerance(1200))
+    if kind == "k3":
+        a = cases.decode_case(B, W, K, G, HD, 8, fill=[W, 3 * W // 2, 37, 1],
+                              seed=22, device=dev)
+        steps = ops._steps(B, a["k_exp"], a["v_exp"], 8, dev)
+        plans = {ops.ring_plan(W, p[0])
+                 for p in dispatch.attn_candidates((5,), W)}
+        return (a, plans,
+                lambda p: ops.launch_decode(
+                    a["q"], a["k"], a["v"], a["pos"], a["q_pos"], steps,
+                    width=8, scale=a["scale"], window=None, causal=True,
+                    plan=p),
+                lambda: _decode_plain(a), TOL)
+    a = cases.prefill_case(1, C, W, K, G, HD, 8, p0=[256], n_valid=[C],
+                           seed=23, device=dev)
+    steps = ops._steps(1, a["k_exp"], a["v_exp"], 8, dev)
+    plans = {ops.prefill_fit(1, C, W, p) for p in dispatch.prefill_candidates(
+        ops.prefill_rule(8, C, G, HD))}
+    return (a, plans,
+            lambda p: ops.launch_prefill(
+                a["q"], a["k_new"], a["v_new"], a["k"], a["v"], a["pos"],
+                a["p0"], a["n_valid"], steps, width=8, scale=a["scale"],
+                window=None, causal=True, plan=p),
+            lambda: _prefill_plain(a), TOL)
+
+
+@pytest.mark.parametrize("kind", ["k2", "k3", "k4"])
+def test_every_candidate_plan_matches_plain(cuda, kind):
+    """Every plan the measurement may pick at one key agrees with the
+    plain version, and gives the same bits twice."""
+    _, plans, call, plain, tol = _plan_case(kind, cuda)
+    want = plain()
+    assert len(plans) > 3
+    for p in sorted(plans):
+        out = call(p)
+        torch.testing.assert_close(out, want, **tol, msg=f"plan {p}")
+        assert torch.equal(out, call(p))
+
+
+def _tuned_call(kind, a):
+    if kind == "k2":
+        return dispatch._qmm_auto(a["a"], a["b"], torch.tensor(
+            a["e_a"], device=a["a"].device), torch.tensor(
+            a["e_b"], device=a["a"].device), kind="nt", width_a=None,
+            width_b=10)
+    return (_decode if kind == "k3" else _prefill)(a)
+
+
+def _launch_count(kind):
+    return k2.launches() if kind == "k2" else sum(ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("kind", ["k2", "k3", "k4"])
+def test_measured_plan_persists_and_is_reused(cuda, kind, tmp_path,
+                                              monkeypatch):
+    """The first call of a key times the candidates on its own inputs
+    without moving ``LAUNCHES`` (the call itself counts once) and saves
+    the winner; after save → reset → load the next call takes it without
+    timing anything, and gives the first call's bits."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune_torch.json"))
+    saved = dict(dispatch._BLOCK_CACHE), set(dispatch._MEASURED), \
+        dict(dispatch._RECORDS)
+    dispatch.reset_autotune()
+    try:
+        a, plans, _, plain, tol = _plan_case(kind, cuda)
+        n = _launch_count(kind)
+        first = _tuned_call(kind, a)
+        torch.cuda.synchronize()
+        assert _launch_count(kind) == n + 1
+        (key, rec), = dispatch.autotune_records().items()
+        assert rec["device"] == torch.cuda.get_device_name()
+        assert rec["us"] <= rec["rule_us"]
+        torch.testing.assert_close(first, plain(), **tol)
+        dispatch.reset_autotune()
+        assert dispatch.load_autotune() == 1
+        timed = []
+        monkeypatch.setattr(dispatch, "_time_plan",
+                            lambda run, p: timed.append(p) or 1.0)
+        again = _tuned_call(kind, a)
+        assert not timed and torch.equal(again, first)
+        assert dispatch.autotune_cache()[key] == tuple(rec["plan"])
+    finally:
+        dispatch.reset_autotune()
+        dispatch._BLOCK_CACHE.update(saved[0])
+        dispatch._MEASURED.update(saved[1])
+        dispatch._RECORDS.update(saved[2])

@@ -23,8 +23,11 @@ compared exactly — statuses, tokens, counters, fault logs:
 * ``prng.randint`` draws ``jax.random.randint``'s int32s bit for bit;
 * ``repro_torch.launch.serve.main`` and ``repro.launch.serve.main`` on
   the same argv (``--queue-cap``, ``--chaos``, ``--fault-log``,
-  ``--metrics-out``, ``--numerics-log``) print the same statuses and
-  write the same fault log, numerics records and metric series.
+  ``--metrics-out``, ``--numerics-log``, and ``--fused-decode
+  --profile``, under which both select the paged kernels' pages) print
+  the same statuses, the same dispatch profile's buckets and blocks (not
+  its ``calls``: the reference counts jit traces, the port eager calls)
+  and write the same fault log, numerics records and metric series.
 """
 import functools
 import json
@@ -243,7 +246,7 @@ def test_cli_prompts_are_the_references():
 
 CLI_ARGV = ["--smoke", "--arithmetic", "float32", "--cache-bits", "8",
             "--page-size", "8", "--queue-cap", "2", "--chaos", "0",
-            "--numerics-every", "2"]
+            "--numerics-every", "2", "--fused-decode", "--profile"]
 
 
 def _cli(main, out_dir, capsys, extra=()):
@@ -264,8 +267,11 @@ def _cli(main, out_dir, capsys, extra=()):
         numerics = [{k: v for k, v in json.loads(line).items() if k != "t"}
                     for line in f]
     sample = [line for line in text.splitlines() if line.startswith("sample")]
+    prof = text[text.index("dispatch profile:"):].splitlines()[1:]
+    prof = [(row.split()[0], row.split()[-1]) for row in
+            prof[:next(i for i, r in enumerate(prof) if "  " not in r)]]
     return {"table": table, "faults": faults, "numerics": numerics,
-            "sample": sample,
+            "sample": sample, "profile": prof,
             "series": list(snap["metrics"]),
             "values": {k: v for k, v in snap["metrics"].items()
                        if v["type"] in ("counter", "gauge")}}
@@ -279,5 +285,8 @@ def test_cli_matches_reference(tmp_path, capsys):
     assert got == want
     statuses = [row[1] for row in got["table"]]
     assert statuses == ["ok", "ok", "rejected", "rejected"]
+    assert got["profile"] == [("bucket", "blocks"),
+                              ("paged_attn|8|2|32|8", "8"),
+                              ("paged_prefill|8|8|2|32|8", "8")]
     assert got["values"]["serve_requests_rejected"]["value"] == 2
     assert got["numerics"]

@@ -12,13 +12,11 @@ operands larger than the L2, checked against the plain version within
 call over 20 calls.  The plan that ``ops.plan`` picks is marked.  The
 card's name and power limit come first.  Imports no JAX.
 """
-import ctypes
 import subprocess
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.kernels import build
 from repro_torch.kernels.qmatmul import cases as mc
 from repro_torch.kernels.qmatmul import ops as k2
 from repro_torch.kernels.qmatmul.ref import qmatmul_ref
@@ -38,22 +36,17 @@ PLANS = {"fwd": [(64, 1, 25), (64, 3, 9), (64, 5, 5), (64, 7, 4), (64, 9, 3),
 
 
 def launch(a: dict, bn: int, splits: int, per: int) -> torch.Tensor:
-    """One K2 call under the given plan (the wrapper's work, by hand)."""
+    """One K2 call under the given plan, through the kernel library's C
+    entry point (``qmatmul.ops.launch``, which counts nothing)."""
     R, C, D = k2.shapes(a["kind"], a["a"].shape, a["b"].shape)
     dev = a["a"].device
-    steps = torch.stack([*k2._steps(a["e_a"], a["width_a"], dev),
-                         *k2._steps(a["e_b"], a["width_b"], dev)])
     c = torch.empty((R, C), device=dev)
     ws = torch.empty((splits, R, C), device=dev) if splits > 1 else None
-    rc = build.library("qmatmul").qmatmul_launch(
-        ctypes.c_void_p(a["a"].data_ptr()), ctypes.c_void_p(a["b"].data_ptr()),
-        ctypes.c_void_p(steps.data_ptr()), ctypes.c_void_p(c.data_ptr()),
-        ctypes.c_void_p(None if ws is None else ws.data_ptr()), R, C, D,
-        k2._KIND[a["kind"]], int(a["width_a"] or 0), int(a["width_b"] or 0),
-        bn, splits, per,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"qmm launch failed: CUDA error {rc}")
+    k2.launch(a["a"], a["b"], k2.step_tensor(a["e_a"], a["e_b"],
+                                             a["width_a"], a["width_b"],
+                                             device=dev),
+              c, ws, kind=a["kind"], width_a=a["width_a"],
+              width_b=a["width_b"], plan=(bn, splits, per))
     return c
 
 
