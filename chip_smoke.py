@@ -3231,6 +3231,11 @@ CP_PROMPT, CP_MAX_LEN = 1500, 2048  # a 1,024-slot window a rank at CP = 2
 # granite-moe-1b's layers in the EP phase: 12 of its 24 (full width; the
 # cut is the run's time limit's, as LLAMA_LAYERS)
 GRANITE_EP_LAYERS = 12
+# granite-moe-1b's layers in the resharded checkpoint job: 416 MB of
+# weights, all but the norms sharded by the EP layout (at 2 layers, 630
+# MB, the job alone took 6.0 and 8.4 s of its 10 s budget on an H100;
+# tools/ckpt_reshard.py --layers 2)
+CKPT_LAYERS = 1
 # the compressed LM run's steps; a checkpoint every 2, the kill at cursor
 # 5, where the save of 4 has begun after the save of 2 was waited for:
 # the resume is from 2 or 4
@@ -3287,6 +3292,43 @@ def _serve_job(job: dict, tp: int = 1, cp: int = 1) -> dict:
     return res
 
 
+def _ckpt_job(job: dict) -> dict:
+    """A rank's resharded checkpoint job: ``restore_latest`` of the whole
+    tree the parent saved, under ``ShardingRules``' layout on a 1 x WORLD
+    mesh (granite's experts over ``model``, the EP layout), onto the card;
+    every leaf held against ``shard_local`` of the parent's tree (CUDA
+    IPC), bit for bit; then the ranks' collective save of their shards."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import flatten
+    from repro_torch.dist import ShardingRules
+    from repro_torch.dist.sharding import shard_tree
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    mesh = M.BoundMesh((1, WORLD), ("data", "model"))
+    tmpl = T.init_params(job["cfg"], 0, device="meta")
+    sh = ShardingRules(mesh).params_shardings(tmpl)
+    with M.use_mesh(mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local, step = CheckpointManager(job["whole"]).restore_latest(
+            tmpl, sh, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = flatten(local)
+        want = flatten(shard_tree(job["params"], sh, mesh))
+        equal = [n == m and torch.equal(a, b)
+                 for (n, a), (m, b) in zip(got, want)]
+        t2 = time.perf_counter()
+        CheckpointManager(job["shards"]).save(step, local, sh)
+        t3 = time.perf_counter()
+    return {"step": step, "leaves": len(got), "equal": sum(equal),
+            "sharded": sum(a.numel() < w.numel() for (_, a), (_, w) in
+                           zip(got, flatten(job["params"]))),
+            "local_bytes": sum(a.numel() * a.element_size()
+                               for _, a in got),
+            "restore_s": t1 - t0, "save_s": t3 - t2}
+
+
 def _shard_rank(rank: int, jobs) -> dict:
     """A rank of the sharded phases' world: every job at its degrees.
     The weights arrive from the parent through CUDA IPC (no copy); the
@@ -3294,7 +3336,8 @@ def _shard_rank(rank: int, jobs) -> dict:
     torch.cuda.set_device(0)
     out = {}
     for name, job in jobs:
-        out[name] = _serve_job(job, job["tp"], job["cp"])
+        out[name] = _ckpt_job(job) if name == "ckpt" else \
+            _serve_job(job, job["tp"], job["cp"])
         torch.cuda.empty_cache()
     return out
 
@@ -3348,7 +3391,67 @@ def _shard_jobs(eng):
     jobs.append(("ep_a2a8", dict(
         g, prompts=gprompts[:2], max_new=4, logits_vs=gpol,
         policy=dataclasses.replace(gpol, a2a_compress_bits=8))))
+    jobs.append(("ckpt", _ckpt_save(
+        dataclasses.replace(gcfg, num_layers=CKPT_LAYERS), gparams)))
     return jobs
+
+
+def _ckpt_save(cfg, gparams) -> dict:
+    """The resharded checkpoint job's input: the first
+    ``cfg.num_layers`` layers of ``gparams`` (views) saved whole by this
+    process, step 1, into a fresh directory; the ranks save their shards
+    into another."""
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    params = {**gparams,
+              "stages": _first_layers(gparams["stages"], cfg.num_layers)}
+    root = tempfile.mkdtemp(prefix="repro_ckpt_")
+    job = dict(cfg=cfg, params=params, root=root,
+               whole=os.path.join(root, "whole"),
+               shards=os.path.join(root, "shards"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    CheckpointManager(job["whole"]).save(1, params)
+    job["save_s"] = time.perf_counter() - t0
+    return job
+
+
+def _ckpt_check(job: dict, ranks: list) -> list:
+    """The ranks' checkpoint results and their save against this
+    process's: the faults found, [] when none."""
+    import shutil
+    bad = []
+    for rank, got in enumerate(ranks):
+        log(f"ckpt rank {rank}: step {got['step']}, {got['equal']} of "
+            f"{got['leaves']} leaves equal to shard_local of the whole "
+            f"tree ({got['sharded']} sharded, {got['local_bytes']} bytes "
+            f"on the rank), restore {got['restore_s']:.2f}s, sharded save "
+            f"{got['save_s']:.2f}s")
+        if got["step"] != 1 or got["equal"] != got["leaves"] or \
+                not got["sharded"]:
+            bad.append(f"ckpt rank {rank}")
+    t0 = time.perf_counter()
+    a = os.path.join(job["whole"], "step_00000001")
+    b = os.path.join(job["shards"], "step_00000001")
+    names = sorted(os.listdir(a))
+    same = names == sorted(os.listdir(b))
+    for f in names if same else ():
+        with open(os.path.join(a, f), "rb") as fa, \
+                open(os.path.join(b, f), "rb") as fb:
+            while same:
+                x, y = fa.read(1 << 24), fb.read(1 << 24)
+                same = x == y
+                if not x:
+                    break
+    compare_s = time.perf_counter() - t0
+    shutil.rmtree(job["root"], ignore_errors=True)
+    log(f"ckpt: the ranks' save equals this process's whole save byte for "
+        f"byte ({len(names)} files): {same}")
+    job_s = job["save_s"] + max(r["restore_s"] + r["save_s"]
+                                for r in ranks) + compare_s
+    log(f"ckpt job: {job_s:.2f}s (whole save {job['save_s']:.2f}s, the "
+        f"ranks' restore and save, file compare {compare_s:.2f}s)")
+    return bad + ([] if same else ["ckpt: the ranks' save differs"])
 
 
 def phase_sharded(eng) -> dict:
@@ -3370,7 +3473,12 @@ def phase_sharded(eng) -> dict:
        over the ranks: greedy tokens equal the unsharded run's; a second
        run with ``a2a_compress_bits=8`` (two of the prompts, 4 tokens)
        resolves every request ``ok``, and its first-step logits' largest
-       difference from the uncompressed run's is printed.
+       difference from the uncompressed run's is printed;
+    5. resharded checkpoints: granite's first ``CKPT_LAYERS`` layers
+       saved whole here; each rank restores them under the EP layout
+       onto the card (every leaf = ``shard_local`` of the whole, bit for
+       bit) and the ranks save their shards, a save that equals this
+       process's byte for byte.
 
     Every rank checks each step that all ranks sampled the same tokens.
     The unsharded runs are this process's, over the same weights."""
@@ -3398,6 +3506,9 @@ def phase_sharded(eng) -> dict:
     for name, job in jobs:
         res = {"ranks": [r[name] for r in ranks]}
         out["jobs"][name] = res
+        if name == "ckpt":
+            bad += _ckpt_check(job, res["ranks"])
+            continue
         if name == "ep_a2a8":
             for rank, got in enumerate(res["ranks"]):
                 log(f"{name} rank {rank}: statuses {got['statuses']}, "

@@ -31,7 +31,17 @@ the reference's does.
     the newest committed directory is never deleted).
 
 Restore puts each leaf on the device of the template's leaf (or on
-``device``); it replaces the reference's resharding onto a mesh.
+``device``).  **Elastic restore**, as the reference's: a checkpoint
+holds whole leaves, so any mesh can restore it.  With ``shardings`` —
+the entry tree of :class:`repro_torch.dist.ShardingRules` for the
+template, on the ambient mesh (a :class:`~repro_torch.launch.mesh.
+BoundMesh` over the current ``torch.distributed`` world, set by
+``use_mesh``) — each rank reads and verifies every
+whole leaf and keeps its own block (:func:`repro_torch.dist.sharding.
+shard_local`).  Saving a tree sharded so gathers each sharded leaf along
+its mesh axes on every rank; the world's first rank writes, and every
+rank returns once it knows the checkpoint committed, or raises.  The
+files are byte for byte those of a one-process save of the whole tree.
 """
 from __future__ import annotations
 
@@ -139,7 +149,10 @@ def _spec(leaf) -> Tuple[tuple, np.dtype]:
     return a.shape, a.dtype
 
 
-def _place(arr: np.ndarray, tmpl, device):
+def _place(arr: np.ndarray, tmpl, device, entries=None, mesh=None):
+    if entries:
+        from repro_torch.dist.sharding import shard_local
+        arr = shard_local(torch.from_numpy(arr), entries, mesh).numpy()
     if isinstance(tmpl, np.ndarray):
         return arr
     dev = device
@@ -147,6 +160,85 @@ def _place(arr: np.ndarray, tmpl, device):
             tmpl.device.type != "meta":
         dev = tmpl.device
     return torch.from_numpy(arr).to(dev or "cpu")
+
+
+# -- sharded trees ---------------------------------------------------------
+def _entries(template, shardings) -> list:
+    """The entries of ``shardings`` at ``template``'s leaves, in
+    :func:`flatten`'s order (an entry is a tuple, so the walk follows the
+    template's structure, not the entries')."""
+    if isinstance(template, dict):
+        return [e for k in sorted(template)
+                for e in _entries(template[k], shardings[k])]
+    if isinstance(template, (list, tuple)):
+        return [e for t, sh in zip(template, shardings)
+                for e in _entries(t, sh)]
+    if _is_node(template):
+        return [e for n in _fields(template)
+                for e in _entries(getattr(template, n), getattr(shardings, n))]
+    return [tuple(shardings)]
+
+
+def _mesh():
+    """The ambient mesh, whose axes ``shardings`` name."""
+    from repro_torch.launch.mesh import ambient_mesh
+    mesh = ambient_mesh()
+    if mesh is None:
+        raise ValueError("shardings name mesh axes: run under "
+                         "repro_torch.launch.mesh.use_mesh(mesh)")
+    return mesh
+
+
+def _agreed(mesh, err: Optional[BaseException], what: str, cls):
+    """Every rank's outcome of one collective step, gathered over the
+    world, and the same verdict on every rank: ``(None, False)`` when the
+    step succeeded everywhere, else ``(e, fatal)``, where ``e`` is this
+    rank's own error or, on a rank that succeeded, a ``cls`` error naming
+    the first rank that failed and its error, and ``fatal`` says that
+    some rank's error was not a :class:`CheckpointError`."""
+    msgs = mesh.gather_objects(
+        None if err is None else (isinstance(err, CheckpointError),
+                                  f"{type(err).__name__}: {err}"))
+    failed = [(r, m) for r, m in enumerate(msgs) if m is not None]
+    if not failed:
+        return None, False
+    if err is None:
+        r, (_, m) = failed[0]
+        err = cls(f"{what} failed on rank {r}: {m}")
+    return err, not all(ok for _, (ok, _) in failed)
+
+
+def _save_sharded(tree, shardings, write: Callable, what: str) -> None:
+    """Collective save of a tree sharded by ``shardings`` on the ambient
+    mesh: each sharded leaf all-gathered along its axes (every rank takes
+    part), ``write(whole host leaves)`` on the world's first rank, and
+    every rank raises if any rank failed.  A rank's error stops only its
+    own work, never its part in a collective, so no peer waits on it."""
+    mesh = _mesh()
+    writer = mesh.rank == 0
+    err, leaves = None, []
+    for (name, x), ent in zip(flatten(tree), _entries(tree, shardings)):
+        axes = [(dim, e) for dim, e in enumerate(ent)
+                if e is not None and mesh.axis_size(e) > 1]
+        for dim, e in axes:
+            names = (e,) if isinstance(e, str) else tuple(e)
+            if names != tuple(a for a in mesh.axis_names if a in names):
+                raise ValueError(f"leaf {name!r}: axes {names} are not in "
+                                 f"the mesh's order {mesh.axis_names}")
+            x = mesh.all_gather(torch.as_tensor(x), e, dim)
+        if writer and err is None:
+            try:
+                leaves.append((name, _host(x)))
+            except Exception as e:      # raised on every rank below
+                err = e
+    if writer and err is None:
+        try:
+            write(leaves)
+        except Exception as e:
+            err = e
+    err, _ = _agreed(mesh, err, what, CheckpointWriteError)
+    if err is not None:
+        raise err
 
 
 # -- files ---------------------------------------------------------------
@@ -204,29 +296,51 @@ def _save_host(leaves: List[Tuple[str, np.ndarray]], path: str, *,
 
 
 def save_tree(tree: Any, path: str, *,
-              fail_hook: Optional[Callable] = None) -> None:
+              fail_hook: Optional[Callable] = None,
+              shardings: Any = None) -> None:
     """Synchronous atomic save of a tree of tensors.
 
     Write ordering (the durability contract): leaves and manifest into a
     ``.tmp`` dir, fsync every file, fsync the dir, ``os.replace`` into
     place, fsync the parent, and only then write and fsync
     ``_COMMITTED``.  ``fail_hook(i)``, called before leaf ``i`` is
-    written, may raise to simulate a writer dying mid-save."""
-    _save_host([(n, _host(x)) for n, x in flatten(tree)], path,
-               fail_hook=fail_hook)
+    written, may raise to simulate a writer dying mid-save.
+
+    With ``shardings`` (the entry tree ``tree``'s local blocks were cut
+    by, on the ambient mesh) the call is collective over the world: the
+    whole leaves are gathered, the first rank writes them, and every
+    rank raises if the write failed."""
+    if shardings is None:
+        _save_host([(n, _host(x)) for n, x in flatten(tree)], path,
+                   fail_hook=fail_hook)
+        return
+    _save_sharded(tree, shardings,
+                  lambda leaves: _save_host(leaves, path,
+                                            fail_hook=fail_hook),
+                  f"checkpoint save to {path}")
 
 
-def restore_tree(template: Any, path: str, *, device=None,
-                 verify: bool = True) -> Any:
-    """Restore into ``template``'s structure.
+def restore_tree(template: Any, path: str, shardings: Any = None, *,
+                 device=None, verify: bool = True) -> Any:
+    """Restore into ``template``'s structure; with ``shardings``, this
+    rank's block of each leaf.
 
     Each leaf lands on ``device``, or on the device of the template's
     tensor (the CPU for a ``meta`` one); a numpy template leaf gives a
-    numpy array.  Raises :class:`LeafMismatchError` on a leaf-count,
-    shape or dtype mismatch and :class:`LeafCorruptError` when a leaf
-    file fails its manifest CRC32 (``verify=False`` skips the CRC pass),
-    each naming the leaf."""
+    numpy array.  ``template`` holds the whole leaves' shapes;
+    ``shardings`` (the entry tree :class:`repro_torch.dist.ShardingRules`
+    gives for it, or ``None``) names axes of the ambient mesh
+    (:func:`repro_torch.launch.mesh.use_mesh`): each leaf is read,
+    verified and checked whole, and
+    :func:`repro_torch.dist.sharding.shard_local` of it is kept — pass
+    the *new* mesh's entries to reshard elastically.  Raises
+    :class:`LeafMismatchError` on a leaf-count, shape or dtype mismatch
+    and :class:`LeafCorruptError` when a leaf file fails its manifest
+    CRC32 (``verify=False`` skips the CRC pass), each naming the leaf."""
     leaves_t = [x for _, x in flatten(template)]
+    ents, mesh = [None] * len(leaves_t), None
+    if shardings is not None:
+        ents, mesh = _entries(template, shardings), _mesh()
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     if len(manifest["leaves"]) != len(leaves_t):
@@ -234,7 +348,7 @@ def restore_tree(template: Any, path: str, *, device=None,
             f"checkpoint {path} has {len(manifest['leaves'])} leaves, "
             f"template has {len(leaves_t)}")
     out = []
-    for meta, tmpl in zip(manifest["leaves"], leaves_t):
+    for meta, tmpl, ent in zip(manifest["leaves"], leaves_t, ents):
         name = meta.get("name", meta["file"])
         fpath = os.path.join(path, meta["file"])
         try:
@@ -263,7 +377,7 @@ def restore_tree(template: Any, path: str, *, device=None,
             raise LeafMismatchError(
                 f"leaf {name!r}: checkpoint dtype {meta['dtype']} != "
                 f"template dtype {dtype}")
-        out.append(_place(arr, tmpl, device))
+        out.append(_place(arr, tmpl, device, ent, mesh))
     return unflatten(template, out)
 
 
@@ -327,9 +441,20 @@ class CheckpointManager:
                         f"{attempt + 1} attempts: {e}") from e
                 time.sleep(self.backoff_s * (2 ** attempt))
 
-    def save(self, step: int, tree: Any) -> None:
-        self._save_with_retry(step, [(n, _host(x)) for n, x in flatten(tree)])
-        self._gc()
+    def save(self, step: int, tree: Any, shardings: Any = None) -> None:
+        """Save ``step``; with ``shardings``, collectively, as
+        :func:`save_tree` (the first rank writes and prunes)."""
+        if shardings is None:
+            self._save_with_retry(step, [(n, _host(x))
+                                         for n, x in flatten(tree)])
+            self._gc()
+            return
+
+        def write(leaves):
+            self._save_with_retry(step, leaves)
+            self._gc()
+        _save_sharded(tree, shardings, write,
+                      f"checkpoint save of step {step}")
 
     def save_async(self, step: int, tree: Any) -> None:
         """Copy every leaf to host memory now; write in the background.
@@ -358,36 +483,77 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def restore(self, template: Any, step: Optional[int] = None, *,
-                device=None) -> Any:
+    def _restore_agreed(self, template, step: int, shardings, device):
+        """``(tree, err, fatal)``: :func:`restore_tree` of ``step`` on
+        every rank of the world, and their agreement (:func:`_agreed`):
+        a step that failed on any rank fails on all."""
+        path = self._step_dir(step)
+        try:
+            tree, err = restore_tree(template, path, shardings,
+                                     device=device), None
+        except Exception as e:          # agreed on by every rank below
+            tree, err = None, e
+        err, fatal = _agreed(_mesh(), err, path, CheckpointError)
+        return tree, err, fatal
+
+    def restore(self, template: Any, step: Optional[int] = None,
+                shardings: Any = None, *, device=None) -> Any:
         """Restore ``step`` (raises on any integrity error), or — with
         ``step=None`` — the newest committed step that verifies
-        (:meth:`restore_latest`)."""
-        if step is not None:
+        (:meth:`restore_latest`); ``shardings`` as :func:`restore_tree`,
+        and then every rank raises if the restore failed on any."""
+        if step is None:
+            tree, _ = self.restore_latest(template, shardings, device=device)
+            return tree
+        if shardings is None:
             return restore_tree(template, self._step_dir(step),
                                 device=device)
-        tree, _ = self.restore_latest(template, device=device)
+        tree, err, _ = self._restore_agreed(template, step, shardings,
+                                            device)
+        if err is not None:
+            raise err
         return tree
 
-    def restore_latest(self, template: Any, *, device=None):
+    def restore_latest(self, template: Any, shardings: Any = None, *,
+                       device=None):
         """Restore the newest committed checkpoint that verifies clean.
 
         Returns ``(tree, step)``.  A committed dir that fails restore is
         quarantined — renamed to ``corrupt_<name>`` so it is never retried
         but the evidence survives — and the walk falls back to the
-        previous committed step.  Raises ``FileNotFoundError`` when no
-        committed checkpoint exists and :class:`CheckpointError` when all
-        of them are corrupt."""
+        previous committed step.  With ``shardings`` the world's first
+        rank lists the steps for every rank, every rank tries each step
+        and they agree before going on: a step that failed with a
+        :class:`CheckpointError` on any rank fails on all and the first
+        rank alone quarantines it; any other error on any rank is raised
+        on every rank.  Raises ``FileNotFoundError`` when no committed
+        checkpoint exists and :class:`CheckpointError` when all of them
+        are corrupt."""
         steps = self.all_steps()
+        if shardings is not None:
+            # a step that commits while the ranks list would otherwise
+            # give them different steps to restore
+            steps = _mesh().gather_objects(steps)[0]
         if not steps:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
-        last_err: Optional[CheckpointError] = None
+        last_err: Optional[BaseException] = None
         for s in reversed(steps):
             path = self._step_dir(s)
-            try:
-                return restore_tree(template, path, device=device), s
-            except CheckpointError as e:
-                last_err = e
+            if shardings is None:
+                try:
+                    return restore_tree(template, path,
+                                        device=device), s
+                except CheckpointError as e:
+                    last_err = e
+            else:
+                tree, err, fatal = self._restore_agreed(template, s,
+                                                        shardings, device)
+                if err is None:
+                    return tree, s
+                if fatal:
+                    raise err
+                last_err = err
+            if shardings is None or _mesh().rank == 0:
                 quarantine = os.path.join(
                     self.dir, f"corrupt_{os.path.basename(path)}")
                 shutil.rmtree(quarantine, ignore_errors=True)

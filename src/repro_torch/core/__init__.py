@@ -13,7 +13,7 @@ from .formats import (  # noqa: F401
     container_exact_bits,
 )
 from .packed import (PackedArray, pack, pack_overflow_stats,  # noqa: F401
-                     pack_rows)
+                     pack_rows, unpack)
 from .policy import (  # noqa: F401
     DFXP_10_12,
     FIXED_20,

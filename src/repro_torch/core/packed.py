@@ -36,6 +36,14 @@ class PackedArray:
     exp: Tensor                         # f32 (integer-valued)
     width: int = 16
 
+    @property
+    def shape(self):
+        return self.mantissa.shape
+
+    @property
+    def size(self) -> int:
+        return self.mantissa.numel()
+
 
 def qrange(width: int):
     """(qmax, qmin) of a two's-complement ``width``-bit mantissa."""

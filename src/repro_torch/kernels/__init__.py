@@ -7,3 +7,4 @@ quantized matmul) each hold ``ops`` (wrappers with launch counters),
 ``ctypes``; ``dispatch`` is the differentiable fused matmul on K2 and
 the launch plans of K2, K3 and K4 (a measured, persisted cache).
 """
+from .dispatch import fused_dot, tape_dot  # noqa: F401

@@ -12,3 +12,4 @@ from .ops import (  # noqa: F401
     flash_prefill_paged,
     reset_launches,
 )
+from .ref import decode_attention_ref, prefill_attention_ref  # noqa: F401

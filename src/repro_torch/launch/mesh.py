@@ -40,9 +40,12 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import faulthandler
+import importlib
 import itertools
 import math
 import os
+import sys
 import tempfile
 import time
 from typing import Dict, Optional, Sequence, Tuple
@@ -59,6 +62,9 @@ BACKEND_RULE = ("nccl when each rank has a card of its own; gloo when ranks "
                 "through host memory)")
 
 _AMBIENT: list = []
+
+# lines of a failed rank's stderr that spawn() puts into its error
+STDERR_TAIL = 40
 
 
 class AbstractMesh:
@@ -162,6 +168,15 @@ class BoundMesh(AbstractMesh):
         out = [torch.empty_like(src) for _ in range(n)]
         tdist.all_gather(out, src, group=g)
         return [t.to(x.device) for t in out]
+
+    def gather_objects(self, obj) -> list:
+        """Every rank's picklable ``obj`` over the whole world (every
+        replica of the mesh), in rank order; ``[obj]`` without a world."""
+        if not (tdist.is_available() and tdist.is_initialized()):
+            return [obj]
+        out = [None] * tdist.get_world_size()
+        tdist.all_gather_object(out, obj)
+        return out
 
     def psum(self, x: Tensor, axes) -> Tensor:
         """Sum over ``axes``, added in rank order on every rank."""
@@ -317,8 +332,19 @@ def init_world(rank: int, nprocs: int, init_method: str, backend: str, *,
 
 
 def _rank_main(rank, nprocs, init_method, backend, timeout_s, threads, fn,
-               args, queue):
+               args, queue, err_path):
+    # this rank's stderr goes to its file in the world's directory before
+    # anything else runs (``fn``'s module is imported only after), and a
+    # fatal signal dumps every thread's stack there
+    fd = os.open(err_path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    os.dup2(fd, 2)
+    os.close(fd)
+    faulthandler.enable()
     try:
+        module, qualname = fn
+        fn = importlib.import_module(module)
+        for part in qualname.split("."):
+            fn = getattr(fn, part)
         if threads:
             torch.set_num_threads(threads)
         init_world(rank, nprocs, init_method, backend, timeout_s=timeout_s)
@@ -332,6 +358,24 @@ def _rank_main(rank, nprocs, init_method, backend, timeout_s, threads, fn,
     finally:
         if tdist.is_initialized():
             tdist.destroy_process_group()
+        # the queue pickles and sends from a thread of its own: wait for it
+        # here, so that a message it fails to send (an unpicklable result)
+        # leaves its error in this rank's stderr before the rank exits
+        queue.close()
+        queue.join_thread()
+
+
+def _stderr_tail(path: str, lines: int = STDERR_TAIL) -> str:
+    try:
+        with open(path, errors="replace") as f:
+            tail = f.read().splitlines()[-lines:]
+    except OSError:
+        tail = []
+    if not tail:
+        # a rank that dies while it starts (before _rank_main runs in
+        # it) writes to this process's stderr instead
+        return "  (its stderr file is empty)"
+    return "\n".join("  | " + line for line in tail)
 
 
 def spawn(fn, nprocs: int, *args, backend: str = "gloo",
@@ -342,11 +386,17 @@ def spawn(fn, nprocs: int, *args, backend: str = "gloo",
     The ranks rendezvous through a file in a fresh temporary directory
     (no port to collide with another world), each collective times out
     after ``timeout_s``, and ``threads`` > 0 sets each rank's torch
-    thread count.  ``fn`` must be importable by name (the ranks start
-    with ``spawn``); CUDA tensors in ``args`` reach the ranks through
-    CUDA IPC and must stay alive in the caller until this returns.  A
-    rank that fails, dies or outlives the whole world's deadline fails
-    the call: every rank is stopped before it raises.
+    thread count.  ``fn`` must be importable by name (each rank imports
+    its module); CUDA tensors in ``args`` reach the ranks through CUDA
+    IPC and must stay alive in the caller until this returns.  A rank
+    that fails, dies, exits without sending its result, or outlives the
+    whole world's deadline fails the call, as does one that exits non-zero
+    or hangs after sending its result: every rank is stopped before it
+    raises.  Each rank's stderr goes to a file of its own; the
+    ``RuntimeError`` names each rank that did not finish cleanly, with
+    its own error or its exit code and the last :data:`STDERR_TAIL`
+    lines of its stderr, and a world that succeeds copies its ranks'
+    stderr to this process's, each line prefixed with its rank.
     """
     import queue as queue_mod
 
@@ -354,43 +404,94 @@ def spawn(fn, nprocs: int, *args, backend: str = "gloo",
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
+    ref = (fn.__module__, fn.__qualname__)
     with tempfile.TemporaryDirectory(prefix="repro_world_") as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
+        errs = [os.path.join(tmp, f"rank{r}.stderr") for r in range(nprocs)]
         procs = [ctx.Process(target=_rank_main,
                              args=(r, nprocs, init, backend, timeout_s,
-                                   threads, fn, args, q), daemon=True)
+                                   threads, ref, args, q, errs[r]),
+                             daemon=True)
                  for r in range(nprocs)]
         for p in procs:
             p.start()
         results: Dict[int, object] = {}
-        errors = []
+        raised: Dict[int, str] = {}       # rank -> the error it sent
+        silent: Dict[int, float] = {}     # rank -> when it exited 0 unheard
+
+        def receive(timeout: float) -> bool:
+            try:
+                rank, status, out = q.get(timeout=timeout)
+            except queue_mod.Empty:
+                return False
+            (results if status == "ok" else raised)[rank] = out
+            return True
+
+        failed = None
         deadline = time.monotonic() + timeout_s + 60.0
         try:
-            while len(results) < nprocs and not errors:
-                try:
-                    rank, status, out = q.get(timeout=1.0)
-                except queue_mod.Empty:
-                    codes = [p.exitcode for p in procs]
-                    lost = [r for r, c in enumerate(codes)
-                            if c not in (None, 0) and r not in results]
-                    if lost:
-                        errors.append(f"ranks {lost} died (exit codes "
-                                      f"{codes})")
-                    elif time.monotonic() > deadline:
-                        errors.append(f"world of {nprocs} ranks timed out "
-                                      f"(exit codes {codes})")
+            while len(results) < nprocs and not raised:
+                if receive(1.0):
                     continue
-                if status == "ok":
-                    results[rank] = out
-                else:
-                    errors.append(f"rank {rank}: {out}")
+                now = time.monotonic()
+                codes = [p.exitcode for p in procs]
+                for r, c in enumerate(codes):
+                    if c == 0 and r not in results:
+                        silent.setdefault(r, now)
+                # a rank sends its message before it exits: one still
+                # unread a few seconds after the exit was lost
+                if any(c not in (None, 0) and r not in results
+                       for r, c in enumerate(codes)) or any(
+                           now - t > 5.0 for r, t in silent.items()
+                           if r not in results):
+                    break
+                if now > deadline:
+                    failed = "timed out"
+                    break
+            if len(results) < nprocs:
+                failed = failed or "failed"
+                # the other ranks fail in turn (a collective with a dead
+                # peer raises): give them a few seconds to say so
+                until = time.monotonic() + 5.0
+                while time.monotonic() < until and any(
+                        p.is_alive() for p in procs):
+                    receive(0.2)
+                while receive(0.05):
+                    pass
         finally:
             for p in procs:
-                p.join(timeout=30.0 if not errors else 2.0)
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        if errors:
-            raise RuntimeError("\n".join(errors))
+                p.join(timeout=30.0 if not failed else 2.0)
+            stopped = [r for r, p in enumerate(procs) if p.is_alive()]
+            for r in stopped:
+                procs[r].kill()
+                procs[r].join()
+        codes = [p.exitcode for p in procs]
+        # a rank that sent its result and then crashed or hung on its way
+        # out fails the world too
+        failed = failed or ("failed" if stopped or any(codes) else None)
+        if failed:
+            lines = [f"world of {nprocs} ranks {failed} (exit codes "
+                     f"{codes})"]
+            for r in range(nprocs):
+                if r in raised:
+                    lines.append(f"rank {r}: {raised[r]}")
+                    continue
+                if r in stopped:
+                    what = "was still running and was stopped"
+                elif codes[r] == 0:
+                    if r in results:
+                        continue
+                    what = "exited 0 but its result never arrived"
+                else:
+                    what = f"died (exit code {codes[r]})"
+                if r in results:
+                    what += " after sending its result"
+                lines.append(f"rank {r} {what}; its stderr ends:\n"
+                             f"{_stderr_tail(errs[r])}")
+            raise RuntimeError("\n".join(lines))
+        for r, path in enumerate(errs):
+            with open(path, errors="replace") as f:
+                text = f.read()
+            for line in text.splitlines():
+                print(f"[rank {r}] {line}", file=sys.stderr)
     return [results[r] for r in range(nprocs)]

@@ -313,6 +313,13 @@ class KVShard:
 
     tp_axis: Optional[str] = None
     cp_axis: Optional[str] = None
+    _fused_decode: bool = False
+
+    @property
+    def fused_decode(self) -> bool:
+        """Whether decode and chunked prefill attention run the flash
+        kernels on this codec's storage (set by the pool factory)."""
+        return self._fused_decode
 
     def local_heads(self, x: Tensor, dim: int) -> Tensor:
         """This rank's kv heads of ``x`` (all ``K`` heads on ``dim``)."""
@@ -380,7 +387,7 @@ class RawKVCodec(KVShard):
     def __init__(self, fused_decode: bool = False, *,
                  tp_axis: Optional[str] = None,
                  cp_axis: Optional[str] = None):
-        self.fused_decode = bool(fused_decode)
+        self._fused_decode = bool(fused_decode)
         self.tp_axis, self.cp_axis = tp_axis, cp_axis
 
     def append(self, entry: dict, k_new: Tensor, v_new: Tensor,

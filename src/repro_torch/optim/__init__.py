@@ -1,6 +1,8 @@
 """Optimizers and schedules over dicts of tensors, as in ``repro.optim``."""
 from .opt import (  # noqa: F401
+    AdamWState,
     OptConfig,
+    SGDState,
     adamw_init,
     adamw_update,
     apply_max_norm,

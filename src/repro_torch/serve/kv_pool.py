@@ -146,7 +146,7 @@ class PackedKVCodec(L.KVShard):
                  *, tp_axis: Optional[str] = None,
                  cp_axis: Optional[str] = None):
         self.cfg = config
-        self.fused_decode = bool(fused_decode)
+        self._fused_decode = bool(fused_decode)
         self.tp_axis, self.cp_axis = tp_axis, cp_axis
 
     # -- model-layer protocol (called per layer) ---------------------------

@@ -141,7 +141,7 @@ class PagedKVCodec(L.KVShard):
             raise ValueError(f"page_size {page_size} < 1")
         self.page_size = page_size
         self.cfg = config
-        self.fused_decode = bool(fused_decode)
+        self._fused_decode = bool(fused_decode)
         # serving TP shards the kv heads inside every page; pages already
         # tile the window, so a paged pool never shards it (cp_axis None)
         self.tp_axis = tp_axis

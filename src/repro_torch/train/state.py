@@ -31,6 +31,19 @@ class TrainState:
     scale: ScaleState
     step: Tensor                   # int32 scalar, on the params' device
 
+    def num_params(self) -> int:
+        """Parameter count; a ``PackedArray`` counts its mantissa's
+        elements, as one leaf."""
+        def count(t):
+            if isinstance(t, dict):
+                return sum(count(v) for v in t.values())
+            if isinstance(t, (list, tuple)):
+                return sum(count(v) for v in t)
+            if isinstance(t, PackedArray):
+                return t.size
+            return t.numel()
+        return count(self.params)
+
 
 def leaves_with_path(tree, path=()):
     """``[(path tuple, leaf)]`` of nested dicts; a PackedArray is a leaf."""

@@ -4,7 +4,7 @@ The reference's collectives run under ``jax.vmap(..., axis_name=...)`` in
 this process; the port's run in worlds of ranks spawned once per world
 size (gloo on the CPU, one torch thread a rank, a ``file://`` rendezvous
 in a fresh directory, a timeout on every collective), each rank running
-every case of this module and returning its results.
+every case of the ranks' module and returning its results.
 
 * the context factories and every ``MeshConfigError`` of the contexts,
   the mesh and the pool factory;
@@ -24,10 +24,24 @@ every case of this module and returning its results.
   (``repro_torch.launch.dryrun.experts`` and ``cp_merge``);
 * plan selection (``kernels.dispatch``) on a bound mesh: the first rank
   times the candidates and every rank runs its plan, whatever plans the
-  ranks' own caches hold.
+  ranks' own caches hold;
+* resharded checkpoints: granite-smoke's train state, saved whole by
+  this process, restored on every rank under TP, FSDP and both to
+  exactly its block of each leaf, saved back by the ranks to the same
+  files byte for byte; a corrupt leaf named on every rank, a corrupt
+  newest step skipped by every rank together;
+* ``launch.mesh.spawn``'s report of a world that fails (a rank that
+  dies, a result that never arrives, a crash after the result).
+
+The ranks' side is ``tests/_torch_dist_ranks.py``, which imports no jax.
 """
 import dataclasses
 import functools
+import hashlib
+import json
+import os
+import shutil
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -48,13 +62,18 @@ from repro.models import transformer as RT
 from repro.optim.opt import sgd_init as rsgd_init
 from repro.serve.kv_pool import make_kv_pool as r_make_kv_pool
 from repro.train.state import init_train_state as r_init_train_state
+import _torch_dist_ranks as R
+from _torch_dist_ranks import (A2A_SCALES, MOE_DISTS, MOE_SPEC, _a2a,
+                               _cp_inputs, _grads, _moe_inputs, _port_moe,
+                               _t)
 from repro_torch import configs
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint.manager import flatten
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.dist import (DistCtx, MeshConfigError, ShardingRules,
                               compress, context, cp_attention)
 from repro_torch.dist.sharding import leaves_with_path
 from repro_torch.launch import mesh as M
-from repro_torch.models import moe
 from repro_torch.models import transformer as T
 from repro_torch.optim.opt import sgd_init
 from repro_torch.serve.kv_pool import make_kv_pool
@@ -64,228 +83,90 @@ TIMEOUT = 120.0
 
 
 # ---------------------------------------------------------------------------
-# inputs shared by the ranks and the reference (numpy, from seeds)
+# the worlds: the ranks' side is tests/_torch_dist_ranks.py (torch only)
 # ---------------------------------------------------------------------------
 
-def _grads(n_ranks):
-    rs = np.random.RandomState(0)
-    g = rs.standard_normal((n_ranks, 8, 33)).astype(np.float32) * 1e-3
-    r = rs.standard_normal((n_ranks, 8, 33)).astype(np.float32) * 1e-5
-    return g, r
+_LAUNCHER = ThreadPoolExecutor(max_workers=3)
 
 
-def _a2a(n_ranks):
-    rs = np.random.RandomState(1)
-    x = rs.standard_normal((n_ranks, 8, 6, 5)).astype(np.float32)
-    ct = rs.standard_normal((n_ranks, 2, 24, 5)).astype(np.float32)
-    return x, ct
+@functools.lru_cache(maxsize=None)
+def _ckpt_dir():
+    """The parent's checkpoints for the ranks: ``whole`` (step 1, the
+    seeded state saved in this one process), ``corrupt`` (its copy with a
+    byte of ``CORRUPT_LEAF``'s file flipped), per world and layout,
+    ``fallback_<n>_<layout>`` (step 1 whole, step 2 the corrupt copy),
+    and per world and rank ``skew_<n>/rank<r>`` (step 1, and a whole step
+    2 on every rank but the first) and ``lost_<n>/rank<r>`` (steps 1 and
+    2 whole, step 2's manifest gone on the last rank)."""
+    d = tempfile.mkdtemp(prefix="repro_ckpt_")
+    CheckpointManager(os.path.join(d, "whole")).save(R.CKPT_STEP,
+                                                     R.ckpt_tree())
+    step = f"step_{R.CKPT_STEP:08d}"
+    good = os.path.join(d, "whole", step)
+    bad = os.path.join(d, "corrupt", step)
+    shutil.copytree(good, bad)
+    with open(os.path.join(bad, "manifest.json")) as f:
+        fname = {m["name"]: m["file"] for m in json.load(f)["leaves"]}
+    with open(os.path.join(bad, fname[CORRUPT_LEAF]), "r+b") as f:
+        f.seek(-3, os.SEEK_END)
+        byte = f.read(1)
+        f.seek(-3, os.SEEK_END)
+        f.write(bytes([byte[0] ^ 0x10]))
+    for n, meshes in R.CKPT_MESHES.items():
+        for name in meshes:
+            fb = os.path.join(d, f"fallback_{n}_{name}")
+            shutil.copytree(good, os.path.join(fb, step))
+            shutil.copytree(bad, os.path.join(fb, "step_00000002"))
+        for r in range(n):
+            skew = os.path.join(d, f"skew_{n}", f"rank{r}")
+            lost = os.path.join(d, f"lost_{n}", f"rank{r}")
+            for where in (skew, lost):
+                shutil.copytree(good, os.path.join(where, step))
+            for where in ((skew,) if r else ()) + (lost,):
+                shutil.copytree(good, os.path.join(where, "step_00000002"))
+        os.remove(os.path.join(d, f"lost_{n}", f"rank{n - 1}",
+                               "step_00000002", "manifest.json"))
+    return d
 
 
-def _cp_inputs():
-    rs = np.random.RandomState(2)
-    B, W, H, K, hd = 2, 64, 4, 2, 16
-    q = rs.standard_normal((B, 1, H, hd)).astype(np.float32)
-    ck = rs.standard_normal((B, W, K, hd)).astype(np.float32)
-    cv = rs.standard_normal((B, W, K, hd)).astype(np.float32)
-    pos = np.broadcast_to(np.arange(W, dtype=np.int32), (B, W)).copy()
-    pos[:, -3:] = -1                     # some empty slots
-    pos[1, :20] = -1                     # a shard that is nearly empty
-    q_pos = np.full((B, 1), 40, np.int32)
-    return q, ck, cv, pos, q_pos, dict(num_heads=H, num_kv_heads=K,
-                                       head_dim=hd)
-
-
-MOE_SPEC = dict(d_model=32, d_ff=16, num_experts=8, top_k=2,
-                capacity_factor=8.0)     # dropless, for exactness
-
-
-def _moe_inputs():
-    rs = np.random.RandomState(3)
-    E, D, F = 8, 32, 16
-    params = {
-        "router": rs.standard_normal((D, E)).astype(np.float32) * 0.2,
-        "w_gate": rs.standard_normal((E, D, F)).astype(np.float32) / 6,
-        "w_up": rs.standard_normal((E, D, F)).astype(np.float32) / 6,
-        "w_down": rs.standard_normal((E, F, D)).astype(np.float32) / 4,
-    }
-    x = rs.standard_normal((4, 8, D)).astype(np.float32)
-    return params, x
-
-
-A2A_SCALES = {"a:moe/dispatch": -4.0, "a:moe/expert_out": -4.0}
-
-MOE_DISTS = {
-    "ep": DistCtx(token_axes=("data",), ep_axis="model",
-                  all_axes=("data", "model")),
-    "ep_fsdp": DistCtx(token_axes=("data",), ep_axis="model",
-                       fsdp_axis="data", all_axes=("data", "model")),
-    "stationary": DistCtx(ep_axis="model", fsdp_axis="data",
-                          all_axes=("data", "model"), moe_stationary=True),
-}
-
-
-def _t(a):
-    return torch.from_numpy(np.ascontiguousarray(a))
-
-
-def _port_moe(params, x, dist, policy, dropless, scales=None):
-    from repro_torch.core.tape import QTape
-    tape = QTape(policy, dict(scales or {}), {})
-    y = moe.moe_ffn({k: _t(v) for k, v in params.items()},
-                    moe.MoESpec(**MOE_SPEC), _t(x), tape, "moe", dist,
-                    dropless=dropless)
-    return y.numpy()
-
-
-# ---------------------------------------------------------------------------
-# the ranks' side: every case of the module in one world
-# ---------------------------------------------------------------------------
-
-_KINDS = {"psum": "all-reduce", "pmax": "all-reduce",
-          "all_gather": "all-gather", "all_to_all": "all-to-all"}
-
-
-def _count_collectives(mesh) -> list:
-    """Wrap ``mesh``'s collectives so each call appends ``(kind, output
-    bytes)`` to the returned log (a psum or pmax counts its result, as an
-    all-reduce's output, though gloo gathers the ranks' copies to form
-    it)."""
-    log = []
-    for name, kind in _KINDS.items():
-        def counted(*a, _f=getattr(mesh, name), _k=kind, **kw):
-            out = _f(*a, **kw)
-            log.append((_k, out.numel() * out.element_size()))
-            return out
-        setattr(mesh, name, counted)
-    return log
-
-
-def _rank_plan(rank, mesh):
-    """K3's split count selected on a bound mesh, each rank's (injected)
-    timer preferring another plan, with every cache empty (``"empty"``),
-    with a plan preloaded (as from a cache file) on every rank but the
-    first (``"others"``) and on the first alone (``"first"``): for each,
-    ``(splits, plans this rank timed, gathers, splits of a second call,
-    gathers after it)``."""
-    from repro_torch.kernels import dispatch
-    timed, gathers = [], []
-
-    def fake(run, plan):
-        timed.append(plan)
-        return 1.0 if plan[0] == 2 + rank else 2.0
-    dispatch._time_plan = fake
-    dispatch.save_autotune = lambda path=None: None
-    gather = mesh.gather_list
-    mesh.gather_list = lambda *a: gathers.append(a) or gather(*a)
-
-    def select():
-        return dispatch.attn_blocks_for(
-            400, 4, 128, width=8, interpret=False, B=4, K=8,
-            launch=lambda: ((torch.zeros(4),),
-                            lambda scratch, x: (lambda plan: None)))
-    out = {}
-    try:
-        with M.use_mesh(mesh):
-            for case, preload in (("empty", ()),
-                                  ("others", range(1, mesh.size)),
-                                  ("first", (0,))):
-                dispatch.reset_autotune()
-                if rank in preload:
-                    dispatch._BLOCK_CACHE[("attn", 32, 512, 4, 128, 8, 0)] = \
-                        (3,)
-                del timed[:], gathers[:]
-                splits = select()
-                n_gathers = len(gathers)
-                out[case] = (splits, len(timed), n_gathers, select(),
-                             len(gathers))
-    finally:
-        del mesh.gather_list
-    return out
-
-
-def _rank_cases(rank, n):
-    out = {}
-    mesh = M.BoundMesh((n,), ("d",))
-    out["plan"] = _rank_plan(rank, mesh)
-    # the compressed all-reduce and tree, with an axis
-    g, r = _grads(n)
-    gh, rn = compress.compress_decompress(_t(g[rank]), _t(r[rank]), 8, "d",
-                                          mesh=mesh)
-    out["cd"] = (gh.numpy(), rn.numpy())
-    tg = {"w": _t(g[rank]), "b": _t(g[rank][0] * 1e-3)}
-    tr = {"w": _t(r[rank]), "b": _t(r[rank][0])}
-    gh, rn = compress.compress_tree(tg, tr, 16, "d", mesh=mesh)
-    out["tree"] = ({k: v.numpy() for k, v in gh.items()},
-                   {k: v.numpy() for k, v in rn.items()})
-    # the compressed all_to_all, forward and backward
-    x, ct = _a2a(n)
-    xt = _t(x[rank]).requires_grad_(True)
-    e = torch.tensor(-3.0, requires_grad=True)
-    y = compress.compressed_all_to_all(xt, e, 8, "d", split_axis=0,
-                                       concat_axis=1, mesh=mesh)
-    c = _t(ct[rank].reshape(y.shape))
-    gx, ge = torch.autograd.grad((y * c).sum(), (xt, e))
-    out["a2a"] = (y.detach().numpy(), gx.numpy(), float(ge))
-    # CP decode attention over the world's window shards
-    q, ck, cv, pos, q_pos, kw = _cp_inputs()
-    log = _count_collectives(mesh)
-    with M.use_mesh(mesh):
-        out["cp"] = cp_attention.cp_decode_attention(
-            _t(q), _t(ck), _t(cv), _t(pos), _t(q_pos), cp_axes=("d",),
-            **kw).numpy()
-        out["cp_collectives"] = list(log)
-        Wl = ck.shape[1] // n
-        sl = slice(rank * Wl, (rank + 1) * Wl)
-        out["cp_local"] = cp_attention.cp_decode_attention(
-            _t(q), _t(ck[:, sl]), _t(cv[:, sl]), _t(pos[:, sl]), _t(q_pos),
-            cp_axes=("d",), local=True, **kw).numpy()
-    if n == 4:
-        mesh2 = M.BoundMesh((2, 2), ("data", "model"))
-        out["coords"] = dict(mesh2.coords)
-        params, xm = _moe_inputs()
-        pol = PrecisionPolicy("float32")
-        log = _count_collectives(mesh2)
-        with M.use_mesh(mesh2):
-            for name, dist in MOE_DISTS.items():
-                dropless = name == "stationary"
-                del log[:]
-                out[f"moe_{name}"] = _port_moe(params, xm, dist, pol,
-                                               dropless)
-                out[f"moe_{name}_collectives"] = list(log)
-            del log[:]
-            out["moe_int8"] = _port_moe(
-                params, xm, MOE_DISTS["ep"],
-                PrecisionPolicy("float32", a2a_compress_bits=8), False,
-                A2A_SCALES)
-            out["moe_int8_collectives"] = list(log)
-    return out
-
-
-def _world_main(rank, n):
-    torch.manual_seed(0)
-    return _rank_cases(rank, n)
-
-
-_LAUNCHER = ThreadPoolExecutor(max_workers=2)
+CORRUPT_LEAF = "params/embed"
 
 
 @functools.lru_cache(maxsize=None)
 def _world_future(n):
     """The world of ``n`` ranks, started once, in the background: the
     reference's side of the tests runs here meanwhile."""
-    return _LAUNCHER.submit(M.spawn, _world_main, n, n, threads=1,
-                            timeout_s=TIMEOUT)
+    return _LAUNCHER.submit(M.spawn, R._world_main, n, n, _ckpt_dir(),
+                            threads=1, timeout_s=TIMEOUT)
 
 
 def _world(n):
     return _world_future(n).result()
 
 
+@functools.lru_cache(maxsize=None)
+def _failure_future():
+    """The report of a world of 3 that fails (``R.failing_world``),
+    started after the worlds above are done."""
+    def run():
+        for n in (2, 4):
+            _world_future(n).exception()
+        try:
+            M.spawn(R.failing_world, 3, threads=1, timeout_s=TIMEOUT)
+        except RuntimeError as e:
+            return str(e)
+        return None
+    return _LAUNCHER.submit(run)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _start_worlds():
     for n in (2, 4):
         _world_future(n)
+    _failure_future()
     yield
+    _failure_future().exception()
+    shutil.rmtree(_ckpt_dir(), ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -726,3 +607,172 @@ def test_moe_int8_lanes_match_reference():
         got = res["moe_int8"]
         err = np.abs(got - want).max() / (np.abs(want).max() + 1e-9)
         assert err < 1e-5, err
+
+
+# ---------------------------------------------------------------------------
+# resharded checkpoints (repro_torch.checkpoint with shardings)
+# ---------------------------------------------------------------------------
+
+CKPT_CASES = [(n, name) for n, meshes in R.CKPT_MESHES.items()
+              for name in meshes]
+
+
+def _leaf_entries(tmpl, ents) -> list:
+    """The entries at each leaf of ``tmpl``, in ``flatten``'s order (the
+    two trees walked together: leaf names may hold a ``/`` of their own)."""
+    if isinstance(tmpl, dict):
+        return [e for k in sorted(tmpl)
+                for e in _leaf_entries(tmpl[k], ents[k])]
+    if isinstance(tmpl, torch.Tensor):
+        return [ents]
+    return [e for f in dataclasses.fields(tmpl)
+            for e in _leaf_entries(getattr(tmpl, f.name),
+                                   getattr(ents, f.name))]
+
+
+def _block(a: np.ndarray, entries, shape, coords):
+    """A rank's block of ``a`` cut by hand: each sharded dim split into
+    equal parts, the rank's part at its row-major index over the axes."""
+    for dim, e in enumerate(entries):
+        if e is None:
+            continue
+        axes = (e,) if isinstance(e, str) else e
+        n, idx = 1, 0
+        for ax in axes:
+            n, idx = n * shape[ax], idx * shape[ax] + coords[ax]
+        size = a.shape[dim] // n
+        a = np.take(a, np.arange(idx * size, (idx + 1) * size), axis=dim)
+    return a
+
+
+def _digest(a: np.ndarray):
+    return (a.shape, str(torch.from_numpy(a).dtype),
+            hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest())
+
+
+@pytest.mark.parametrize("n,layout", CKPT_CASES)
+def test_resharded_restore_is_each_ranks_block(n, layout):
+    """Every rank's ``restore_latest(template, shardings)`` of the whole
+    state the parent saved equals its block of each leaf, bit for bit:
+    granite-smoke's train state under the layout's ``ShardingRules``
+    (TP over ``model``, FSDP over ``data``, or both)."""
+    shape = dict(zip(("data", "model"), R.CKPT_MESHES[n][layout]))
+    tmpl = R.ckpt_template()
+    ents = ShardingRules(M.AbstractMesh(tuple(shape.values()),
+                                        tuple(shape))).state_shardings(tmpl)
+    whole = {k: v.numpy() for k, v in flatten(R.ckpt_tree())}
+    at = dict(zip(whole, _leaf_entries(tmpl, ents)))
+    sharded = [k for k in whole if any(e is not None for e in at[k])]
+    assert len(sharded) >= 8, sharded
+    for rank, res in enumerate(_world(n)):
+        got = res["ckpt"][layout]
+        assert got["step"] == R.CKPT_STEP
+        assert list(got["leaves"]) == list(whole)
+        for k, a in whole.items():
+            want = _digest(_block(a, at[k], shape, got["coords"]))
+            assert got["leaves"][k] == want, (rank, k)
+
+
+@pytest.mark.parametrize("n,layout", CKPT_CASES)
+def test_sharded_save_is_the_whole_save(n, layout):
+    """The ranks' save of their shards (each sharded leaf gathered along
+    its axes, the first rank writing) holds the same files, byte for
+    byte, as this process's save of the whole state."""
+    _world(n)
+    step = f"step_{R.CKPT_STEP:08d}"
+    want_dir = os.path.join(_ckpt_dir(), "whole", step)
+    got_dir = os.path.join(_ckpt_dir(), f"saved_{n}_{layout}", step)
+    assert sorted(os.listdir(got_dir)) == sorted(os.listdir(want_dir))
+    for f in os.listdir(want_dir):
+        with open(os.path.join(want_dir, f), "rb") as a, \
+                open(os.path.join(got_dir, f), "rb") as b:
+            assert a.read() == b.read(), f
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_restore_without_shardings_is_the_whole_tree(n):
+    want = {k: _digest(v.numpy()) for k, v in flatten(R.ckpt_tree())}
+    for res in _world(n):
+        assert res["ckpt"]["whole"] == want
+
+
+@pytest.mark.parametrize("n,layout", CKPT_CASES)
+def test_corrupt_leaf_raises_on_every_rank(n, layout):
+    for rank, res in enumerate(_world(n)):
+        msg = res["ckpt"][layout]["corrupt"]
+        assert msg and f"leaf {CORRUPT_LEAF!r}: CRC32 mismatch" in msg, \
+            (rank, msg)
+
+
+@pytest.mark.parametrize("n,layout", CKPT_CASES)
+def test_restore_latest_falls_back_together(n, layout):
+    """Step 2 corrupt, step 1 whole: every rank fails step 2, they agree,
+    the first rank alone quarantines it, and all restore step 1."""
+    assert [r["ckpt"][layout]["fallback_step"] for r in _world(n)] == \
+        [R.CKPT_STEP] * n
+    d = os.path.join(_ckpt_dir(), f"fallback_{n}_{layout}")
+    assert sorted(os.listdir(d)) == ["corrupt_step_00000002",
+                                     f"step_{R.CKPT_STEP:08d}"]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_restore_latest_takes_the_first_ranks_steps(n):
+    """Every rank but the first sees a newer committed step (as when it
+    commits between the ranks' listings): all restore the first rank's
+    newest step, and nothing is quarantined."""
+    got = [r["ckpt"]["agreement"]["skew_step"] for r in _world(n)]
+    assert got == [R.CKPT_STEP] * n
+    d = os.path.join(_ckpt_dir(), f"skew_{n}")
+    assert [sorted(os.listdir(os.path.join(d, f"rank{r}")))
+            for r in range(n)] == \
+        [["step_00000001"]] + [["step_00000001", "step_00000002"]] * (n - 1)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_error_on_one_rank_raises_on_every_rank(n):
+    """Step 2's manifest is gone on the last rank alone: that rank's
+    ``FileNotFoundError`` is raised there and named on every other rank,
+    and no rank quarantines or falls back.  A bfloat16 leaf, which only
+    the writing rank converts, fails the sharded save on every rank."""
+    ranks = [r["ckpt"]["agreement"] for r in _world(n)]
+    for rank, res in enumerate(ranks):
+        msg = res["lost"]
+        assert msg is not None, rank
+        if rank == n - 1:
+            assert msg.startswith("FileNotFoundError:"), msg
+        else:
+            assert msg.startswith("CheckpointError:"), msg
+            assert f"failed on rank {n - 1}: FileNotFoundError" in msg, msg
+        assert res["lost_steps"] == [1, 2], (rank, res["lost_steps"])
+        want = ("TypeError: cannot checkpoint a torch.bfloat16 leaf"
+                if rank == 0 else "CheckpointWriteError:")
+        assert res["bf16"] is not None and res["bf16"].startswith(want), \
+            (rank, res["bf16"])
+        if rank:
+            assert "failed on rank 0: TypeError" in res["bf16"], res["bf16"]
+    assert not os.path.exists(os.path.join(_ckpt_dir(), f"bf16_{n}"))
+
+
+# ---------------------------------------------------------------------------
+# spawn's report of a world that fails
+# ---------------------------------------------------------------------------
+
+def test_spawn_reports_a_dead_ranks_stderr():
+    """Rank 1 writes a line to its stderr and calls ``os._exit(255)``:
+    ``spawn`` raises with its exit code and that line."""
+    msg = _failure_future().result()
+    assert msg is not None
+    assert "rank 1 died (exit code 255); its stderr ends:" in msg, msg
+    assert f"  | {R.DEATH_MARK}" in msg, msg
+
+
+def test_spawn_reports_a_lost_result_and_a_crash_after_it():
+    """Rank 0's result cannot be pickled: it exits 0 unheard, and the
+    report carries the pickling error from its stderr.  Rank 2 sends its
+    result and exits 255: the world fails all the same."""
+    msg = _failure_future().result()
+    assert msg is not None
+    assert "rank 0 exited 0 but its result never arrived" in msg, msg
+    assert "Can't" in msg and "lambda" in msg, msg
+    assert "rank 2 died (exit code 255) after sending its result" in msg, \
+        msg

@@ -271,3 +271,23 @@ def test_supervised_dfxp_steps_match_reference(fused):
         for k in want:
             np.testing.assert_array_equal(got[k].numpy(), want[k],
                                           err_msg=f"{what} {k}")
+
+
+@pytest.mark.parametrize("storage", ["sim", "packed"])
+def test_num_params_matches_reference(storage):
+    """``TrainState.num_params`` counts what the reference's counts: every
+    parameter element, a packed leaf by its mantissa's elements."""
+    jcfg, tcfg = CFGS["tied"]
+    jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    js = j_init_state(jp, jopt.sgd_init(jp), JT.group_shapes(jcfg),
+                      JPolicy("dfxp", storage=storage))
+    ts = t_init_state(tp, topt.sgd_init(tp), TT.group_shapes(tcfg),
+                      TPolicy("dfxp", storage=storage))
+    from repro_torch.core.packed import PackedArray
+    packed = [x for x in jax.tree.leaves(
+        ts.params, is_leaf=lambda n: isinstance(n, PackedArray))
+        if isinstance(x, PackedArray)]
+    assert bool(packed) == (storage == "packed")
+    assert ts.num_params() == js.num_params() == sum(
+        x.size for x in jax.tree.leaves(jp))

@@ -21,6 +21,7 @@ experts, top-4) and the llama4-smoke spec (top-1, shared expert):
   * two runs of the port give the same bits (the fixed-order combine).
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +29,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_moe_ranks as R
+from _torch_moe_ranks import PFX, SITES, _flat, _scales, _unflat
 from repro import configs as jconfigs
 from repro.core.policy import PrecisionPolicy as JPolicy
 from repro.core.tape import QTape as JTape
@@ -40,12 +43,6 @@ from repro_torch.models import moe as TM
 
 SPECS = ("granite_moe_1b", "llama4_maverick_400b")
 B, S = 2, 24
-PFX = "m"
-SITES = ("dispatch", "pre", "expert_out", "out", "shared/pre", "shared/out")
-WSITES = ("w_gate", "w_up", "w_down", "shared/w_gate", "shared/w_up",
-          "shared/w_down")
-
-
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     """One torch thread for this file's small tensors: the suite runs
@@ -65,25 +62,6 @@ def _specs(arch, cf=None):
     return j, t
 
 
-def _flat(tree, prefix=""):
-    if isinstance(tree, dict):
-        return {k2: v2 for k, v in tree.items()
-                for k2, v2 in _flat(v, f"{prefix}{k}/").items()}
-    return {prefix[:-1]: np.asarray(tree.detach() if isinstance(
-        tree, torch.Tensor) else tree)}
-
-
-def _unflat(flat):
-    out = {}
-    for k, v in flat.items():
-        d = out
-        *head, last = k.split("/")
-        for h in head:
-            d = d.setdefault(h, {})
-        d[last] = v
-    return out
-
-
 class _Capture:
     """Record the value entering each activation site of a tape."""
 
@@ -97,11 +75,6 @@ class _Capture:
                 return super().act(name, x)
 
         self.Tape = Tape
-
-
-def _scales():
-    names = [f"a:{PFX}/{s}" for s in SITES] + [f"w:{PFX}/{s}" for s in WSITES]
-    return names
 
 
 def _run_reference(jspec, params, x, arith, dropless, monkeypatch):
@@ -213,21 +186,6 @@ def test_moe_ffn_is_deterministic():
         assert torch.equal(runs[0][3][k], runs[1][3][k]), k
 
 
-def _ep_rank(rank, params, x, dropless):
-    """One rank of a TP = 2 serving world: granite's MoE block expert-
-    parallel over ``model`` (the tokens replicated, the experts halved)."""
-    from repro_torch.dist import serve_pod_ctx
-    from repro_torch.launch import mesh as M
-    _, tspec = _specs("granite_moe_1b")
-    p = {k: torch.from_numpy(np.array(v)) for k, v in _flat(params).items()}
-    exps = {n: torch.tensor(-6.0) for n in _scales()}
-    tape = TTape(TPolicy("dfxp"), exps, {})
-    with M.use_mesh(M.make_serve_mesh(tp=2)):
-        y = TM.moe_ffn(_unflat(p), tspec, torch.from_numpy(x), tape, PFX,
-                       dist=serve_pod_ctx(tp=2), dropless=dropless)
-    return y.numpy(), {k: v.numpy() for k, v in tape.stats.items()}
-
-
 @pytest.mark.parametrize("needs_grad", ["x", "w_up"])
 def test_expert_parallelism_refuses_autograd(needs_grad):
     """The expert-parallel collectives other than the compressed
@@ -248,6 +206,14 @@ def test_expert_parallelism_refuses_autograd(needs_grad):
         TM.moe_ffn(p, tspec, xt, tape, PFX, dist=serve_pod_ctx(tp=2))
 
 
+@functools.lru_cache(maxsize=None)
+def _ep_world():
+    """One world of two ranks for both cases below (prefill, decode)."""
+    from repro_torch.launch import mesh as M
+    params, x = _inputs("granite_moe_1b")
+    return M.spawn(R._ep_rank, 2, params, x, threads=1, timeout_s=120.0)
+
+
 @pytest.mark.parametrize("dropless", [False, True], ids=["prefill", "decode"])
 def test_expert_parallelism_raises(dropless):
     """Expert parallelism (ROADMAP item 22, ported): granite's MoE block
@@ -260,7 +226,6 @@ def test_expert_parallelism_raises(dropless):
     inside the island (dispatch, hidden, expert outputs) of the
     replicated tokens count twice, and the block's ``out`` site, outside
     it, once."""
-    from repro_torch.launch import mesh as M
     _, tspec = _specs("granite_moe_1b")
     params, x = _inputs("granite_moe_1b")
     p = {k: torch.from_numpy(np.array(v)) for k, v in _flat(params).items()}
@@ -268,8 +233,8 @@ def test_expert_parallelism_raises(dropless):
     tape = TTape(TPolicy("dfxp"), exps, {})
     want = TM.moe_ffn(_unflat(p), tspec, torch.from_numpy(x), tape, PFX,
                       dropless=dropless).numpy()
-    for y, stats in M.spawn(_ep_rank, 2, params, x, dropless, threads=1,
-                            timeout_s=120.0):
+    for ranks in _ep_world():
+        y, stats = ranks[dropless]
         err = np.abs(y - want).max() / np.abs(want).max()
         assert err < 1e-5, err
         assert set(stats) == set(tape.stats)

@@ -14,8 +14,9 @@
   teacher-forced logits are checked to separate their top two entries by
   more than the logits tolerance at every generated step, so a flipped
   token could only mean a real fault.
-* No module of ``repro_torch`` (nor ``chip_smoke.py``) imports ``jax`` or
-  ``repro`` — an AST scan of every file.
+* No module of ``repro_torch`` (nor ``chip_smoke.py``, nor the test
+  worlds' ``tests/_torch_*_ranks.py``) imports ``jax`` or ``repro`` — an
+  AST scan of every file.
 """
 import ast
 import functools
@@ -228,6 +229,8 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    # the test worlds' ranks import these by name: no jax in a rank
+    files += sorted((ROOT / "tests").glob("_torch_*_ranks.py"))
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
